@@ -1,24 +1,34 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,ntt,contract,lola,cryptonets]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build of the hand-written CUDA kernels from the checkout;
-  3. kernel phase: each kernel held bit-equal against its plain PyTorch
-     twin on the card, at the main path's shapes and a few more, with
-     its time;
-  4. slice phase: the LoLa-MNIST network (`build_lola_bsgs`, n = 8192,
-     k = 7, four plain primes, P-less key switching) at full width on the
-     real weights: keygen on the card, one warm-up and two timed records,
+  2. build of the hand-written CUDA kernels from the checkout, one nvcc
+     per source, all started together;
+  3. kernel phases: each kernel held bit-equal against its plain PyTorch
+     version on the card, at the main paths' shapes and a few more, with
+     its time (`ntt`: the two NTT kernels; `contract`: the exact modular
+     contraction at LoLa's conv, Dense(10) and Dense(100) of CryptoNets);
+  4. `lola`: the LoLa-MNIST network (`build_lola_bsgs`, n = 8192, k = 7,
+     four plain primes, P-less key switching) at full width on the real
+     weights: keygen on the card, one warm-up and two timed records,
      every record's decoded logits held against the Raw oracle, the
-     kernels' launch counts over the run, and the final noise budget.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+     kernels' launch counts over the run, and the final noise budget;
+  5. `cryptonets`: the CryptoNets-MNIST network (n = 8192, k = 7, three
+     ~30-bit plain primes, digit key switching, batch 8192, 784 input and
+     845 hidden columns) at full width on the real weights: keygen on the
+     card, one warm-up batch held against the Raw oracle's logits, one
+     timed batch whose 8192 predictions must equal the oracle's, launch
+     counts, peak memory and the final noise budget.
+With no argument every phase runs, and only then are the result lines
+printed: a JSON object with one entry per kernel, the card line, and the
+last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -35,6 +45,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # counts as one operation
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 TIMED_RECORDS = 2
+PHASES = ("build", "ntt", "contract", "lola", "cryptonets")
 
 
 def log(msg: str) -> None:
@@ -187,11 +198,95 @@ def kernel_phase(dev) -> list[dict]:
     ]
 
 
-# ----------------------------------------------------------------- slice
-def slice_phase(dev) -> dict:
+def contract_phase(dev) -> dict:
+    """K4 bit-equal to its plain version on the card at the shapes the
+    two networks give it, with weights that include negatives and
+    magnitudes above 2**31 (and, at LoLa's shape, above 2**63)."""
+    from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+
+    qs = default_coeff_modulus_128(8192)
+    q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rng = np.random.default_rng(7)
+    cases = [("LoLa conv", 5, 25, 4), ("CryptoNets Dense(10)", 10, 100, 3),
+             ("CryptoNets Dense(100)", 100, 845, 3)]
+    by_shape = []
+    for where, M, O, P in cases:
+        shape = (P, O, 1, 2, len(qs), 8192)
+        x = (torch.randint(0, 2**31, shape, generator=gen, device=dev,
+                           dtype=torch.int64) % q_col).to(torch.int32)
+        W = rng.integers(-(1 << 62), 1 << 62, size=(M, O))
+        W[0, 0], W[-1, -1] = -1, (1 << 31) + 1
+        if M * O <= 1000:   # Python-int weights: magnitudes past 2**63
+            W = W.astype(object)
+            W[0, 1], W[1, 0] = (1 << 80) + 12345, -(1 << 70) - 7
+        y = MM.exact_mod_contract(W, x, qs, q_col)
+        torch.cuda.synchronize()
+        y_ref = MM.exact_mod_contract_plain(W, x, qs, q_col)
+        torch.cuda.synchronize()
+        err = int((y.long() - y_ref.long()).abs().max())
+        if err or y.shape != y_ref.shape or y.dtype != y_ref.dtype:
+            raise SystemExit(f"mod_contract disagrees with its plain version "
+                             f"at [{M}, {O}] on {list(shape)}: {err}")
+        big = M * O > 10000
+        call = lambda: MM.exact_mod_contract(W, x, qs, q_col)  # noqa: E731
+        ms = event_ms(call, launches=5 if big else 50, repeats=3 if big else 5)
+        dev_ms = device_ms(call, "mod_contract_kernel",
+                           launches=5 if big else 50)
+        plain = event_ms(lambda: MM.exact_mod_contract_plain(W, x, qs, q_col),
+                         launches=1, repeats=1 if big else 3, warmup=0)
+        # one read of x, one write of the result, the (w, w') tables
+        nbytes = 4 * (x.numel() + y.numel()) + 8 * M * O * len(qs)
+        # three 32-bit multiplies per term (umulhi and two mullo)
+        ops = 3 * y.numel() * O
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_MUL_PER_S
+        by_shape.append(dict(
+            where=where, weights=[M, O], shape=list(shape), ms=ms,
+            device_ms=dev_ms, plain_ms=plain,
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=err))
+        log(f"mod_contract [{M}, {O}] on {list(shape)} ({where}): bit-equal "
+            f"to its plain version; per launch, events over back-to-back "
+            f"calls {ms:.4f} ms (weight tables made on the host in each "
+            f"call), profiler device time {dev_ms:.4f} ms, plain version "
+            f"{plain:.2f} ms, bound {by_shape[-1]['bound_ms']:.4f} ms by "
+            f"{by_shape[-1]['bound_by']}")
+        del x, y, y_ref
+    main = by_shape[-1]   # Dense(100): the largest call of the main paths
+    return dict(
+        name="mod_contract", route="cuda",
+        source="cryptonets_tpu_torch/kernels/modmatmul.cu",
+        replaces="cryptonets_tpu/kernels/modmatmul.py:71",
+        max_abs_err=max(c["max_abs_err"] for c in by_shape),
+        ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        # no PyTorch call computes an integer matrix product mod q on CUDA
+        library_ms=None, shape=main["shape"], weights=main["weights"],
+        by_shape=by_shape)
+
+
+# ---------------------------------------------------------------- slices
+def kernel_counts() -> dict:
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+    from cryptonets_tpu_torch.kernels import ntt as K
+
+    return {**K.LAUNCHES, **MM.LAUNCHES}
+
+
+def reset_kernel_counts() -> None:
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+    from cryptonets_tpu_torch.kernels import ntt as K
+
+    for counts in (K.LAUNCHES, MM.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def lola_phase(dev) -> dict:
     """Full-width LoLa on the card, gated on the Raw oracle."""
     from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
-    from cryptonets_tpu_torch.kernels import ntt as K
     from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
@@ -201,8 +296,7 @@ def slice_phase(dev) -> dict:
     head_r.prepare_network()
     raws = [head_r.get_next().get_column(0) for _ in records]
 
-    for name in K.LAUNCHES:
-        K.LAUNCHES[name] = 0
+    reset_kernel_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     head, fac, _ = build_lola_bsgs(True, records=records, device=dev)
@@ -219,7 +313,7 @@ def slice_phase(dev) -> dict:
     lats, per_record = [], None
     out = None
     for i, raw in enumerate(raws):
-        before = dict(K.LAUNCHES)
+        before = kernel_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fwd().get_column(0)
@@ -234,20 +328,20 @@ def slice_phase(dev) -> dict:
                 f"record {i}: encrypted logits {enc[:10]} disagree with "
                 f"the Raw oracle {raw_logits[:10]}")
         rel = float(np.max(np.abs(enc - raw_logits) / np.abs(raw_logits)))
-        launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+        launched = {k: v - before[k] for k, v in kernel_counts().items()}
         if min(launched.values()) == 0:
-            raise SystemExit(f"record {i}: an NTT kernel never ran in the "
+            raise SystemExit(f"record {i}: a kernel never ran in the "
                              f"forward pass: {launched}")
         kind = "warm-up" if i == 0 else "timed"
         log(f"record {i} ({kind}): {lat:.4f} s, logits match the Raw "
             f"oracle (max relative difference {rel:.3e}), "
-            f"NTT launches {launched}")
+            f"kernel launches {launched}")
         if i > 0:
             lats.append(lat)
             per_record = launched
-    launches = dict(K.LAUNCHES)
+    launches = kernel_counts()
     if min(launches.values()) == 0:
-        raise SystemExit(f"an NTT kernel never ran on the path: {launches}")
+        raise SystemExit(f"a kernel never ran on the LoLa path: {launches}")
     budget = out.noise_budget()
     log(f"LoLa record latency: median {statistics.median(lats):.4f} s over "
         f"{len(lats)} records {lats}; final noise budget {budget} bits")
@@ -255,25 +349,125 @@ def slice_phase(dev) -> dict:
                 keygen_s=keygen_s, prepare_s=prepare_s, budget=budget)
 
 
+def cryptonets_phase(dev, batch: int = 8192) -> dict:
+    """Full-width CryptoNets on the card: one warm-up batch whose logits
+    are held against the Raw oracle, one timed batch whose predictions
+    must all equal the oracle's."""
+    from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
+    from cryptonets_tpu_torch.models import cryptonets_mnist
+    from cryptonets_tpu_torch.nn.forward import EncryptedForward
+
+    t0 = time.perf_counter()
+    records = synthetic_mnist_records(2 * batch, seed=11)
+    records_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    head_r, _, _ = cryptonets_mnist.build(
+        False, batch, records=[(lb, f.copy()) for lb, f in records])
+    head_r.prepare_network()
+    raws = [np.asarray(head_r.get_next().decrypt(), dtype=float)
+            for _ in range(2)]
+    log(f"CryptoNets host set-up: {2 * batch} synthetic records "
+        f"{records_s:.2f} s, Raw oracle of two batches "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head, fac, _ = cryptonets_mnist.build(True, batch, records=records,
+                                          device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    head.prepare_network()
+    prepare_s = time.perf_counter() - t0
+    log(f"CryptoNets factory + keygen on the card: {keygen_s:.3f} s; "
+        f"prepare: {prepare_s:.3f} s")
+
+    fwd = EncryptedForward(head)
+    lat = per_batch = out = None
+    for i, raw in enumerate(raws):
+        before = kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd()
+        enc = np.asarray(out.decrypt(), dtype=float)
+        lat = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        per_batch = {k: v - before[k] for k, v in kernel_counts().items()}
+        if min(per_batch.values()) == 0:
+            raise SystemExit(f"batch {i}: a kernel never ran in the forward "
+                             f"pass: {per_batch}")
+        if enc.shape != (batch, 10) or not np.all(np.isfinite(enc)):
+            raise SystemExit(f"batch {i}: output {enc.shape} is malformed")
+        wrong = int((np.argmax(enc, axis=1) != np.argmax(raw, axis=1)).sum())
+        # the same gate on the logits as for LoLa (see lola_phase)
+        close = bool(np.allclose(enc, raw, rtol=1e-9, atol=0))
+        if wrong or (i == 0 and not close):
+            raise SystemExit(
+                f"batch {i}: {wrong}/{batch} predictions differ from the "
+                f"Raw oracle's, logits within rtol 1e-9: {close}; "
+                f"enc[0]={enc[0]}, raw[0]={raw[0]}")
+        kind = "warm-up" if i == 0 else "timed"
+        log(f"CryptoNets batch {i} ({kind}): {lat:.4f} s "
+            f"({1e3 * lat / batch:.4f} ms per image), {batch}/{batch} "
+            f"predictions equal the Raw oracle's, logits within rtol 1e-9: "
+            f"{close}, kernel launches {per_batch}, peak memory "
+            f"{peak_gib:.2f} GiB")
+    launches = kernel_counts()
+    budget = min(v.noise_budget() for v in out.vectors)
+    if budget <= 0:
+        raise SystemExit("CryptoNets: the noise budget is exhausted")
+    log(f"CryptoNets batch latency {lat:.4f} s, {1e3 * lat / batch:.4f} ms "
+        f"per image; final noise budget {budget} bits (minimum over the 10 "
+        f"output columns and the plain primes)")
+    return dict(launches=launches, per_batch=per_batch, latency=lat,
+                keygen_s=keygen_s, prepare_s=prepare_s, budget=budget)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + "; the result lines need all of them")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phase in {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import cryptonets_tpu_torch  # noqa: F401  (fails outside the checkout)
+    from cryptonets_tpu_torch.kernels import build as B
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
 
     card = card_line()
     log(f"card: {card}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    B.build_sources([B.source("ntt.cu"), B.source("modmatmul.cu")])
     K.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {K.BUILD_SECONDS})")
-    kernels = kernel_phase(dev)
-    res = slice_phase(dev)
+    MM.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s, both sources in "
+        f"parallel (nvcc {B.BUILD_SECONDS})")
+    kernels = []
+    if "ntt" in phases:
+        kernels += kernel_phase(dev)
+    if "contract" in phases:
+        kernels.append(contract_phase(dev))
+    lola = lola_phase(dev) if "lola" in phases else None
+    cnets = cryptonets_phase(dev) if "cryptonets" in phases else None
+    if set(phases) != set(PHASES):
+        log(f"phases {phases} passed; run every phase for the result lines")
+        return 0
     for k in kernels:
-        k["launches"] = res["launches"][k["name"]]
-        k["launches_per_record"] = res["per_record"][k["name"]]
+        name = k["name"]
+        k["launches_lola"] = lola["launches"][name]
+        k["launches_cryptonets"] = cnets["launches"][name]
+        k["launches"] = k["launches_lola"] + k["launches_cryptonets"]
+        k["launches_per_record"] = lola["per_record"][name]
+        k["launches_per_batch"] = cnets["per_batch"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,13 @@
 """Factories: parameter/key owners and vector/matrix constructors.
 
-Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa main path
-uses.  `CrtBfvFactory` is the CRT "double decker" over plain primes: each
-value is split into residues mod each plain prime t_p, and every residue
-stream is a BFV pipeline over the SAME coefficient chain and key set,
-stacked on a leading P axis ([P, C, size, k, N] ciphertext data).  Slot
-encode (inverse NTT over Z_t) and decode (forward NTT over Z_t) run on
-the device with the same CUDA NTT as the ciphertext chain.  `RawFactory`
-is the plaintext float64 oracle.
+Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa and
+CryptoNets paths use.  `CrtBfvFactory` is the CRT "double decker" over
+plain primes: each value is split into residues mod each plain prime
+t_p, and every residue stream is a BFV pipeline over the SAME coefficient
+chain and key set, stacked on a leading P axis ([P, C, size, k, N]
+ciphertext data).  Slot encode (inverse NTT over Z_t) and decode (forward
+NTT over Z_t) run on the device with the same CUDA NTT as the ciphertext
+chain.  `RawFactory` is the plaintext float64 oracle.
 """
 
 from __future__ import annotations
@@ -22,6 +22,11 @@ from ..crypto.ntt import get_ntt_context, ntt_automorphism_perm
 from ..crypto.primes import default_coeff_modulus_128
 from ..device import resolve_device
 
+# Columns per piece of the device encode + encrypt.  A piece holds a few
+# int64 temporaries of [piece, k, N] per plain prime (59 MB each at 128
+# columns, k = 7, N = 8192), so a 784-column input never widens whole.
+ENCRYPT_CHUNK = 128
+
 
 class CrtBfvFactory:
     """The encrypted factory.  Keys are generated on `device` from `seed`
@@ -35,9 +40,10 @@ class CrtBfvFactory:
         n: int = 4096,
         coeff_count: int | None = None,
         coeff_modulus=None,
+        dbc: int = 16,
         seed: int = 0,
         rot_steps=(),
-        ks_alpha: int = 1,
+        ks_alpha: int = 0,
         device=None,
         keys=None,
     ):
@@ -55,7 +61,7 @@ class CrtBfvFactory:
                 "limb modulus"
             )
         self.params = [
-            BFVParams(n, t, coeff_modulus=chain, ks_alpha=ks_alpha,
+            BFVParams(n, t, coeff_modulus=chain, dbc=dbc, ks_alpha=ks_alpha,
                       seed=seed, device=self.device)
             for t in self.plain_primes
         ]
@@ -73,6 +79,8 @@ class CrtBfvFactory:
         self._plain_ntt = get_ntt_context(n, self.plain_primes)
         self._index_map = torch.from_numpy(
             self.encoders[0].index_map).to(self.device)
+        # the index map depends on n only; its inverse permutation
+        self._slot_of_position = np.argsort(self.encoders[0].index_map)
         self._stack_cache: dict = {}
 
     # ------------------------------------------------- encrypt / decrypt
@@ -80,15 +88,19 @@ class CrtBfvFactory:
         """[..., n] integer slot values -> index-mapped [P, ..., n] uint32
         buffers for the device-side encode (the only host work of encrypt)."""
         s64 = slotsets_int.astype(np.int64)
-        bufs = np.zeros((self.P,) + s64.shape, np.uint32)
+        bufs = np.empty((self.P,) + s64.shape, np.uint32)
         for pi, t in enumerate(self.plain_primes):
-            bufs[pi][..., self.encoders[pi].index_map] = (s64 % t).astype(np.uint32)
+            # buffer[index_map[i]] = slot i, as a gather by the inverse map
+            # (ten times faster in numpy than the scatter)
+            bufs[pi] = np.take((s64 % t).astype(np.uint32),
+                               self._slot_of_position, axis=-1)
         return bufs
 
     def _encrypt_all_dev(self, bufs) -> torch.Tensor:
         """Index-mapped slot values [P, C, n] (mod t_p) -> ciphertext data
         [P, C, 2, k, N]: the Z_t inverse NTT on the device, coefficients
-        broadcast over the limbs (t < every q_i), then RLWE encryption."""
+        broadcast over the limbs (t < every q_i), then RLWE encryption, in
+        pieces of ENCRYPT_CHUNK columns."""
         if isinstance(bufs, np.ndarray):
             bufs = torch.from_numpy(
                 np.ascontiguousarray(bufs, np.uint32).view(np.int32))
@@ -96,12 +108,16 @@ class CrtBfvFactory:
         k = len(self.coeff_modulus)
         C = bufs.shape[1]
         coeffs = self._plain_ntt.inverse(bufs.transpose(0, 1))  # [C, P, n]
-        return torch.stack([
-            self.bfv[pi].encrypt(
-                self.keys, coeffs[:, pi, None, :].expand(C, k, self.n),
-                self._gen)
-            for pi in range(self.P)
-        ])
+        out = torch.empty((self.P, C, 2, k, self.n), dtype=torch.int32,
+                          device=self.device)
+        for c0 in range(0, C, ENCRYPT_CHUNK):
+            piece = coeffs[c0 : c0 + ENCRYPT_CHUNK]
+            for pi in range(self.P):
+                out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
+                    self.keys,
+                    piece[:, pi, None, :].expand(len(piece), k, self.n),
+                    self._gen)
+        return out
 
     def _decrypt_all(self, data) -> torch.Tensor:
         """[P, C, size, k, N] -> plaintext coefficients mod t_p [P, C, N]."""
@@ -116,6 +132,21 @@ class CrtBfvFactory:
         res = self._decrypt_all(data)
         ev = self._plain_ntt.forward(res.transpose(0, 1))    # [C, P, N]
         return ev[..., self._index_map].transpose(0, 1)
+
+    def decrypt_columns(self, data, dim: int) -> np.ndarray:
+        """Batched matrix decrypt: [P, V, C, size, k, N] -> [V, dim]
+        centered big ints, all V columns in one device pass."""
+        P, V, C = data.shape[:3]
+        flat = data.reshape(P, V * C, *data.shape[3:])
+        return self.join_decoded_columns(
+            self._decrypt_decode_all(flat).reshape(P, V, C, self.n), dim)
+
+    def join_decoded_columns(self, slots, dim: int) -> np.ndarray:
+        """Decoded slot residues [P, V, C, N] (device) -> centered big-int
+        values [V, dim]: one copy to the host, one vectorized CRT join."""
+        P, V = slots.shape[:2]
+        host = slots.cpu().numpy().reshape(P, V, -1).astype(np.int64)
+        return self.join_split_numbers([host[pi, :, :dim] for pi in range(P)])
 
     def join_split_numbers(self, residues) -> np.ndarray:
         """Per-prime slot values -> centered big ints (vectorized CRT)."""
@@ -227,6 +258,16 @@ class CrtBfvFactory:
 
         return HEMatrix(self, list(vectors), fmt)
 
+    def get_zero_vector(self, dim: int, scale: float = 1.0):
+        """A transparent (noise-free) encryption of zero: the padding
+        columns of a convolution."""
+        from .vector import HEVector
+
+        C = max(1, -(-dim // self.n))
+        data = torch.zeros((self.P, C, 2, len(self.coeff_modulus), self.n),
+                           dtype=torch.int32, device=self.device)
+        return HEVector(self, data=data, dim=dim, scale=scale, fmt="dense")
+
 
 class RawFactory:
     """Plaintext-double oracle backend (ref `IFactory.cs:138-238`)."""
@@ -267,3 +308,8 @@ class RawFactory:
         arr = np.stack([v.v for v in vectors])
         m = arr.T if fmt == "col" else arr
         return RawMatrix.from_scaled(m, vectors[0].scale, fmt, self.block_size)
+
+    def get_zero_vector(self, dim: int, scale: float = 1.0):
+        from .raw import RawVector
+
+        return RawVector.from_scaled(np.zeros(dim), scale, self.block_size)

@@ -3,6 +3,8 @@
 `keyset_from_numpy` reads the npz layout that the JAX package's
 `CrtBfvFactory._save_cached_keys` writes (`s_hat_mont`, `s2_hat_mont`,
 `p0_hat_mont`, `p1_hat_mont`, `relin_k0/k1`, `g_<elt>_k0/k1`, `s_small`).
+A switch key is `[omega, k, N]` in P-less RNS-group mode and `[k*D, k, N]`
+in digit mode; both are carried as they are.
 Both packages keep keys in the NTT domain, in Montgomery form and in the
 same Longa-Naehrig ordering, so an imported key set makes a port factory
 compute exactly what the JAX factory computes with the same keys.

@@ -10,9 +10,11 @@ here unchanged and every deterministic op is bit-equal to the reference.
 Ported: parameters and tables, keygen, encrypt, decrypt (raw residues and
 the BEHZ gamma scale-and-round mod t), plaintext multiply, the BEHZ
 ciphertext multiply, relinearization, Galois automorphisms and row/column
-rotations, with P-less RNS-group key switching (groups of `ks_alpha`
-limbs, keys mod Q, no special primes).  Digit-mode key switching and the
-special-prime mod-down are not ported yet.
+rotations, with two key-switching modes: digit decomposition (base
+2**dbc digits of every limb, `ks_alpha = 0`, SEAL 3.2's), in a stacked
+form and a form accumulated over the digits, and P-less RNS-group
+switching (groups of `ks_alpha` limbs, keys mod Q, no special primes).
+The special-prime mod-down is not ported yet.
 """
 
 from __future__ import annotations
@@ -106,7 +108,8 @@ class BFVParams:
         n: int,
         plain_modulus: int,
         coeff_modulus: tuple[int, ...] | None = None,
-        ks_alpha: int = 1,
+        dbc: int = 16,
+        ks_alpha: int = 0,
         seed: int = 0,
         *,
         device,
@@ -119,10 +122,13 @@ class BFVParams:
         self.q_list = qs
         self.k = len(qs)
         self.seed = seed
+        # ks_alpha > 0: P-less RNS-group switching; 0: digit decomposition
         self.ks_alpha = int(ks_alpha)
-        if self.ks_alpha < 1:
-            raise NotImplementedError(
-                "only P-less RNS-group key switching (ks_alpha >= 1) is ported")
+        self.ks_hybrid = self.ks_alpha > 0
+        self.dbc = int(dbc)
+        if self.ks_alpha < 0 or not 0 < (1 << self.dbc) < min(qs):
+            raise ValueError("digit width must fit the smallest limb")
+        self.digits_per_limb = -(-max(q.bit_length() for q in qs) // self.dbc)
         if self.t >= 1 << 31:
             raise NotImplementedError("plain moduli >= 2**31 are not ported")
 
@@ -188,13 +194,31 @@ class BFVParams:
         self.Binv_mod_msk = self.msk_chain.col([modinv(B_big % self.msk, self.msk)])
         self.B_mod_q = self.chain_q.scalar_col(B_big)
 
-        # ---- P-less RNS-group key switching: groups of ks_alpha data
-        # limbs, keys mod Q (no special primes, no mod-down)
-        alpha = self.ks_alpha
+        # switch keys live mod Q in both modes (no special primes)
         qp = qs
         self.qp_list = qp
         self.chain_qp = self.chain_q
         self.ntt_qp = self.ntt_q
+        if self.ks_hybrid:
+            self._init_group_switching()
+        else:
+            self._init_digit_switching()
+
+    def _init_digit_switching(self):
+        """Digit key switching: w_ij = 2^(dbc*j) on limb i, zero on the
+        others (delta_i is the CRT unit of limb i), [kD, k, 1]."""
+        D = self.digits_per_limb
+        dw = np.zeros((self.k * D, self.k), np.int64)
+        for i, q in enumerate(self.q_list):
+            for j in range(D):
+                dw[i * D + j, i] = (1 << (self.dbc * j)) % q
+        self.ks_digit_w = torch.from_numpy(dw[:, :, None]).to(self.device)
+
+    def _init_group_switching(self):
+        """P-less RNS-group key switching: groups of ks_alpha data limbs,
+        keys mod Q (no mod-down)."""
+        qs, qp, device = self.q_list, self.qp_list, self.device
+        alpha = self.ks_alpha
         self.ks_groups = [(i0, min(i0 + alpha, self.k)) for i0 in range(0, self.k, alpha)]
         self.ks_omega = len(self.ks_groups)
         inv_grp = []
@@ -228,8 +252,9 @@ class BFVParams:
 
 
 class SwitchKeys(NamedTuple):
-    """Key-switching keys, NTT + Montgomery domain, one per RNS group:
-    k0, k1 [omega, kp, N]."""
+    """Key-switching keys, NTT + Montgomery domain, one per RNS group
+    (k0, k1 [omega, kp, N]) or, in digit mode, one per (limb, digit)
+    pair ([k*D, k, N])."""
 
     k0: torch.Tensor
     k1: torch.Tensor
@@ -272,6 +297,13 @@ def _automorphism_tables_np(n: int, g: int):
 
 class BFV:
     """Keygen, encrypt, decrypt and evaluation over one BFVParams."""
+
+    # A digit key switch whose stacked digit tensor [k*D, ..., k, N]
+    # (int32) would pass this many bytes accumulates over the digits
+    # instead: the same sums, one digit's temporaries at a time.  Callers
+    # may set it per instance (a test sets 0 to force the accumulated
+    # form).
+    digit_stack_bytes = 1 << 31
 
     def __init__(self, params: BFVParams):
         self.p = params
@@ -343,18 +375,21 @@ class BFV:
         )
 
     def _make_switch_keys(self, targets_hat, s_mont, gen):
-        """K_j = (-(a s + e) + P * Qtilde_j * T, a) for each RNS group j
-        and every target T [G, kp, N]; returns (k0, k1) [G, omega, kp, N]."""
+        """K_j = (-(a s + e) + w_j * T, a) for every target T [G, kp, N]
+        and every component j: the RNS groups (w_j = Qtilde_j) or, in digit
+        mode, the (limb, digit) pairs (w_ij = 2^(dbc*j) * delta_i).
+        Returns (k0, k1) [G, components, kp, N]."""
         p = self.p
         c = p.chain_qp
         G = targets_hat.shape[0]
+        w = p.ks_pqt if p.ks_hybrid else p.ks_digit_w
         a_hat = sampling.uniform_mod_q(
-            gen, (G, p.ks_omega, len(p.qp_list), p.n), c.q, c.r_mod)
+            gen, (G, w.shape[0], len(p.qp_list), p.n), c.q, c.r_mod)
         e_hat = p.ntt_qp.forward(sampling.small_to_residues(
-            sampling.gauss(gen, (G, p.ks_omega, p.n)), c.q))
+            sampling.gauss(gen, (G, w.shape[0], p.n)), c.q))
         k0 = add_mod(
             neg_mod(add_mod(c.mont_mul(a_hat, s_mont), e_hat, c.q), c.q),
-            mul_const_mod(targets_hat[:, None], p.ks_pqt, c.q),
+            mul_const_mod(targets_hat[:, None], w, c.q),
             c.q,
         )
         return c.to_mont(k0), c.to_mont(a_hat)
@@ -497,12 +532,47 @@ class BFV:
         return sub_mod(conv_q, mul_const_mod(alpha_res, p.B_mod_q, cq.q), cq.q)
 
     # ----------------------------------------------------------- key switch
+    def _digit(self, poly, d: int):
+        """Digit d = (limb, position) of poly [..., k, N]: base-2^dbc
+        digit `position` of that limb's residues, broadcast over the limb
+        axis (a digit is a valid residue of every limb: 2^dbc < min q)."""
+        p = self.p
+        i, j = divmod(d, p.digits_per_limb)
+        dig = (poly[..., i, :] >> (p.dbc * j)) & ((1 << p.dbc) - 1)
+        return dig[..., None, :].expand(poly.shape)
+
+    def _decompose_digits(self, poly):
+        """poly [..., k, N] -> all k*D digits, [k*D, ..., k, N]."""
+        p = self.p
+        return torch.stack(
+            [self._digit(poly, d) for d in range(p.k * p.digits_per_limb)])
+
+    def _switch_key_digits_accumulated(self, poly, keys: SwitchKeys):
+        """The digit key switch one digit at a time: the sums of the
+        stacked form with one digit's NTT and products live at once."""
+        p = self.p
+        cq = p.chain_q
+        t0 = t1 = None
+        for d in range(p.k * p.digits_per_limb):
+            dhat = p.ntt_q.forward(self._digit(poly, d))
+            m0 = cq.mont_mul(dhat, keys.k0[d])
+            m1 = cq.mont_mul(dhat, keys.k1[d])
+            t0 = m0 if t0 is None else add_mod(t0, m0, cq.q)
+            t1 = m1 if t1 is None else add_mod(t1, m1, cq.q)
+        return p.ntt_q.inverse(torch.stack([t0, t1], dim=-3))
+
     def _switch_key_inner(self, poly, keys: SwitchKeys):
-        """P-less RNS-group key switch of poly [..., k, N] -> two polys
-        [..., 2, k, N] in the coefficient domain."""
+        """Key switch of poly [..., k, N] -> two polys [..., 2, k, N] in
+        the coefficient domain, by digits or by P-less RNS groups."""
         p = self.p
         cq, cqp = p.chain_q, p.chain_qp
-        dhat = p.ntt_qp.forward(self._group_decompose(poly))  # [omega, ..., kp, N]
+        if p.ks_hybrid:
+            dhat = p.ntt_qp.forward(self._group_decompose(poly))  # [omega, ..., kp, N]
+        else:
+            stacked = 4 * p.k * p.digits_per_limb * poly.numel()
+            if stacked > self.digit_stack_bytes:
+                return self._switch_key_digits_accumulated(poly, keys)
+            dhat = p.ntt_q.forward(self._decompose_digits(poly))  # [kD, ..., k, N]
         kshape = (keys.k0.shape[0],) + (1,) * (dhat.dim() - 3) + tuple(keys.k0.shape[1:])
         t0 = mod_sum(cqp.mont_mul(dhat, keys.k0.reshape(kshape)), cqp.q, dim=0)
         t1 = mod_sum(cqp.mont_mul(dhat, keys.k1.reshape(kshape)), cqp.q, dim=0)

@@ -3,9 +3,9 @@ plain PyTorch twins.
 
 `ntt_forward` / `ntt_inverse` are the only entry points.  A tensor on the
 CPU goes to the twin; a CUDA tensor goes to the kernel, which is built
-from `ntt.cu` at first use (`nvcc` for `sm_90a`, a shared library with a
-plain C interface, loaded with ctypes).  A build or launch failure raises:
-nothing falls back to the twin.  `LAUNCHES` counts kernel launches, so a
+from `ntt.cu` at first use (`kernels/build.py`: `nvcc` for `sm_90a`, a
+shared library with a plain C interface, loaded with ctypes).  A build or
+launch failure raises: nothing falls back to the twin.  `LAUNCHES` counts kernel launches, so a
 run can show that its path went through the kernels.
 
 Replaces `PallasNTTContext._fwd_kernel` / `_inv_kernel`
@@ -16,22 +16,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import time
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).with_name("ntt.cu")
-BUILD_DIR = Path(__file__).with_name("_build")
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17")
+from .build import load_library, source
+
+_SRC = source("ntt.cu")
 MAX_LOGN = 15  # one row of 2**15 uint32 = 128 KB of shared memory
 
 LAUNCHES = {"ntt_forward": 0, "ntt_inverse": 0}
-BUILD_SECONDS: list[float] = []
 
 
 @dataclass(frozen=True)
@@ -91,36 +85,10 @@ def ntt_inverse_plain(x: torch.Tensor, tab: NTTTables) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ build
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("CUDA toolkit not found: cannot build ntt.cu")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"nvcc not found at {nvcc}")
-    return nvcc
-
-
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     """Compile `ntt.cu` (once per source content) and load it."""
-    tag = hashlib.sha256(_SRC.read_bytes() + repr(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"libntt_{tag.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SRC)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        BUILD_SECONDS.append(time.perf_counter() - t0)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = load_library(_SRC)
     ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ntt_forward.argtypes = [ptr] * 5 + [ll, i, i, ptr]
     lib.ntt_forward.restype = i

@@ -1,16 +1,19 @@
 """The record pipeline of an encrypted network (port of the fused path
 of `EncryptedForward`, `cryptonets_tpu/nn/jit.py`).
 
-One call pulls a record from the reader and runs, on the factory's
-device: slot encode + RLWE encrypt, every layer above the EncryptLayer,
-gamma decrypt + slot decode.  The host only index-maps the input slots
-and CRT-joins the decoded outputs.  It runs eagerly, as a sequence of
-kernel launches; there is no whole-network compile to trace.
+One call pulls a record (LoLa: one image; CryptoNets: a batch of images
+in the SIMD slots) from the reader and runs, on the factory's device:
+slot encode + RLWE encrypt of every input column, every layer above the
+EncryptLayer, gamma decrypt + slot decode of every output column.  The
+host only index-maps the input slots and CRT-joins the decoded outputs.
+It runs eagerly, as a sequence of kernel launches; there is no
+whole-network compile to trace.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..api.matrix import HEMatrix
 from ..api.vector import HEVector
@@ -78,6 +81,10 @@ class EncryptedForward:
             for i in range(V)
         ], "col")
         out = self.run_encrypted(m)
-        for v in out.vectors:
-            v._dec_slots = fac._decrypt_decode_all(v.data)
+        # gamma decrypt + slot decode of every output column in one pass
+        blocks = [v.data.shape[1] for v in out.vectors]
+        slots = fac._decrypt_decode_all(
+            torch.cat([v.data for v in out.vectors], dim=1))
+        for v, s in zip(out.vectors, slots.split(blocks, dim=1)):
+            v._dec_slots = s
         return out

@@ -1,7 +1,11 @@
-"""LLConvReader (ref `LLConvReader.cs`), port of the reader of
-`cryptonets_tpu/nn/readers.py` that the LoLa main path uses: one record
-per get_next, pre-arranged on the client into the corners x offsets patch
-matrix (im2col before encryption, the LoLa design point)."""
+"""Input readers, port of `cryptonets_tpu/nn/readers.py`: `BatchReader`
+(ref `BatchReader.cs`: up to max_slots records per get_next, the batch in
+the matrix rows, which become the SIMD slots) and `LLConvReader` (ref
+`LLConvReader.cs`: one record per get_next, pre-arranged on the client
+into the corners x offsets patch matrix, im2col before encryption).
+
+Record format (TSV): sparse = "label dim idx:val idx:val ..."; dense =
+one value per column with the label at `label_column`."""
 
 from __future__ import annotations
 
@@ -25,6 +29,65 @@ def _parse_line(line: str, sparse: bool, label_column: int, norm: float):
         return np.iinfo(np.int32).max, np.asarray([float(x) for x in f]) * norm
     vals = [float(x) for i, x in enumerate(f) if i != label_column]
     return int(f[label_column]), np.asarray(vals) * norm
+
+
+class BatchReader(InputLayer):
+    """Reads up to max_slots records; the batch becomes the matrix ROWS
+    (SIMD slots after encryption) with the features as columns."""
+
+    def __init__(
+        self,
+        factory,
+        file_name: str | None = None,
+        max_slots: int = 0,
+        normalization_factor: float = 1.0,
+        scale: float = 1.0,
+        sparse_format: bool = True,
+        label_column: int = 0,
+    ):
+        super().__init__(None, factory)
+        self.file_name = file_name
+        self.max_slots = max_slots
+        self.normalization_factor = normalization_factor
+        self.scale = scale
+        self.sparse_format = sparse_format
+        self.label_column = label_column
+        self.labels = []
+        self._records = None
+        self._lines = None
+
+    def set_source_records(self, records):
+        """Inject (label, features) records instead of reading a file."""
+        self._records = list(records)
+        return self
+
+    def _read_rows(self):
+        if self._records is not None:
+            take = self._records[: self.max_slots]
+            self._records = self._records[self.max_slots :]
+            return [(lb, np.asarray(f) * self.normalization_factor)
+                    for lb, f in take]
+        if self._lines is None:
+            with open(self.file_name) as fh:
+                self._lines = fh.readlines()
+        take = self._lines[: self.max_slots]
+        self._lines = self._lines[self.max_slots :]
+        return [_parse_line(line, self.sparse_format, self.label_column,
+                            self.normalization_factor) for line in take]
+
+    def get_next(self):
+        rows = self._read_rows()
+        if not rows:
+            return None
+        self.labels = [r[0] for r in rows]
+        mat = np.stack([r[1] for r in rows])  # [batch, features]
+        return RawMatrix(mat, self.scale, "col", 0)
+
+    def output_dimension(self):
+        return -1
+
+    def get_output_scale(self):
+        return self.scale
 
 
 class LLConvReader(InputLayer):

@@ -1,16 +1,20 @@
-"""Where a LoLa record's time goes in the PyTorch/CUDA port, on one GPU.
+"""Where a record's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 scripts/torch_lola_breakdown.py [--records 5] [--seed 11]
+    python3 scripts/torch_lola_breakdown.py [--network LoLa|CryptoNets]
+        [--records 5] [--seed 11] [--batch 8192]
 
-Builds the full-width LoLa network (`build_lola_bsgs`, n = 8192, real
-weights) on the card and pulls records through the port's pipeline with a
-device synchronise after each stage: encode + encrypt, each layer, and
-decrypt + decode.  Prints the median seconds of each stage, then profiles
-one more record with torch.profiler: device busy time (sum of kernel
-times), the device's idle share of the record's wall time (profiled and
-unprofiled), the kernel launch count, and the kernels that take the most
-device time.  Writes the
-same JSON to chiprun_out/torch_lola_breakdown.json.  Fails without CUDA.
+Builds the full-width network on the card (LoLa: `build_lola_bsgs`, one
+image per record; CryptoNets: `cryptonets_mnist.build`, `--batch` images
+per record; n = 8192, real weights) and pulls records through the port's
+pipeline with a device synchronise after each stage: the reader and the
+slot buffers (both on the host), upload + encode + encrypt, each layer,
+and decrypt + decode.  Prints the median seconds and the peak device
+memory of each stage, then profiles one more record with torch.profiler:
+device busy time (sum of kernel times), the device's idle share of the
+record's wall time (profiled and unprofiled), the kernel launch count,
+the launches of the hand-written kernels, and the kernels that take the
+most device time.  Writes the same JSON to
+chiprun_out/torch_<network>_breakdown.json.  Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -28,38 +32,58 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def staged_record(fwd, sync):
-    """One record through the pipeline; returns {stage: seconds}."""
+    """One record through the pipeline; returns ({stage: seconds},
+    {stage: peak GiB allocated during the stage})."""
     from cryptonets_tpu_torch.api.matrix import HEMatrix
     from cryptonets_tpu_torch.api.vector import HEVector
+    from cryptonets_tpu_torch.nn.layers import TimingLayer
 
     fac = fwd.encrypt_layer.factory
-    times = {}
+    times, peaks = {}, {}
+
+    def done(stage, t0):
+        sync()
+        times[stage] = time.perf_counter() - t0
+        peaks[stage] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
     sync()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     raw = fwd.reader.get_next()
+    times["reader (host)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     bufs, (V, C, dim, scale) = fwd.slot_bufs(raw)
+    times["slot buffers (host)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     data = fac._encrypt_all_dev(bufs).reshape(fac.P, V, C, 2, -1, fac.n)
     m = HEMatrix(fac, [HEVector(fac, data=data[:, i], dim=dim, scale=scale)
                        for i in range(V)], "col")
-    sync()
-    times["encode+encrypt"] = time.perf_counter() - t0
+    del data
+    done("upload+encode+encrypt", t0)
     for i, layer in enumerate(fwd.layers):
+        if isinstance(layer, TimingLayer):
+            continue
         t0 = time.perf_counter()
         m = layer.apply(m)
-        sync()
-        times[f"{i}:{type(layer).__name__}"] = time.perf_counter() - t0
+        done(f"{i}:{type(layer).__name__}", t0)
     t0 = time.perf_counter()
-    out = m.get_column(0)
-    out._dec_slots = fac._decrypt_decode_all(out.data)
-    out.decrypt()
-    times["decrypt+decode"] = time.perf_counter() - t0
-    return times
+    slots = fac._decrypt_decode_all(torch.cat([v.data for v in m.vectors], dim=1))
+    for v, s in zip(m.vectors, slots.split([v.data.shape[1] for v in m.vectors], dim=1)):
+        v._dec_slots = s
+    m.decrypt()
+    done("decrypt+decode", t0)
+    return times, peaks
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--records", type=int, default=5)
+    ap.add_argument("--network", choices=("LoLa", "CryptoNets"), default="LoLa")
+    ap.add_argument("--records", type=int, default=5,
+                    help="timed records (CryptoNets: batches) after one warm-up")
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--batch", type=int, default=8192,
+                    help="images per CryptoNets batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_lola_breakdown: CUDA is not available", file=sys.stderr)
@@ -67,26 +91,38 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+    from cryptonets_tpu_torch.kernels import ntt as K
+    from cryptonets_tpu_torch.models import cryptonets_mnist
     from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
-    records = synthetic_mnist_records(args.records + 2, seed=args.seed)
-    head, fac, _ = build_lola_bsgs(True, records=records, device=dev)
+    per_record = args.batch if args.network == "CryptoNets" else 1
+    records = synthetic_mnist_records((args.records + 2) * per_record,
+                                      seed=args.seed)
+    if args.network == "CryptoNets":
+        head, fac, _ = cryptonets_mnist.build(True, args.batch, records=records,
+                                              device=dev)
+    else:
+        head, fac, _ = build_lola_bsgs(True, records=records, device=dev)
     head.prepare_network()
     fwd = EncryptedForward(head)
     staged_record(fwd, sync)  # warm-up: lazy forms and tables
     runs = [staged_record(fwd, sync) for _ in range(args.records)]
-    stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    total = [sum(r.values()) for r in runs]
+    stages = {k: statistics.median(r[0][k] for r in runs) for k in runs[0][0]}
+    peaks = {k: max(r[1][k] for r in runs) for k in runs[0][1]}
+    total = [sum(r[0].values()) for r in runs]
 
     sync()
+    hand = {**K.LAUNCHES, **MM.LAUNCHES}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fwd().get_column(0).decrypt()
+        fwd().decrypt()
         sync()
         wall = time.perf_counter() - t0
+    hand = {k: v - hand[k] for k, v in {**K.LAUNCHES, **MM.LAUNCHES}.items()}
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
          for e in prof.key_averages()
@@ -100,6 +136,8 @@ def main() -> int:
     busy_ms = sum(k[1] for k in kernels)
     result = {
         "card": torch.cuda.get_device_name(0),
+        "network": args.network,
+        "images_per_record": per_record,
         "records": args.records,
         "record_s_median": statistics.median(total),
         "stage_s_median": stages,
@@ -111,16 +149,19 @@ def main() -> int:
         "device_idle_share_unprofiled": max(
             0.0, 1 - busy_ms / (1e3 * statistics.median(total))),
         "kernel_launches": sum(k[2] for k in kernels),
+        "hand_kernel_launches": hand,
         "top_kernels_ms": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:12]
         ],
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "stage_peak_mem_gib": peaks,
+        "peak_mem_gib": max(peaks.values()),
     }
     for k, v in stages.items():
-        print(f"{k:32s} {1e3 * v:9.3f} ms")
+        print(f"{k:32s} {1e3 * v:10.3f} ms   peak {peaks.get(k, 0.0):6.2f} GiB")
     print(json.dumps(result))
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "torch_lola_breakdown.json"), "w") as fh:
+    name = f"torch_{args.network.lower()}_breakdown.json"
+    with open(os.path.join("chiprun_out", name), "w") as fh:
         json.dump(result, fh, indent=1)
     return 0
 

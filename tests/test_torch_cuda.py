@@ -1,5 +1,5 @@
-"""The hand-written CUDA NTT kernels (cryptonets_tpu_torch/kernels/ntt.cu)
-against their plain twins, on the card.  Needs a CUDA device: skips
+"""The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu and
+modmatmul.cu) against their plain versions, on the card.  Needs a CUDA device: skips
 without one.  On the card:
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`
 (chip_smoke.py runs the same comparison at the main path's shapes)."""
@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 
 from cryptonets_tpu_torch.crypto.ntt import get_ntt_context  # noqa: E402
 from cryptonets_tpu_torch.crypto.primes import ntt_primes  # noqa: E402
+from cryptonets_tpu_torch.kernels import modmatmul as MM  # noqa: E402
 from cryptonets_tpu_torch.kernels import ntt as K  # noqa: E402
 
 
@@ -31,3 +32,30 @@ def test_cuda_kernels_match_twins(shape):
     assert torch.equal(z, x)
     assert K.LAUNCHES["ntt_forward"] == before["ntt_forward"] + 1
     assert K.LAUNCHES["ntt_inverse"] == before["ntt_inverse"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,O,shape", [(5, 25, (2, 1, 2, 3, 1024)),
+                                       (13, 130, (1, 2, 2, 2, 64))])
+def test_cuda_mod_contract_matches_plain(M, O, shape):
+    """Ragged tiles of m (5 of 5, 13 of 8 + 8), O past one shared-memory
+    chunk, negative weights and Python ints past 2**63."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    import numpy as np
+
+    P, C, s, k, n = shape
+    qs = ntt_primes(n, 31, k)
+    q_col = torch.tensor(qs, dtype=torch.int64, device="cuda").view(-1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randint(0, 1 << 31, (P, O, C, s, k, n), generator=gen,
+                       device="cuda") % q_col).to(torch.int32)
+    W = np.random.default_rng(3).integers(
+        -(1 << 62), 1 << 62, size=(M, O)).astype(object)
+    W[0, 0], W[-1, -1] = (1 << 90) + 1, -(1 << 64) - 5
+    before = MM.LAUNCHES["mod_contract"]
+    y = MM.exact_mod_contract(W, x, qs, q_col)
+    assert MM.LAUNCHES["mod_contract"] == before + 1
+    assert torch.equal(y, MM.exact_mod_contract_plain(W, x, qs, q_col))
+    with pytest.raises(ValueError):
+        MM.exact_mod_contract(W, x.long(), qs, q_col)  # not int32 storage
