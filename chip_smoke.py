@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,ntt,contract,lola,cryptonets]
+    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,lola,
+                           cryptonets,lola_small,caltech]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -8,11 +9,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      per source, all started together;
   3. kernel phases: each kernel held bit-equal against its plain PyTorch
      version on the card, at the main paths' shapes and a few more, with
-     its time (`ntt`: the two NTT kernels; `contract`: the exact modular
-     contraction at LoLa's conv, Dense(10) and Dense(100) of CryptoNets);
+     its time (`ntt`: the two butterfly NTT kernels at every launch shape
+     and chain of the four single-record paths; `mmntt`: the two
+     four-step NTT kernels at the shapes of the LoLaSmall and Caltech-101
+     runs and a few more, and a negacyclic product through them against
+     the butterfly kernels; `contract`: the exact modular contraction at
+     LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets);
   4. `lola`: the LoLa-MNIST network (`build_lola_bsgs`, n = 8192, k = 7,
-     four plain primes, P-less key switching) at full width on the real
-     weights: keygen on the card, one warm-up and two timed records,
+     four plain primes, key switching without special primes) at full
+     width on the real weights: keygen on the card, one warm-up and two
+     timed records,
      every record's decoded logits held against the Raw oracle, the
      kernels' launch counts over the run, and the final noise budget;
   5. `cryptonets`: the CryptoNets-MNIST network (n = 8192, k = 7, three
@@ -20,7 +26,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      845 hidden columns) at full width on the real weights: keygen on the
      card, one warm-up batch held against the Raw oracle's logits, one
      timed batch whose 8192 predictions must equal the oracle's, launch
-     counts, peak memory and the final noise budget.
+     counts, peak memory and the final noise budget;
+  6. `lola_small`: the LoLaSmall network (n = 8192, five data limbs and
+     two special primes, hybrid key switching, two plain primes, real
+     weights) and `caltech`: the Caltech-101 linear head (n = 4096, three
+     limbs, 4096 features, 102 classes, seeded synthetic parameters), each
+     at full width and run twice, under the butterfly NTT and under the
+     four-step NTT: keygen on the card, one warm-up and two timed records,
+     every record against the Raw oracle, the launch counts held to the
+     kernels each run must and must not use, a positive final budget, and
+     the two runs' decoded logits equal.
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -44,8 +59,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # throughput), 132 SMs at the H100 SXM's 1.98 GHz boost clock; one multiply
 # counts as one operation
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
+INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
-PHASES = ("build", "ntt", "contract", "lola", "cryptonets")
+PHASES = ("build", "ntt", "mmntt", "contract", "lola", "cryptonets",
+          "lola_small", "caltech")
 
 
 def log(msg: str) -> None:
@@ -106,8 +123,83 @@ def device_ms(fn, kernel: str, launches: int = 50) -> float:
 
 
 # --------------------------------------------------------------- kernels
+BOUND_KEYS = ("bound_ms", "bound_by", "bytes_bound_ms", "int32_ops_ms",
+              "int8_ops_ms", "design_ops_ms")
+
+
+def modmat_bound(terms: int, nbytes: int) -> dict:
+    """The least time the card could take for an exact matrix product
+    modulo 31-bit primes with `terms` multiply-adds that moves `nbytes`.
+    The operations are the function's, not a kernel's: one 32 x 32 -> 64
+    bit product a term (two 32-bit multiplies) on the integer pipe, or 16
+    plane pairs of 8-bit digits a term (a multiply and an add each) on the
+    int8 tensor cores, whichever unit is the faster.  `design_ops_ms` is
+    apart: the three multiplies a term of the kernels as written (a Shoup
+    product reduced on the spot: umulhi and two mullo)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_int32 = 2 * terms / INT32_MUL_PER_S
+    t_int8 = 16 * 2 * terms / INT8_TENSOR_OPS_PER_S
+    t_ops = min(t_int32, t_int8)
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=1e3 * t_bytes, int32_ops_ms=1e3 * t_int32,
+                int8_ops_ms=1e3 * t_int8,
+                design_ops_ms=1e3 * 3 * terms / INT32_MUL_PER_S)
+
+
+def slice_c_chains(dev) -> list[tuple]:
+    """(where, shape, chain, is_plain) of the NTT launches of one LoLaSmall
+    and one Caltech-101 record, as those records make them: the q, Bsk
+    and Q*P chains (under either NTT) and the plain primes (the slot
+    encode and decode, always the butterfly NTT)."""
+    from cryptonets_tpu_torch.crypto.bfv import BFVParams
+    from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    def params(name):
+        cfg = CONFIGS[name]
+        chain = default_coeff_modulus_128(cfg["n"])[: cfg["coeff_count"]]
+        return cfg, BFVParams(cfg["n"], cfg["plain_primes"][0],
+                              coeff_modulus=chain, dbc=cfg.get("dbc", 16),
+                              n_special=cfg.get("n_special", 0), device=dev)
+
+    cfg, p = params("lola_small")
+    out = [
+        ("LoLaSmall conv, q", (25, 5, 8192), p.q_list, False),
+        ("LoLaSmall dense rows, q", (2, 10, 1, 2, 5, 8192), p.q_list, False),
+        ("LoLaSmall ladder, three groups over Q*P", (3, 2, 10, 1, 7, 8192),
+         p.qp_list, False),
+        ("LoLaSmall rotation, Q*P", (3, 2, 1, 7, 8192), p.qp_list, False),
+        ("LoLaSmall square, Bsk", (1, 3, len(p.bsk_list), 8192), p.bsk_list,
+         False),
+        ("LoLaSmall slot encode, Z_t", (25, 2, 8192), cfg["plain_primes"], True),
+        ("LoLaSmall slot decode, Z_t", (10, 2, 8192), cfg["plain_primes"], True),
+    ]
+    cfg, p = params("caltech")
+    out += [
+        ("Caltech ladder, six digits, q", (6, 1, 102, 1, 3, 4096), p.q_list,
+         False),
+        ("Caltech ladder, q", (1, 102, 1, 2, 3, 4096), p.q_list, False),
+        ("Caltech encrypt, q", (1, 3, 4096), p.q_list, False),
+        # the linear head never multiplies ciphertexts, so no record
+        # launches this chain; the factory builds it all the same
+        ("Caltech, Bsk", (1, 3, len(p.bsk_list), 4096), p.bsk_list, False),
+        ("Caltech slot decode, Z_t", (102, 1, 4096), cfg["plain_primes"], True),
+        ("Caltech slot encode, Z_t", (1, 1, 4096), cfg["plain_primes"], True),
+    ]
+    return out
+
+
+def _residues(shape, mods, gen, dev):
+    """Uniform residues [..., L, N] of the chain `mods`, int32 storage."""
+    q = torch.tensor(mods, dtype=torch.int64, device=dev).view(-1, 1)
+    return (torch.randint(0, 2**31, shape, generator=gen, device=dev,
+                          dtype=torch.int64) % q).to(torch.int32)
+
+
 def kernel_phase(dev) -> list[dict]:
-    """K1/K2 bit-equal to their twins on the card, round trip exact."""
+    """K1/K2 bit-equal to their twins on the card, round trip exact, at
+    the shapes and chains the four single-record paths launch them."""
     from cryptonets_tpu_torch.crypto.bfv import BFVParams
     from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
@@ -126,15 +218,15 @@ def kernel_phase(dev) -> list[dict]:
     cases += [((4, 64, 7, 8192), q_chain),
               ((25, 4, 8192), lola["plain_primes"]),
               ((1, 3, len(bsk), 8192), bsk)]
+    # every launch shape of a LoLaSmall and a Caltech-101 record
+    cases += [(shape, mods) for _, shape, mods, _ in slice_c_chains(dev)]
     gen = torch.Generator(device=dev).manual_seed(5)
     err = {"ntt_forward": 0, "ntt_inverse": 0}
     timing = {}
     for shape, mods in cases:
         n = shape[-1]
         tab = get_ntt_context(n, mods).tables(dev)
-        q = tab.q.to(torch.int64)
-        x = (torch.randint(0, 2**31, shape, generator=gen, device=dev,
-                           dtype=torch.int64) % q).to(torch.int32)
+        x = _residues(shape, mods, gen, dev)
         y = K.ntt_forward(x, tab)
         y_ref = K.ntt_forward_plain(x, tab)
         z = K.ntt_inverse(y, tab)
@@ -205,17 +297,19 @@ def contract_phase(dev) -> dict:
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
     from cryptonets_tpu_torch.kernels import modmatmul as MM
 
-    qs = default_coeff_modulus_128(8192)
-    q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
+    chain = default_coeff_modulus_128(8192)
     gen = torch.Generator(device=dev).manual_seed(7)
     rng = np.random.default_rng(7)
-    cases = [("LoLa conv", 5, 25, 4), ("CryptoNets Dense(10)", 10, 100, 3),
-             ("CryptoNets Dense(100)", 100, 845, 3)]
+    # (where, M, O, plain primes, limbs); the last is the largest call
+    cases = [("LoLa conv", 5, 25, 4, 7), ("LoLaSmall conv", 5, 25, 2, 5),
+             ("CryptoNets Dense(10)", 10, 100, 3, 7),
+             ("CryptoNets Dense(100)", 100, 845, 3, 7)]
     by_shape = []
-    for where, M, O, P in cases:
-        shape = (P, O, 1, 2, len(qs), 8192)
-        x = (torch.randint(0, 2**31, shape, generator=gen, device=dev,
-                           dtype=torch.int64) % q_col).to(torch.int32)
+    for where, M, O, P, k in cases:
+        qs = chain[:k]
+        q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
+        shape = (P, O, 1, 2, k, 8192)
+        x = _residues(shape, qs, gen, dev)
         W = rng.integers(-(1 << 62), 1 << 62, size=(M, O))
         W[0, 0], W[-1, -1] = -1, (1 << 31) + 1
         if M * O <= 1000:   # Python-int weights: magnitudes past 2**63
@@ -238,21 +332,20 @@ def contract_phase(dev) -> dict:
                          launches=1, repeats=1 if big else 3, warmup=0)
         # one read of x, one write of the result, the (w, w') tables
         nbytes = 4 * (x.numel() + y.numel()) + 8 * M * O * len(qs)
-        # three 32-bit multiplies per term (umulhi and two mullo)
-        ops = 3 * y.numel() * O
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_MUL_PER_S
+        bound = modmat_bound(y.numel() * O, nbytes)
         by_shape.append(dict(
             where=where, weights=[M, O], shape=list(shape), ms=ms,
-            device_ms=dev_ms, plain_ms=plain,
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            max_abs_err=err))
+            device_ms=dev_ms, plain_ms=plain, max_abs_err=err, **bound))
         log(f"mod_contract [{M}, {O}] on {list(shape)} ({where}): bit-equal "
             f"to its plain version; per launch, events over back-to-back "
             f"calls {ms:.4f} ms (weight tables made on the host in each "
             f"call), profiler device time {dev_ms:.4f} ms, plain version "
-            f"{plain:.2f} ms, bound {by_shape[-1]['bound_ms']:.4f} ms by "
-            f"{by_shape[-1]['bound_by']}")
+            f"{plain:.2f} ms, bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']} (bytes {bound['bytes_bound_ms']:.4f} ms; "
+            f"the function's operations on the integer pipe "
+            f"{bound['int32_ops_ms']:.4f} ms, on the int8 tensor cores "
+            f"{bound['int8_ops_ms']:.4f} ms; the kernel's three multiplies a "
+            f"term {bound['design_ops_ms']:.4f} ms)")
         del x, y, y_ref
     main = by_shape[-1]   # Dense(100): the largest call of the main paths
     return dict(
@@ -261,27 +354,158 @@ def contract_phase(dev) -> dict:
         replaces="cryptonets_tpu/kernels/modmatmul.py:71",
         max_abs_err=max(c["max_abs_err"] for c in by_shape),
         ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
-        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        **{k: main[k] for k in BOUND_KEYS},
         # no PyTorch call computes an integer matrix product mod q on CUDA
         library_ms=None, shape=main["shape"], weights=main["weights"],
         by_shape=by_shape)
 
 
+def mmntt_phase(dev) -> list[dict]:
+    """K5 forward and inverse bit-equal to their plain versions on the
+    card, round trip exact, at every ciphertext NTT shape of a LoLaSmall
+    and a Caltech-101 record and a few more; and a negacyclic product
+    through K5 equal to the same product through K1/K2."""
+    from cryptonets_tpu_torch.crypto.ntt import ntt_context_for
+    from cryptonets_tpu_torch.crypto.primes import (default_coeff_modulus_128,
+                                                    ntt_primes)
+    from cryptonets_tpu_torch.kernels import matmul_ntt as M
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    cal = CONFIGS["caltech"]
+    cases = [
+        ((64, 7, 8192), default_coeff_modulus_128(8192)),
+        ((8, 3, 4096), default_coeff_modulus_128(4096)[: cal["coeff_count"]]),
+        ((4, 14, 16384), default_coeff_modulus_128(16384)),
+        ((3, 2, 256), ntt_primes(256, 31, 2)),
+    ]
+    # every ciphertext NTT shape of a LoLaSmall and a Caltech-101 record:
+    # the q, Bsk and Q*P chains at n = 8192 and n = 4096
+    chains = [c for c in slice_c_chains(dev) if not c[3]]
+    record_shapes = {shape: where for where, shape, _, _ in chains}
+    cases += [(shape, mods) for _, shape, mods, _ in chains]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    names = ("matmul_ntt_forward", "matmul_ntt_inverse")
+    err = dict.fromkeys(names, 0)
+    timing, by_shape = {}, []
+    for shape, mods in cases:
+        n = shape[-1]
+        tab = ntt_context_for("matmul", n, mods).tables(dev)
+        x = _residues(shape, mods, gen, dev)
+        y = M.matmul_ntt_forward(x, tab)
+        y_ref = M.matmul_ntt_forward_plain(x, tab)
+        z = M.matmul_ntt_inverse(y, tab)
+        z_ref = M.matmul_ntt_inverse_plain(y, tab)
+        torch.cuda.synchronize()
+        e_f = int((y.long() - y_ref.long()).abs().max())
+        e_i = int((z.long() - z_ref.long()).abs().max())
+        if e_f or e_i or not torch.equal(z, x):
+            raise SystemExit(
+                f"four-step NTT kernel disagrees with its plain version at "
+                f"{shape}: forward {e_f}, inverse {e_i}, round trip "
+                f"{torch.equal(z, x)}")
+        err[names[0]] = max(err[names[0]], e_f)
+        err[names[1]] = max(err[names[1]], e_i)
+        calls = {names[0]: lambda: M.matmul_ntt_forward(x, tab),
+                 names[1]: lambda: M.matmul_ntt_inverse(y, tab)}
+        if shape in record_shapes:
+            dev_ms = [device_ms(calls[name], "matmul_ntt_kernel", launches=20)
+                      for name in names]
+            by_shape.append(dict(where=record_shapes[shape], shape=list(shape),
+                                 device_ms=dev_ms))
+            log(f"four-step NTT {list(shape)} ({record_shapes[shape]}): "
+                f"bit-equal to its plain version, round trip exact; profiler "
+                f"device time forward {dev_ms[0]:.4f} ms, inverse "
+                f"{dev_ms[1]:.4f} ms")
+        else:
+            log(f"four-step NTT {list(shape)}: forward and inverse bit-equal "
+                f"to their plain versions, round trip exact")
+        if shape != cases[0][0]:
+            continue
+        plains = {names[0]: lambda: M.matmul_ntt_forward_plain(x, tab),
+                  names[1]: lambda: M.matmul_ntt_inverse_plain(y, tab)}
+        N1, N2 = M.split4(n)
+        rows, L = x.numel() // n, shape[-2]
+        # the data read and written once, each limb's tables once
+        nbytes = 2 * x.numel() * 4 + L * 8 * (2 * n + N1 * N1 + N2 * N2) + L * 4
+        # N * (N1 + N2) terms a row
+        bound = modmat_bound(rows * n * (N1 + N2), nbytes)
+        for name in names:
+            timing[name] = dict(
+                ms=event_ms(calls[name], launches=20),
+                device_ms=device_ms(calls[name], "matmul_ntt_kernel",
+                                    launches=20),
+                plain_ms=event_ms(plains[name], launches=3, repeats=3,
+                                  warmup=1),
+                shape=list(shape), **bound)
+            t = timing[name]
+            log(f"{name} {list(shape)}: events {t['ms']:.4f} ms, profiler "
+                f"device time {t['device_ms']:.4f} ms, plain version "
+                f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms by "
+                f"{t['bound_by']} (bytes {t['bytes_bound_ms']:.4f} ms; the "
+                f"function's operations on the integer pipe "
+                f"{t['int32_ops_ms']:.4f} ms, on the int8 tensor cores "
+                f"{t['int8_ops_ms']:.4f} ms; the kernel's three multiplies a "
+                f"term {t['design_ops_ms']:.4f} ms)")
+    # a negacyclic product of two random polynomials through either NTT
+    mods = default_coeff_modulus_128(8192)
+    mm = ntt_context_for("matmul", 8192, mods)
+    bf = ntt_context_for("butterfly", 8192, mods)
+    q = torch.tensor(mods, dtype=torch.int64, device=dev).view(-1, 1)
+    a = _residues((2, 7, 8192), mods, gen, dev)
+    b = _residues((2, 7, 8192), mods, gen, dev)
+    prod = [c.inverse((c.forward(a).long() * c.forward(b).long() % q).int())
+            for c in (mm, bf)]
+    torch.cuda.synchronize()
+    if not torch.equal(*prod):
+        raise SystemExit("a negacyclic product through the four-step NTT "
+                         "differs from the same product through K1/K2")
+    log("negacyclic product [2, 7, 8192]: four-step NTT equals butterfly NTT")
+    return [
+        dict(name=name, route="cuda",
+             source="cryptonets_tpu_torch/kernels/matmul_ntt.cu",
+             replaces=replaces, max_abs_err=err[name],
+             # no single PyTorch call is a modular matrix product
+             library_ms=None, **timing[name],
+             by_shape=[dict(where=c["where"], shape=c["shape"],
+                            device_ms=c["device_ms"][i]) for c in by_shape])
+        for i, (name, replaces) in enumerate((
+            (names[0], "cryptonets_tpu/kernels/matmul_ntt.py:211"),
+            (names[1], "cryptonets_tpu/kernels/matmul_ntt.py:222"),
+        ))
+    ]
+
+
 # ---------------------------------------------------------------- slices
-def kernel_counts() -> dict:
+BUTTERFLY_KERNELS = ("ntt_forward", "ntt_inverse")
+MATMUL_KERNELS = ("matmul_ntt_forward", "matmul_ntt_inverse")
+
+
+def _count_tables() -> tuple:
+    from cryptonets_tpu_torch.kernels import matmul_ntt as M
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
 
-    return {**K.LAUNCHES, **MM.LAUNCHES}
+    return K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES
+
+
+def kernel_counts() -> dict:
+    return {k: v for counts in _count_tables() for k, v in counts.items()}
 
 
 def reset_kernel_counts() -> None:
-    from cryptonets_tpu_torch.kernels import modmatmul as MM
-    from cryptonets_tpu_torch.kernels import ntt as K
-
-    for counts in (K.LAUNCHES, MM.LAUNCHES):
+    for counts in _count_tables():
         for name in counts:
             counts[name] = 0
+
+
+def check_launches(where: str, launched: dict, expect, absent=()) -> None:
+    """A path names the kernels it runs and the ones it must not run."""
+    missing = [k for k in expect if launched[k] == 0]
+    stray = [k for k in absent if launched[k] != 0]
+    if missing or stray:
+        raise SystemExit(
+            f"{where}: kernels that never ran {missing}, kernels that ran "
+            f"and should not {stray}: {launched}")
 
 
 def lola_phase(dev) -> dict:
@@ -329,9 +553,8 @@ def lola_phase(dev) -> dict:
                 f"the Raw oracle {raw_logits[:10]}")
         rel = float(np.max(np.abs(enc - raw_logits) / np.abs(raw_logits)))
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
-        if min(launched.values()) == 0:
-            raise SystemExit(f"record {i}: a kernel never ran in the "
-                             f"forward pass: {launched}")
+        check_launches(f"LoLa record {i}", launched,
+                       BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
         kind = "warm-up" if i == 0 else "timed"
         log(f"record {i} ({kind}): {lat:.4f} s, logits match the Raw "
             f"oracle (max relative difference {rel:.3e}), "
@@ -340,8 +563,6 @@ def lola_phase(dev) -> dict:
             lats.append(lat)
             per_record = launched
     launches = kernel_counts()
-    if min(launches.values()) == 0:
-        raise SystemExit(f"a kernel never ran on the LoLa path: {launches}")
     budget = out.noise_budget()
     log(f"LoLa record latency: median {statistics.median(lats):.4f} s over "
         f"{len(lats)} records {lats}; final noise budget {budget} bits")
@@ -395,9 +616,8 @@ def cryptonets_phase(dev, batch: int = 8192) -> dict:
         lat = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         per_batch = {k: v - before[k] for k, v in kernel_counts().items()}
-        if min(per_batch.values()) == 0:
-            raise SystemExit(f"batch {i}: a kernel never ran in the forward "
-                             f"pass: {per_batch}")
+        check_launches(f"CryptoNets batch {i}", per_batch,
+                       BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
         if enc.shape != (batch, 10) or not np.all(np.isfinite(enc)):
             raise SystemExit(f"batch {i}: output {enc.shape} is malformed")
         wrong = int((np.argmax(enc, axis=1) != np.argmax(raw, axis=1)).sum())
@@ -425,6 +645,91 @@ def cryptonets_phase(dev, batch: int = 8192) -> dict:
                 keygen_s=keygen_s, prepare_s=prepare_s, budget=budget)
 
 
+def slice_c_phase(dev, which: str) -> dict:
+    """Full-width LoLaSmall or Caltech-101 on the card, once under the
+    butterfly NTT and once under the four-step NTT: every record's logits
+    held against the Raw oracle, the launch counts held to the kernels
+    each run must and must not use, the two runs' decoded logits equal."""
+    from cryptonets_tpu_torch.data.preprocess import (
+        synthetic_feature_records, synthetic_mnist_records)
+    from cryptonets_tpu_torch.models import caltech101
+    from cryptonets_tpu_torch.models.lola_mnist import build_lola_small
+    from cryptonets_tpu_torch.nn.forward import EncryptedForward
+
+    if which == "lola_small":
+        title, n_out, build = "LoLaSmall", 10, build_lola_small
+        records = synthetic_mnist_records(1 + TIMED_RECORDS, seed=11)
+        conv = ("mod_contract",)
+    else:
+        title, n_out, build = "Caltech-101", caltech101.N_CLASSES, caltech101.build
+        records = synthetic_feature_records(
+            1 + TIMED_RECORDS, caltech101.N_FEATURES, seed=6)
+        conv = ()                      # a linear head: no contraction
+    copy = lambda: [(lb, f.copy()) for lb, f in records]  # noqa: E731
+    head_r, _, _ = build(False, records=copy())
+    head_r.prepare_network()
+    raws = [head_r.get_next().get_column(0).decrypt() for _ in records]
+    expect = {
+        "butterfly": (BUTTERFLY_KERNELS + conv,
+                      MATMUL_KERNELS + (() if conv else ("mod_contract",))),
+        # the slot encode and decode over Z_t stay on the butterfly NTT
+        "matmul": (MATMUL_KERNELS + BUTTERFLY_KERNELS + conv,
+                   () if conv else ("mod_contract",)),
+    }
+    runs, exact = {}, {}
+    for impl in ("butterfly", "matmul"):
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        head, fac, _ = build(True, records=copy(), device=dev, ntt_impl=impl)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        head.prepare_network()
+        prepare_s = time.perf_counter() - t0
+        fwd = EncryptedForward(head)
+        lats, per_record, out, exact[impl] = [], None, None, []
+        for i, raw in enumerate(raws):
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fwd().get_column(0)
+            enc = out.decrypt()
+            lat = time.perf_counter() - t0
+            if enc.shape != (n_out,) or not np.allclose(
+                    enc, raw, rtol=1e-9, atol=0):
+                raise SystemExit(
+                    f"{title} ({impl}) record {i}: encrypted logits "
+                    f"{enc[:10]} disagree with the Raw oracle {raw[:10]}")
+            if int(np.argmax(enc)) != int(np.argmax(raw)):
+                raise SystemExit(f"{title} ({impl}) record {i}: the "
+                                 f"prediction differs from the oracle's")
+            exact[impl].append(list(out.decrypt_full_precision()))
+            launched = {k: v - before[k] for k, v in kernel_counts().items()}
+            check_launches(f"{title} ({impl}) record {i}", launched,
+                           *expect[impl])
+            if i > 0:
+                lats.append(lat)
+                per_record = launched
+        budget = out.noise_budget()
+        if budget <= 0:
+            raise SystemExit(f"{title} ({impl}): the noise budget is exhausted")
+        log(f"{title} under the {impl} NTT: keygen {keygen_s:.3f} s, prepare "
+            f"{prepare_s:.3f} s, {len(fac.keys.galois)} Galois keys; every "
+            f"record's logits match the Raw oracle; timed records {lats}, "
+            f"median {statistics.median(lats):.4f} s; launches per record "
+            f"{per_record}; final noise budget {budget} bits")
+        runs[impl] = dict(launches=kernel_counts(), per_record=per_record,
+                          latency=lats, keygen_s=keygen_s,
+                          prepare_s=prepare_s, budget=budget)
+        del head, fac, fwd, out
+        torch.cuda.empty_cache()
+    if exact["butterfly"] != exact["matmul"]:
+        raise SystemExit(f"{title}: the decoded logits under the two NTTs differ")
+    log(f"{title}: the decoded logits under the two NTTs are equal")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -439,6 +744,7 @@ def main() -> int:
         return 1
     import cryptonets_tpu_torch  # noqa: F401  (fails outside the checkout)
     from cryptonets_tpu_torch.kernels import build as B
+    from cryptonets_tpu_torch.kernels import matmul_ntt as M
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
 
@@ -446,28 +752,44 @@ def main() -> int:
     log(f"card: {card}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    B.build_sources([B.source("ntt.cu"), B.source("modmatmul.cu")])
+    B.build_sources([B.source("ntt.cu"), B.source("modmatmul.cu"),
+                     B.source("matmul_ntt.cu")])
     K.build()
     MM.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s, both sources in "
-        f"parallel (nvcc {B.BUILD_SECONDS})")
+    M.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s, the three sources "
+        f"in parallel (nvcc {B.BUILD_SECONDS})")
     kernels = []
-    if "ntt" in phases:
-        kernels += kernel_phase(dev)
-    if "contract" in phases:
-        kernels.append(contract_phase(dev))
-    lola = lola_phase(dev) if "lola" in phases else None
-    cnets = cryptonets_phase(dev) if "cryptonets" in phases else None
+    for phase, run in (("ntt", kernel_phase), ("mmntt", mmntt_phase),
+                       ("contract", lambda d: [contract_phase(d)])):
+        if phase in phases:
+            t0 = time.perf_counter()
+            kernels += run(dev)
+            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    paths = {}
+    for phase, run in (("lola", lola_phase), ("cryptonets", cryptonets_phase)):
+        if phase in phases:
+            t0 = time.perf_counter()
+            paths[phase] = run(dev)
+            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    for phase in ("lola_small", "caltech"):
+        if phase in phases:
+            t0 = time.perf_counter()
+            for impl, run in slice_c_phase(dev, phase).items():
+                paths[f"{phase}_{impl}"] = run
+            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if set(phases) != set(PHASES):
         log(f"phases {phases} passed; run every phase for the result lines")
         return 0
     for k in kernels:
         name = k["name"]
-        k["launches_lola"] = lola["launches"][name]
-        k["launches_cryptonets"] = cnets["launches"][name]
-        k["launches"] = k["launches_lola"] + k["launches_cryptonets"]
-        k["launches_per_record"] = lola["per_record"][name]
-        k["launches_per_batch"] = cnets["per_batch"][name]
+        # launches on each main path, counted from zero at its start, and
+        # per record (per batch of 8192 for CryptoNets) on its timed part
+        k["launches_by_path"] = {p: r["launches"][name] for p, r in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        k["launches_per_record"] = {
+            p: (r.get("per_record") or r["per_batch"])[name]
+            for p, r in paths.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

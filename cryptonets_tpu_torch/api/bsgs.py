@@ -95,11 +95,19 @@ def _encode_diag_chunk(fac, tbl_a):
 
 
 def hoist_eligible(fac, g: int) -> bool:
-    """True when every baby step 1..g-1 has its own Galois key (the
-    factory's rot_steps), which hoisting needs."""
+    """True when the baby steps can be hoisted: every step 1..g-1 has its
+    own Galois key (the factory's rot_steps), the switched result stays
+    in the NTT domain (no special primes, hence no mod-down), and the NTT
+    has the bit-reversed ordering that `ntt_automorphism_perm` encodes
+    (the four-step NTT has its own)."""
     bfv0 = fac.bfv[0]
-    return g > 1 and all(
-        bfv0.galois_elt_rows(b) in fac.keys.galois for b in range(1, g)
+    p = bfv0.p
+    return (
+        g > 1
+        and p.n_special == 0
+        and p.ntt_q.ordering == "bit-reversed"
+        and all(bfv0.galois_elt_rows(b) in fac.keys.galois
+                for b in range(1, g))
     )
 
 
@@ -145,7 +153,8 @@ def bsgs_matvec(form: BsgsDenseForm, data):
     if not hoist_eligible(fac, g):
         raise NotImplementedError(
             "chained (unhoisted) baby steps are not ported: give the factory "
-            "Galois keys for steps 1..g-1")
+            "Galois keys for steps 1..g-1, the butterfly NTT and no special "
+            "primes")
     if len(form.active) > max(4, G // 4):
         raise NotImplementedError("the dense-support (scanned) BSGS is not ported")
 

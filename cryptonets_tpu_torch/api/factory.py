@@ -1,13 +1,17 @@
 """Factories: parameter/key owners and vector/matrix constructors.
 
-Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa and
-CryptoNets paths use.  `CrtBfvFactory` is the CRT "double decker" over
-plain primes: each value is split into residues mod each plain prime
+Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa, CryptoNets,
+LoLaSmall and Caltech-101 paths use.  `CrtBfvFactory` is the CRT "double
+decker" over plain primes: each value is split into residues mod each plain prime
 t_p, and every residue stream is a BFV pipeline over the SAME coefficient
 chain and key set, stacked on a leading P axis ([P, C, size, k, N]
 ciphertext data).  Slot encode (inverse NTT over Z_t) and decode (forward
-NTT over Z_t) run on the device with the same CUDA NTT as the ciphertext
-chain.  `RawFactory` is the plaintext float64 oracle.
+NTT over Z_t) run on the device with the butterfly CUDA NTT, whichever
+NTT carries the ciphertext chain (`ntt_impl`).  Keys are made on the
+factory's device; the reference's keygen on a host CPU backend, its
+on-disk key cache and its environment switches answer a remote-compile
+set-up the port does not have, and are not carried.  `RawFactory` is the
+plaintext float64 oracle.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..crypto.bfv import BFV, BFVParams
+from ..crypto.bfv import BFV, BFVParams, _automorphism_tables_np
 from ..crypto.encoder import BatchEncoder
 from ..crypto.hostmath import CRT
 from ..crypto.ntt import get_ntt_context, ntt_automorphism_perm
@@ -30,7 +34,13 @@ ENCRYPT_CHUNK = 128
 
 class CrtBfvFactory:
     """The encrypted factory.  Keys are generated on `device` from `seed`
-    unless a key set is passed (`convert.keyset_from_numpy`)."""
+    unless a key set is passed (`convert.keyset_from_numpy`).
+
+    `ntt_impl` names the NTT of the ciphertext chain: "butterfly" (the
+    default, also for None) or "matmul" (`crypto/ntt.py`).  It is an
+    argument only; no environment variable overrides it.  Keys are
+    NTT-domain values: a key set passed in must have been made under the
+    same `ntt_impl`, which nothing in the key set records."""
 
     is_encrypted = True
 
@@ -43,12 +53,15 @@ class CrtBfvFactory:
         dbc: int = 16,
         seed: int = 0,
         rot_steps=(),
+        n_special: int = 0,
         ks_alpha: int = 0,
+        ntt_impl: str | None = None,
         device=None,
         keys=None,
     ):
         self.device = resolve_device(device)
         self.n = n
+        self.ntt_impl = ntt_impl or "butterfly"
         self.plain_primes = tuple(int(t) for t in plain_primes)
         self.P = len(self.plain_primes)
         chain = tuple(coeff_modulus) if coeff_modulus else default_coeff_modulus_128(n)
@@ -62,7 +75,8 @@ class CrtBfvFactory:
             )
         self.params = [
             BFVParams(n, t, coeff_modulus=chain, dbc=dbc, ks_alpha=ks_alpha,
-                      seed=seed, device=self.device)
+                      seed=seed, n_special=n_special, ntt_impl=self.ntt_impl,
+                      device=self.device)
             for t in self.plain_primes
         ]
         self.bfv = [BFV(p) for p in self.params]
@@ -169,12 +183,29 @@ class CrtBfvFactory:
         ])
 
     # ------------------------------------------------------ rotation keys
+    def stacked_galois(self, g_tuple):
+        """(src [L, N], negate [L, N], k0 [L, ...], k1 [L, ...]) of a
+        ladder of Galois elements, for `BFV.rotate_accumulate_scan`.
+        Cached per key set, like `stacked_baby_rotations`."""
+        cached = self._stack_cache.get(g_tuple)
+        if cached is not None and cached[0] is self.keys:
+            return cached[1]
+        tabs = [_automorphism_tables_np(self.n, g) for g in g_tuple]
+        stacks = (
+            torch.from_numpy(np.stack([t[0] for t in tabs])).long().to(self.device),
+            torch.from_numpy(np.stack([t[1] for t in tabs])).to(self.device),
+            torch.stack([self.keys.galois[g].k0 for g in g_tuple]),
+            torch.stack([self.keys.galois[g].k1 for g in g_tuple]),
+        )
+        self._stack_cache[g_tuple] = (self.keys, stacks)
+        return stacks
+
     def stacked_baby_rotations(self, g: int):
         """(perm [g-1, N], k0 [g-1, omega, kp, N], k1) for the hoisted BSGS
         baby steps 1..g-1: NTT-domain automorphism gathers plus each step's
         switch keys.  Cached per key set, so replacing `self.keys` never
         serves stale stacks."""
-        cached = self._stack_cache.get(g)
+        cached = self._stack_cache.get(("bsgs_baby", g))
         if cached is not None and cached[0] is self.keys:
             return cached[1]
         gs = [self.bfv[0].galois_elt_rows(b) for b in range(1, g)]
@@ -183,7 +214,7 @@ class CrtBfvFactory:
         ).long().to(self.device)
         k0s = torch.stack([self.keys.galois[ge].k0 for ge in gs])
         k1s = torch.stack([self.keys.galois[ge].k1 for ge in gs])
-        self._stack_cache[g] = (self.keys, (perms, k0s, k1s))
+        self._stack_cache[("bsgs_baby", g)] = (self.keys, (perms, k0s, k1s))
         return perms, k0s, k1s
 
     # --------------------------------------------- prepared plaintext forms
@@ -234,6 +265,15 @@ class CrtBfvFactory:
 
         ints = self._scaled_ints(values, scale)
         return HEVector(self, values=ints, dim=len(ints), scale=scale, fmt=fmt)
+
+    def get_plain_matrix(self, m, fmt: str = "col", scale: float = 1.0):
+        """A matrix of plain dense vectors, its columns or its rows."""
+        from .matrix import HEMatrix
+
+        m = np.asarray(m, dtype=np.float64)
+        vecs = m.T if fmt == "col" else m
+        return HEMatrix(
+            self, [self.get_plain_vector(v, "dense", scale) for v in vecs], fmt)
 
     def get_encrypted_matrix(self, m, fmt: str = "col", scale: float = 1.0):
         """Encrypt every column (or row) in one device encode + encrypt."""

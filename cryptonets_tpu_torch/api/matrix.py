@@ -1,13 +1,20 @@
 """HEMatrix: a list of uniform HEVectors, columns or rows (port of
-`cryptonets_tpu/api/matrix.py`, the operations the LoLa and CryptoNets
-paths use)."""
+`cryptonets_tpu/api/matrix.py`, the operations the LoLa, CryptoNets,
+LoLaSmall and Caltech-101 paths use).
+
+`mul` is the row-major matvec of a plain matrix with an encrypted dense
+vector: one plaintext multiply per row, then SumAllSlots over every row
+at once (`_sum_slots_data`), which leaves row r's dot product in every
+slot of ciphertext r (a sparse vector).  The column-major matvec, the
+encrypted-matrix branches and the forced dense output are not ported."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .vector import DENSE, HEVector
+from ..crypto.modular import add_mod, mod_sum
+from .vector import DENSE, SPARSE, HEVector
 
 # Columns per piece of the batched ciphertext multiply.  The BEHZ multiply
 # and the relinearisation of one piece hold their int64 temporaries over
@@ -19,6 +26,36 @@ COLUMN_MAJOR = "col"
 ROW_MAJOR = "row"
 
 
+def _sum_slots_data(factory, d, length=None):
+    """Batched SumAllSlots on ciphertext data [..., C, 2, k, N] ->
+    [..., 1, 2, k, N]: the blocks are added, a column swap folds the two
+    rows (a complete sum), then log2 right-rotate-and-add steps run as one
+    ladder (`BFV.rotate_accumulate_scan`) when every step has its Galois
+    key, else step by step.  out[i] = sum_{j < length} in[i - j]; the
+    complete sum leaves the total in every slot."""
+    bfv0 = factory.bfv[0]
+    q = bfv0.p.chain_q.q
+    row = factory.n // 2
+    if d.shape[-4] > 1:
+        d = mod_sum(d, q, dim=-4).unsqueeze(-4)
+    if length is None or length >= row:
+        d = add_mod(d, bfv0.rotate_columns(d, factory.keys), q)
+        length = row
+    g_list, steps = [], 1
+    while steps < length:
+        g_list.append(bfv0.galois_elt_rows(-steps % row))
+        steps *= 2
+    if g_list and d.shape[-3] == 2 and all(
+            g in factory.keys.galois for g in g_list):
+        return bfv0.rotate_accumulate_scan(
+            d, factory.stacked_galois(tuple(g_list)))
+    acc, steps = d, 1
+    while steps < length:
+        acc = add_mod(acc, bfv0.rotate_rows(acc, -steps, factory.keys), q)
+        steps *= 2
+    return acc
+
+
 class HEMatrix:
     def __init__(self, factory, vectors: list, fmt: str):
         if fmt not in (COLUMN_MAJOR, ROW_MAJOR):
@@ -26,6 +63,7 @@ class HEMatrix:
         self.factory = factory
         self.vectors = list(vectors)
         self.fmt = fmt
+        self._mult_forms = None
 
     @property
     def column_count(self) -> int:
@@ -60,6 +98,36 @@ class HEMatrix:
     def _stacked_data(self) -> torch.Tensor:
         """[P, V, C, s, k, N] — vector index as its own axis."""
         return torch.stack([v.data for v in self.vectors], dim=1)
+
+    def _stacked_mult_forms(self) -> torch.Tensor:
+        """[P, V, C, k, N] plaintext multipliers of a plain matrix, made
+        at first use and kept."""
+        if self._mult_forms is None:
+            self._mult_forms = torch.stack(
+                [v.mult_form() for v in self.vectors], dim=1)
+        return self._mult_forms
+
+    def mul(self, v: HEVector, force_dense: bool = False) -> HEVector:
+        """Row-major plain matrix times encrypted dense vector -> sparse
+        vector of the per-row dot products."""
+        if self.fmt != ROW_MAJOR or self.is_encrypted or not v.is_encrypted:
+            raise NotImplementedError(
+                "only the row-major matvec of a plain matrix with an "
+                "encrypted vector is ported")
+        if force_dense:
+            raise NotImplementedError("the forced dense output is not ported")
+        row0 = self.vectors[0]
+        if v.fmt != DENSE or v.dim != row0.dim:
+            raise ValueError(
+                f"row-major matvec needs a dense vector of dim {row0.dim}: "
+                f"{v.fmt}, {v.dim}")
+        f = self.factory
+        W = self._stacked_mult_forms()[:, :, :, None]     # [P, R, C, 1, k, N]
+        prod = f.bfv[0].mul_plain(v.data[:, None], W)     # [P, R, C, 2, k, N]
+        sums = _sum_slots_data(f, prod)                   # [P, R, 1, 2, k, N]
+        return HEVector(
+            f, data=sums[:, :, 0], dim=len(self.vectors),
+            scale=row0.scale * v.scale, fmt=SPARSE, is_signed=row0.is_signed)
 
     def elementwise_multiply(self, other: "HEMatrix") -> "HEMatrix":
         if self.fmt != other.fmt or len(self.vectors) != len(other.vectors):

@@ -1,5 +1,5 @@
 """HEVector: the scale-tracked ciphertext vector (port of
-`cryptonets_tpu/api/vector.py`, the operations the LoLa main path uses).
+`cryptonets_tpu/api/vector.py`, the operations the ported networks use).
 
 Layout: `data` is int32 [P, C, size, k, N] — P plain-CRT primes, C blocks.
   * dense:  C = ceil(dim/n) blocks; flat slot order (slots [0, n/2) =
@@ -149,6 +149,25 @@ class HEVector:
         if not self.is_encrypted:
             raise NotImplementedError("plain-vector rotation is not ported")
         return self._clone_meta(data=self._rot_rows(amount))
+
+    # ----------------------------------------------------------- slot sums
+    def sum_all_slots(self, length: int | None = None) -> "HEVector":
+        """Right-rotate-and-add tree: out[i] = sum_{j < length} in[i - j].
+        A complete sum (length None or >= n/2) starts with a column swap
+        and leaves the total in every slot: a sparse vector of dim 1.
+        Forcing the total into one column is not ported."""
+        from .matrix import _sum_slots_data
+
+        if self.fmt != DENSE or not self.is_encrypted:
+            raise ValueError("sum_all_slots takes an encrypted dense vector")
+        full = length is None or length >= self.factory.n // 2
+        acc = _sum_slots_data(self.factory, self.data, length)
+        return self._clone_meta(data=acc, dim=1 if full else self.dim,
+                                fmt=SPARSE if full else DENSE)
+
+    def dot_product(self, other: "HEVector",
+                    length: int | None = None) -> "HEVector":
+        return self.pointwise_multiply(other).sum_all_slots(length)
 
     # ----------------------------------------------------------- interleave
     @staticmethod

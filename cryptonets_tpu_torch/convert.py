@@ -3,11 +3,17 @@
 `keyset_from_numpy` reads the npz layout that the JAX package's
 `CrtBfvFactory._save_cached_keys` writes (`s_hat_mont`, `s2_hat_mont`,
 `p0_hat_mont`, `p1_hat_mont`, `relin_k0/k1`, `g_<elt>_k0/k1`, `s_small`).
-A switch key is `[omega, k, N]` in P-less RNS-group mode and `[k*D, k, N]`
-in digit mode; both are carried as they are.
-Both packages keep keys in the NTT domain, in Montgomery form and in the
-same Longa-Naehrig ordering, so an imported key set makes a port factory
-compute exactly what the JAX factory computes with the same keys.
+A switch key is `[omega, kp, N]` in RNS-group mode (kp = k limbs of Q
+without special primes, k + n_special limbs of Q*P with them) and
+`[k*D, k, N]` in digit mode; all are carried as they are.
+Both packages keep keys in the NTT domain and in Montgomery form, so an
+imported key set makes a port factory compute exactly what the JAX factory
+computes with the same keys, as long as both use the same NTT ordering.
+A key set carries no mark of the ordering it was made under (the reference
+keeps it only in the hash of its cache file's name): the caller must give
+the port factory the `ntt_impl` of the factory that made the keys
+("butterfly" for the reference's "butterfly", "pallas" and "hybrid";
+"matmul" for "matmul").  The factory records it as `factory.ntt_impl`.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ def weights_from_numpy(arrays: dict) -> dict:
 def keyset_from_numpy(arrays, device=None) -> KeySet:
     """A key set from the reference's key-cache npz layout (a mapping of
     name -> array, e.g. `np.load(path)`), on `device` (CUDA unless the
-    caller names another)."""
+    caller names another).  Pass the factory that takes it the `ntt_impl`
+    the keys were made under."""
     device = resolve_device(device)
     galois = {}
     for name in arrays:

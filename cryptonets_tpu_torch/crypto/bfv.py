@@ -9,12 +9,16 @@ here unchanged and every deterministic op is bit-equal to the reference.
 
 Ported: parameters and tables, keygen, encrypt, decrypt (raw residues and
 the BEHZ gamma scale-and-round mod t), plaintext multiply, the BEHZ
-ciphertext multiply, relinearization, Galois automorphisms and row/column
-rotations, with two key-switching modes: digit decomposition (base
-2**dbc digits of every limb, `ks_alpha = 0`, SEAL 3.2's), in a stacked
-form and a form accumulated over the digits, and P-less RNS-group
-switching (groups of `ks_alpha` limbs, keys mod Q, no special primes).
-The special-prime mod-down is not ported yet.
+ciphertext multiply, relinearization, Galois automorphisms, row/column
+rotations and the rotate-and-add ladder, with three key-switching modes:
+digit decomposition (base 2**dbc digits of every limb, SEAL 3.2's), in a
+stacked form and a form accumulated over the digits; RNS-group switching
+without special primes (`ks_alpha` limbs a group, keys mod Q); and hybrid
+switching with `n_special` special primes (keys mod Q*P, groups extended
+to Q*P, rounded division by P), stacked over the groups or looped over
+them.  The ciphertext NTTs come from the context `ntt_impl` names
+("butterfly" or "matmul", `crypto/ntt.py`); keys are NTT-domain values, so
+a key set belongs to the ordering it was made under.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from .modular import (
     to_mont,
     wide,
 )
-from .ntt import get_ntt_context
+from .ntt import ntt_context_for
 from .primes import aux_base_primes, default_coeff_modulus_128, ntt_primes
 
 
@@ -111,29 +115,37 @@ class BFVParams:
         dbc: int = 16,
         ks_alpha: int = 0,
         seed: int = 0,
+        n_special: int = 0,
+        ntt_impl: str = "butterfly",
         *,
         device,
     ):
         device = torch.device(device)
         self.device = device
+        self.ntt_impl = ntt_impl
         self.n = n
         self.t = int(plain_modulus)
         qs = tuple(coeff_modulus) if coeff_modulus else default_coeff_modulus_128(n)
         self.q_list = qs
         self.k = len(qs)
         self.seed = seed
-        # ks_alpha > 0: P-less RNS-group switching; 0: digit decomposition
-        self.ks_alpha = int(ks_alpha)
+        # n_special > 0: hybrid switching over Q*P with groups of
+        # n_special data limbs (or ks_alpha, when given); ks_alpha > 0
+        # alone: RNS groups without special primes; both 0: digits
+        self.n_special = int(n_special)
+        self.ks_alpha = int(ks_alpha) if ks_alpha else self.n_special
         self.ks_hybrid = self.ks_alpha > 0
         self.dbc = int(dbc)
-        if self.ks_alpha < 0 or not 0 < (1 << self.dbc) < min(qs):
+        if min(self.n_special, self.ks_alpha) < 0:
+            raise ValueError("n_special and ks_alpha must not be negative")
+        if not 0 < (1 << self.dbc) < min(qs):
             raise ValueError("digit width must fit the smallest limb")
         self.digits_per_limb = -(-max(q.bit_length() for q in qs) // self.dbc)
         if self.t >= 1 << 31:
             raise NotImplementedError("plain moduli >= 2**31 are not ported")
 
         self.chain_q = get_mod_chain(qs, device)
-        self.ntt_q = get_ntt_context(n, qs)
+        self.ntt_q = ntt_context_for(ntt_impl, n, qs)
         self.crt_q = CRT(list(qs))
         self.q_big = self.crt_q.product
         self.delta = self.q_big // self.t  # floor(q/t)
@@ -150,7 +162,7 @@ class BFVParams:
         bsk = self.B_list + (self.msk,)
         self.bsk_list = bsk
         self.chain_bsk = get_mod_chain(bsk, device)
-        self.ntt_bsk = get_ntt_context(n, bsk)
+        self.ntt_bsk = ntt_context_for(ntt_impl, n, bsk)
         self.crt_B = CRT(list(self.B_list))
         self.m_tilde = 1 << 16
 
@@ -194,15 +206,26 @@ class BFVParams:
         self.Binv_mod_msk = self.msk_chain.col([modinv(B_big % self.msk, self.msk)])
         self.B_mod_q = self.chain_q.scalar_col(B_big)
 
-        # switch keys live mod Q in both modes (no special primes)
-        qp = qs
-        self.qp_list = qp
-        self.chain_qp = self.chain_q
-        self.ntt_qp = self.ntt_q
+        # switch keys live mod Q*P; P = 1 without special primes.  The
+        # choice of the special primes depends on (n, qs) only: the plain
+        # primes of one factory share one key set.
+        self.sp_list = ()
+        if self.n_special:
+            pool = ntt_primes(n, 31, self.k + len(aux) + self.n_special + 8)
+            used = set(qs) | set(aux)
+            self.sp_list = tuple(c for c in pool if c not in used)[: self.n_special]
+            if len(self.sp_list) != self.n_special:
+                raise ValueError("not enough special primes")
+        self.P_big = math.prod(self.sp_list)
+        self.qp_list = qs + self.sp_list
+        self.chain_qp = get_mod_chain(self.qp_list, device)
+        self.ntt_qp = ntt_context_for(ntt_impl, n, self.qp_list)
         if self.ks_hybrid:
             self._init_group_switching()
         else:
             self._init_digit_switching()
+        if self.n_special:
+            self._init_mod_down()
 
     def _init_digit_switching(self):
         """Digit key switching: w_ij = 2^(dbc*j) on limb i, zero on the
@@ -215,8 +238,8 @@ class BFVParams:
         self.ks_digit_w = torch.from_numpy(dw[:, :, None]).to(self.device)
 
     def _init_group_switching(self):
-        """P-less RNS-group key switching: groups of ks_alpha data limbs,
-        keys mod Q (no mod-down)."""
+        """RNS-group key switching: groups of ks_alpha data limbs, each
+        extended to Q*P; the key of group j hides P * Qtilde_j * target."""
         qs, qp, device = self.q_list, self.qp_list, self.device
         alpha = self.ks_alpha
         self.ks_groups = [(i0, min(i0 + alpha, self.k)) for i0 in range(0, self.k, alpha)]
@@ -230,13 +253,27 @@ class BFVParams:
                 pj = Qj // qs[i]
                 inv_grp.append(modinv(pj % qs[i], qs[i]))
                 grp_w[i] = [pj % m for m in qp]
-            # Q~_j mod each limb (the CRT unit of group j; P = 1 here)
+            # P * Q~_j mod each limb (Q~_j: the CRT unit of group j)
             Qoj = self.q_big // Qj
-            val = Qoj * modinv(Qoj % Qj, Qj)
+            val = self.P_big * Qoj * modinv(Qoj % Qj, Qj)
             pqt[gi] = [val % m for m in qp]
         self.ks_inv_punct_grp = self.chain_q.col(inv_grp)
         self.ks_grp_conv = torch.from_numpy(grp_w[:, :, None]).to(device)
         self.ks_pqt = torch.from_numpy(pqt[:, :, None]).to(device)
+
+    def _init_mod_down(self):
+        """Tables of the rounded division by P that ends a hybrid switch:
+        base conversion P -> q, P/2 in both bases, P^-1 mod q."""
+        sp = self.sp_list
+        self.chain_sp = get_mod_chain(sp, self.device)
+        crt_sp = CRT(list(sp))
+        self.ks_inv_punct_sp = self.chain_sp.col(crt_sp.inv_punctured)
+        self.ks_punct_sp_to_q = self._punct_matrix(crt_sp.punctured, self.chain_q)
+        half = self.P_big >> 1
+        self.ks_phalf_sp = self.chain_sp.scalar_col(half)
+        self.ks_phalf_q = self.chain_q.scalar_col(half)
+        self.ks_pinv_q = self.chain_q.col(
+            [modinv(self.P_big % q, q) for q in self.q_list])
 
     def _punct_matrix(self, punctured, to_chain: ModChain) -> torch.Tensor:
         """[Lf, Lt, 1] constants |punct_i|_{m_t} for FastBConv against
@@ -253,8 +290,8 @@ class BFVParams:
 
 class SwitchKeys(NamedTuple):
     """Key-switching keys, NTT + Montgomery domain, one per RNS group
-    (k0, k1 [omega, kp, N]) or, in digit mode, one per (limb, digit)
-    pair ([k*D, k, N])."""
+    (k0, k1 [omega, kp, N], kp limbs of Q*P) or, in digit mode, one per
+    (limb, digit) pair ([k*D, k, N])."""
 
     k0: torch.Tensor
     k1: torch.Tensor
@@ -304,6 +341,9 @@ class BFV:
     # may set it per instance (a test sets 0 to force the accumulated
     # form).
     digit_stack_bytes = 1 << 31
+    # The same for a group key switch and its stacked group tensor
+    # [omega, ..., kp, N]: past this it loops over the groups.
+    group_stack_bytes = 1 << 31
 
     def __init__(self, params: BFVParams):
         self.p = params
@@ -347,7 +387,7 @@ class BFV:
         p0_hat = neg_mod(add_mod(c.mont_mul(a_hat, s_mont), e_hat, c.q), c.q)
 
         # switch-key targets: s^2, then sigma_g(s) per Galois element,
-        # over the key-switching base (= q in P-less mode)
+        # over the key-switching base Q*P (= q without special primes)
         ck, nttk = p.chain_qp, p.ntt_qp
         sk_hat = nttk.forward(sampling.small_to_residues(s_small, ck.q))
         sk_mont = ck.to_mont(sk_hat)
@@ -563,34 +603,78 @@ class BFV:
 
     def _switch_key_inner(self, poly, keys: SwitchKeys):
         """Key switch of poly [..., k, N] -> two polys [..., 2, k, N] in
-        the coefficient domain, by digits or by P-less RNS groups."""
+        the coefficient domain, by digits or by RNS groups."""
+        p = self.p
+        cq = p.chain_q
+        if p.ks_hybrid:
+            return self._switch_key_inner_hybrid(poly, keys)
+        stacked = 4 * p.k * p.digits_per_limb * poly.numel()
+        if stacked > self.digit_stack_bytes:
+            return self._switch_key_digits_accumulated(poly, keys)
+        dhat = p.ntt_q.forward(self._decompose_digits(poly))  # [kD, ..., k, N]
+        return p.ntt_q.inverse(self._key_inner_product(dhat, keys, cq))
+
+    @staticmethod
+    def _key_inner_product(dhat, keys: SwitchKeys, chain: ModChain):
+        """sum_j dhat[j] * (k0[j], k1[j]) over the stacked components
+        (digits or groups): [J, ..., L, N] -> [..., 2, L, N], NTT domain."""
+        kshape = (keys.k0.shape[0],) + (1,) * (dhat.dim() - 3) + tuple(keys.k0.shape[1:])
+        return torch.stack([
+            mod_sum(chain.mont_mul(dhat, k.reshape(kshape)), chain.q, dim=0)
+            for k in keys
+        ], dim=-3)
+
+    def _switch_key_inner_hybrid(self, poly, keys: SwitchKeys):
+        """RNS-group key switch: each group of data limbs is extended to
+        Q*P, one inner product with the keys runs over the extended chain,
+        and with special primes a rounded division by P brings the result
+        back to Q.  The groups are stacked, or looped over when the stack
+        [omega, ..., kp, N] would pass `group_stack_bytes`: the same sums."""
         p = self.p
         cq, cqp = p.chain_q, p.chain_qp
-        if p.ks_hybrid:
-            dhat = p.ntt_qp.forward(self._group_decompose(poly))  # [omega, ..., kp, N]
+        kp = len(p.qp_list)
+        stacked = 4 * p.ks_omega * (poly.numel() // p.k) * kp
+        if stacked > self.group_stack_bytes:
+            y = mul_const_mod(poly, p.ks_inv_punct_grp, cq.q)
+            t0 = t1 = None
+            for gi in range(p.ks_omega):
+                dhat = p.ntt_qp.forward(self._group_extend(y, gi))
+                m0 = cqp.mont_mul(dhat, keys.k0[gi])
+                m1 = cqp.mont_mul(dhat, keys.k1[gi])
+                t0 = m0 if t0 is None else add_mod(t0, m0, cqp.q)
+                t1 = m1 if t1 is None else add_mod(t1, m1, cqp.q)
+            t_hat = torch.stack([t0, t1], dim=-3)
         else:
-            stacked = 4 * p.k * p.digits_per_limb * poly.numel()
-            if stacked > self.digit_stack_bytes:
-                return self._switch_key_digits_accumulated(poly, keys)
-            dhat = p.ntt_q.forward(self._decompose_digits(poly))  # [kD, ..., k, N]
-        kshape = (keys.k0.shape[0],) + (1,) * (dhat.dim() - 3) + tuple(keys.k0.shape[1:])
-        t0 = mod_sum(cqp.mont_mul(dhat, keys.k0.reshape(kshape)), cqp.q, dim=0)
-        t1 = mod_sum(cqp.mont_mul(dhat, keys.k1.reshape(kshape)), cqp.q, dim=0)
-        return p.ntt_qp.inverse(torch.stack([t0, t1], dim=-3))
+            dhat = p.ntt_qp.forward(self._group_decompose(poly))  # [omega, ..., kp, N]
+            t_hat = self._key_inner_product(dhat, keys, cqp)
+        tt = p.ntt_qp.inverse(t_hat)                              # [..., 2, kp, N]
+        if p.n_special == 0:
+            return tt
+        # rounded division by P: (t + P/2 - [(t + P/2) mod P]) / P
+        t_q, t_sp = tt[..., : p.k, :], tt[..., p.k :, :]
+        csp = p.chain_sp
+        z = add_mod(t_sp, p.ks_phalf_sp, csp.q)
+        y2 = mul_const_mod(z, p.ks_inv_punct_sp, csp.q)
+        conv = self._fast_bconv(y2, p.ks_punct_sp_to_q, cq)
+        num = sub_mod(add_mod(t_q, p.ks_phalf_q, cq.q), conv, cq.q)
+        return mul_const_mod(num, p.ks_pinv_q, cq.q)
+
+    def _group_extend(self, y, gi: int):
+        """Group gi of y [..., k, N] (already * ks_inv_punct_grp) extended
+        to the chain Q*P: [..., kp, N]."""
+        p = self.p
+        i0, i1 = p.ks_groups[gi]
+        qp = p.chain_qp.q
+        terms = mul_const_mod(y[..., i0:i1, None, :], p.ks_grp_conv[i0:i1], qp[None])
+        return mod_sum(terms, qp, dim=-3) if i1 - i0 > 1 else terms[..., 0, :, :]
 
     def _group_decompose(self, poly):
         """poly [..., k, N] -> per-group base extensions [omega, ..., kp, N]
         (the RNS-group digits of the key switch, coefficient domain)."""
         p = self.p
         y = mul_const_mod(poly, p.ks_inv_punct_grp, p.chain_q.q)
-        qp = p.chain_qp.q
-        terms = mul_const_mod(y[..., :, None, :], p.ks_grp_conv, qp[None])
-        ds = [
-            mod_sum(terms[..., i0:i1, :, :], qp, dim=-3) if i1 - i0 > 1
-            else terms[..., i0, :, :]
-            for i0, i1 in p.ks_groups
-        ]
-        return torch.stack(ds, dim=0)
+        return torch.stack(
+            [self._group_extend(y, gi) for gi in range(p.ks_omega)], dim=0)
 
     def relinearize(self, ct, keys: KeySet):
         if ct.shape[-3] == 2:
@@ -609,14 +693,30 @@ class BFV:
             )
         return self._auto[g]
 
-    def apply_galois(self, ct, g: int, keys: KeySet):
+    def _apply_automorphism(self, ct, src, negm, sk: SwitchKeys):
+        """a(x) -> a(x^g) on both polynomials by the gather tables of g,
+        then the key switch of the second one back to the secret key."""
         q = self.p.chain_q.q
-        src, negm = self._automorphism(g)
         d = ct[..., src]
         d = torch.where(negm, neg_mod(d, q), d)
-        ks = self._switch_key_inner(d[..., 1, :, :], keys.galois[g])
+        ks = self._switch_key_inner(d[..., 1, :, :], sk)
         c0 = add_mod(d[..., 0, :, :], ks[..., 0, :, :], q)
         return torch.stack([c0, ks[..., 1, :, :]], dim=-3)
+
+    def apply_galois(self, ct, g: int, keys: KeySet):
+        return self._apply_automorphism(ct, *self._automorphism(g), keys.galois[g])
+
+    def rotate_accumulate_scan(self, data, stacked):
+        """acc <- acc + rotate(acc, g_l) over a stacked ladder of Galois
+        elements: the log2 rotation tree of SumAllSlots.  `stacked` is
+        (src [L, N], negate [L, N], k0 [L, ...], k1 [L, ...]), made once
+        per ladder by the factory (`stacked_galois`).  A plain loop over
+        the levels."""
+        acc = data
+        for src, negm, k0, k1 in zip(*stacked):
+            rot = self._apply_automorphism(acc, src, negm, SwitchKeys(k0, k1))
+            acc = add_mod(acc, rot, self.p.chain_q.q)
+        return acc
 
     def rotate_rows(self, ct, steps: int, keys: KeySet):
         """Rotate the two (n/2)-slot rows left by `steps`; one single-hop

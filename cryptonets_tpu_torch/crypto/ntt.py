@@ -1,13 +1,17 @@
 """Negacyclic NTT contexts over int32 RNS limb tensors.
 
-Longa-Naehrig merged-psi butterflies, as in `cryptonets_tpu/crypto/
-ntt.py`: the forward transform takes standard order to bit-reversed, the
-inverse takes bit-reversed back to standard.  An `NTTContext` holds the
-host tables of one (ring degree, modulus chain) pair and places them on
-each device at first use; `forward` / `inverse` dispatch to the hand-
-written CUDA kernels for CUDA tensors and to their plain twins for CPU
-tensors (`kernels/ntt.py`).  The same context and kernel serve the
-ciphertext chain and the plain-modulus (Z_t) encoder transforms.
+`NTTContext`: Longa-Naehrig merged-psi butterflies, as in
+`cryptonets_tpu/crypto/ntt.py`: the forward transform takes standard
+order to bit-reversed, the inverse takes bit-reversed back to standard.
+`MatmulNTTContext`: the four-step transform of
+`cryptonets_tpu/kernels/matmul_ntt.py`, in an evaluation ordering of its
+own.  A context holds the host tables of one (ring degree, modulus chain)
+pair and places them on each device at first use; `forward` / `inverse`
+dispatch to the hand-written CUDA kernels for CUDA tensors and to their
+plain versions for CPU tensors (`kernels/ntt.py`, `kernels/
+matmul_ntt.py`).  `ntt_context_for` picks the class by name.  The
+butterfly context also serves the plain-modulus (Z_t) encoder transforms
+under either choice: the slot index map is tied to its ordering.
 """
 
 from __future__ import annotations
@@ -17,6 +21,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..kernels.matmul_ntt import (
+    host_tables as matmul_host_tables,
+    matmul_ntt_forward,
+    matmul_ntt_inverse,
+)
 from ..kernels.ntt import NTTTables, ntt_forward, ntt_inverse
 from .hostmath import bit_reverse, modinv
 from .modular import RES
@@ -66,6 +75,16 @@ def ntt_automorphism_perm(n: int, g: int) -> np.ndarray:
     return pos_of_e[target].astype(np.int32)
 
 
+def _placed(ctx, device):
+    """The host tables of `ctx` copied to `device`, once per device."""
+    device = torch.device(device)
+    if device not in ctx._on_device:
+        h = ctx._host
+        ctx._on_device[device] = type(h)(
+            *(getattr(h, f).to(device) for f in h.__dataclass_fields__))
+    return ctx._on_device[device]
+
+
 def _i32(a: np.ndarray) -> torch.Tensor:
     """uint32 host table -> int32 tensor with the same bits."""
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
@@ -74,6 +93,8 @@ def _i32(a: np.ndarray) -> torch.Tensor:
 class NTTContext:
     """Twiddle tables for a (ring degree, modulus chain) pair, stacked over
     the limb axis so one launch covers every limb of a [..., L, N] tensor."""
+
+    ordering = "bit-reversed"
 
     def __init__(self, n: int, moduli: tuple[int, ...]):
         if n & (n - 1):
@@ -106,13 +127,7 @@ class NTTContext:
 
     def tables(self, device) -> NTTTables:
         """The tables placed on `device` (copied once per device)."""
-        device = torch.device(device)
-        if device not in self._on_device:
-            h = self._host
-            self._on_device[device] = NTTTables(
-                *(getattr(h, f).to(device) for f in NTTTables.__dataclass_fields__)
-            )
-        return self._on_device[device]
+        return _placed(self, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NTT along the last axis of residues [..., L, N] -> int32."""
@@ -124,12 +139,54 @@ class NTTContext:
         return ntt_inverse(x, self.tables(x.device))
 
 
+class MatmulNTTContext:
+    """The four-step NTT with `NTTContext`'s interface.  Forward and
+    inverse are consistent with each other and multiply polynomials
+    correctly, but the order of the evaluation points is not the
+    butterfly's: NTT-domain keys and gather tables belong to one
+    ordering, so a factory uses one context class for its lifetime."""
+
+    ordering = "four-step"
+
+    def __init__(self, n: int, moduli: tuple[int, ...]):
+        self.n = n
+        self.moduli = tuple(int(q) for q in moduli)
+        self._host = matmul_host_tables(n, self.moduli)
+        self._on_device: dict = {}
+
+    def tables(self, device):
+        """The tables placed on `device` (copied once per device)."""
+        return _placed(self, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NTT along the last axis of residues [..., L, N] -> int32."""
+        x = x.to(RES).contiguous()
+        return matmul_ntt_forward(x, self.tables(x.device))
+
+    def inverse(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(RES).contiguous()
+        return matmul_ntt_inverse(x, self.tables(x.device))
+
+
 _CONTEXT_CACHE: dict = {}
+NTT_IMPLS = {"butterfly": NTTContext, "matmul": MatmulNTTContext}
+
+
+def ntt_context_for(ntt_impl: str, n: int, moduli):
+    """The interned context of `ntt_impl` for (n, chain): "butterfly"
+    (`NTTContext`) or "matmul" (`MatmulNTTContext`).  The reference's
+    "pallas" and "hybrid" name TPU dispatch choices of the butterfly
+    transform; the port has one butterfly kernel and rejects both names
+    rather than alias them."""
+    if ntt_impl not in NTT_IMPLS:
+        raise ValueError(
+            f"ntt_impl {ntt_impl!r} is not one of {sorted(NTT_IMPLS)}")
+    key = (ntt_impl, n, tuple(int(m) for m in moduli))
+    if key not in _CONTEXT_CACHE:
+        _CONTEXT_CACHE[key] = NTT_IMPLS[ntt_impl](n, key[2])
+    return _CONTEXT_CACHE[key]
 
 
 def get_ntt_context(n: int, moduli) -> NTTContext:
-    """Interned contexts: one table set per (n, chain) in the process."""
-    key = (n, tuple(int(m) for m in moduli))
-    if key not in _CONTEXT_CACHE:
-        _CONTEXT_CACHE[key] = NTTContext(n, key[1])
-    return _CONTEXT_CACHE[key]
+    """The interned butterfly context of (n, chain)."""
+    return ntt_context_for("butterfly", n, moduli)

@@ -1,6 +1,6 @@
-"""Seeded synthetic MNIST-like records, so the pipelines run without
-downloaded data (the generator of `cryptonets_tpu/data/preprocess.py`,
-same seed -> same records)."""
+"""Seeded synthetic records, so the pipelines run without downloaded data
+(the generators of `cryptonets_tpu/data/preprocess.py`, same seed -> same
+records): MNIST-like images and Caltech-101 feature vectors."""
 
 from __future__ import annotations
 
@@ -23,3 +23,13 @@ def synthetic_mnist_records(count: int, seed: int = 0):
         img = np.clip(img, 0, 255).round()
         out.append((int(rng.integers(0, 10)), img.ravel()))
     return out
+
+
+def synthetic_feature_records(count: int, dim: int, seed: int = 0):
+    """`count` (label below 102, `dim` non-negative float features)
+    records: a stand-in for the AlexNet features of Caltech-101."""
+    rng = np.random.default_rng(seed)
+    return [
+        (int(rng.integers(0, 102)), np.abs(rng.normal(0, 1.0, dim)))
+        for _ in range(count)
+    ]

@@ -1,0 +1,249 @@
+"""The four-step negacyclic NTT: tables, the binding of the hand-written
+Hopper kernels (`matmul_ntt.cu`) and their plain PyTorch versions.
+
+`matmul_ntt_forward` / `matmul_ntt_inverse` are the only entry points.  A
+tensor on the CPU goes to the plain version; a CUDA tensor goes to the
+kernel, which is built from `matmul_ntt.cu` at first use
+(`kernels/build.py`).  A build or launch failure raises: nothing falls
+back to the plain version.  `LAUNCHES` counts kernel launches.
+
+Replaces `MatmulNTTContext._forward` / `_inverse` and `_exact_modmat` of
+`cryptonets_tpu/kernels/matmul_ntt.py`.  With N = N1 * N2 (`split4`), a
+row x is twisted by psi^i, reshaped to [N2, N1], multiplied from the left
+by Wa = omega^(N1 a b) mod q, scaled by tw = omega^(i1 j2) and multiplied
+from the right by Wb = omega^(N2 a b); the inverse runs the inverse
+tables backwards and ends with post = psi^-i * N^-1.  The evaluation
+ordering is this transform's own, not the bit-reversed order of
+`kernels/ntt.py`: keys and NTT-domain gathers made under one do not fit
+the other.  Outputs are canonical residues, so kernel, plain version and
+reference are bit-equal.  No PyTorch call is a modular matrix product,
+so there is no library counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..crypto.hostmath import modinv
+from ..crypto.primes import min_primitive_2n_root
+from .build import load_library, source
+
+_SRC = source("matmul_ntt.cu")
+MIN_N, MAX_N = 16, 16384  # N1, N2 >= 4; two rows of 4 N bytes in shared memory
+
+LAUNCHES = {"matmul_ntt_forward": 0, "matmul_ntt_inverse": 0}
+
+
+def split4(n: int) -> tuple[int, int]:
+    """(N1, N2) with N = N1 * N2, N2 >= N1, both powers of two (the
+    reference's `_split4`)."""
+    log = n.bit_length() - 1
+    l2 = (log + 1) // 2
+    return 1 << (log - l2), 1 << l2
+
+
+@dataclass(frozen=True)
+class MatmulNTTTables:
+    """Per-limb tables on one device.  q [L, 1] int32.  Every other table
+    is int32 [..., 2] of uint32 pairs (w, floor(w * 2**32 / q)): pre, tw,
+    twi, post [L, N, 2] (tw/twi are [N2, N1] flattened), wa, wai
+    [L, N2, N2, 2], wb, wbi [L, N1, N1, 2]."""
+
+    q: torch.Tensor
+    pre: torch.Tensor
+    wa: torch.Tensor
+    tw: torch.Tensor
+    wb: torch.Tensor
+    wbi: torch.Tensor
+    twi: torch.Tensor
+    wai: torch.Tensor
+    post: torch.Tensor
+
+
+def _powers(base: int, count: int, q: int) -> np.ndarray:
+    out = np.empty(count, np.uint64)
+    c = 1
+    for i in range(count):
+        out[i] = c
+        c = c * base % q
+    return out
+
+
+def host_values(n: int, moduli) -> dict:
+    """The tables' values as uint32 numpy arrays stacked over the limbs,
+    under the reference's names (`_tables`: Wa, Wb, Wai, Wbi, tw, twi,
+    pre, post)."""
+    N1, N2 = split4(n)
+    a2, a1 = np.arange(N2), np.arange(N1)
+    ia = (N1 * np.outer(a2, a2)) % n      # Wa: omega^(N1 a b)
+    ib = (N2 * np.outer(a1, a1)) % n      # Wb: omega^(N2 a b)
+    it = np.outer(a2, a1) % n             # tw: omega^(i1 j2)
+    out = {k: [] for k in ("Wa", "Wb", "Wai", "Wbi", "tw", "twi", "pre", "post")}
+    for q in moduli:
+        q = int(q)
+        psi = min_primitive_2n_root(q, n)
+        om = psi * psi % q
+        pw = _powers(om, n, q)
+        pwi = _powers(modinv(om, q), n, q)
+        out["Wa"].append(pw[ia])
+        out["Wb"].append(pw[ib])
+        out["Wai"].append(pwi[ia])
+        out["Wbi"].append(pwi[ib])
+        out["tw"].append(pw[it])
+        out["twi"].append(pwi[it])
+        out["pre"].append(_powers(psi, n, q))
+        # both factors below 2**31: the product fits uint64
+        out["post"].append(
+            _powers(modinv(psi, q), n, q) * np.uint64(modinv(n, q)) % np.uint64(q))
+    return {k: np.stack(v).astype(np.uint32) for k, v in out.items()}
+
+
+def host_tables(n: int, moduli) -> MatmulNTTTables:
+    """Host tables of one (ring degree, modulus chain) pair."""
+    moduli = tuple(int(q) for q in moduli)
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"ring degree {n} outside [{MIN_N}, {MAX_N}] or not 2^k")
+    if any(not 2 < q < 1 << 31 for q in moduli):
+        raise ValueError("moduli must be odd primes below 2**31")
+    vals = host_values(n, moduli)
+    N1, N2 = split4(n)
+    L = len(moduli)
+
+    def pairs(name, shape):
+        w = vals[name].astype(np.uint64)
+        qs = np.array(moduli, np.uint64).reshape((L,) + (1,) * (w.ndim - 1))
+        sh = (w << np.uint64(32)) // qs          # w < 2**31: fits uint64
+        both = np.stack([w, sh], axis=-1).astype(np.uint32)
+        return torch.from_numpy(both.view(np.int32).reshape((L,) + shape + (2,)))
+
+    return MatmulNTTTables(
+        q=torch.from_numpy(np.array(moduli, np.uint32).view(np.int32).reshape(L, 1)),
+        pre=pairs("pre", (n,)), wa=pairs("Wa", (N2, N2)),
+        tw=pairs("tw", (n,)), wb=pairs("Wb", (N1, N1)),
+        wbi=pairs("Wbi", (N1, N1)), twi=pairs("twi", (n,)),
+        wai=pairs("Wai", (N2, N2)), post=pairs("post", (n,)),
+    )
+
+
+# ---------------------------------------------------------- plain versions
+def _values(t: torch.Tensor) -> torch.Tensor:
+    """The w of a table of (w, w') pairs, as int64."""
+    return t[..., 0].to(torch.int64)
+
+
+def _modmat(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact (a @ b) mod q of int64 residues below 2**31, contraction at
+    most 2**13 long.  CUDA has no int64 matmul, so both operands are split
+    into 16-bit halves and multiplied in float64: every product of halves
+    is below 2**32 and a sum of up to 2**13 of them below 2**45, exact in
+    float64's 53 bits.  The halves recombine in int64."""
+    ah, al = (a >> 16).double(), (a & 0xFFFF).double()
+    bh, bl = (b >> 16).double(), (b & 0xFFFF).double()
+    hh = torch.matmul(ah, bh).to(torch.int64)
+    mid = (torch.matmul(ah, bl) + torch.matmul(al, bh)).to(torch.int64)
+    ll = torch.matmul(al, bl).to(torch.int64)
+    # (2**32 mod q) * (hh mod q) < 2**62, (mid mod q) * 2**16 < 2**47
+    return (hh % q * ((1 << 32) % q) + mid % q * 65536 + ll) % q
+
+
+def matmul_ntt_forward_plain(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
+    """Forward transform along the last axis of x [..., L, N] in plain
+    PyTorch: the reference of the kernel, and the path of CPU tensors."""
+    L, n = x.shape[-2], x.shape[-1]
+    N1, N2 = split4(n)
+    q = tab.q.to(torch.int64)                              # [L, 1]
+    q3 = q.view(L, 1, 1)
+    y = x.to(torch.int64) * _values(tab.pre) % q
+    y = y.reshape(*x.shape[:-1], N2, N1)
+    b = _modmat(_values(tab.wa), y, q3)                    # Wa @ y
+    c = b * _values(tab.tw).view(L, N2, N1) % q3
+    o = _modmat(c, _values(tab.wb), q3)                    # c @ Wb
+    return o.reshape(x.shape).to(torch.int32)
+
+
+def matmul_ntt_inverse_plain(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
+    """Inverse of `matmul_ntt_forward_plain`, N^-1 included."""
+    L, n = x.shape[-2], x.shape[-1]
+    N1, N2 = split4(n)
+    q = tab.q.to(torch.int64)
+    q3 = q.view(L, 1, 1)
+    y = x.to(torch.int64).reshape(*x.shape[:-1], N2, N1)
+    d = _modmat(y, _values(tab.wbi), q3)                   # y @ Wbi
+    e = d * _values(tab.twi).view(L, N2, N1) % q3
+    a = _modmat(_values(tab.wai), e, q3)                   # Wai @ e
+    return (a.reshape(x.shape) * _values(tab.post) % q).to(torch.int32)
+
+
+# ------------------------------------------------------------------ kernel
+@functools.lru_cache(maxsize=None)
+def build() -> ctypes.CDLL:
+    """Compile `matmul_ntt.cu` (once per source content) and load it."""
+    lib = load_library(_SRC)
+    ptr, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for fn in (lib.matmul_ntt_forward, lib.matmul_ntt_inverse):
+        fn.argtypes = [ptr] * 7 + [ll, i, i, i, ptr]
+        fn.restype = i
+    lib.matmul_ntt_error_string.argtypes = [i]
+    lib.matmul_ntt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x: torch.Tensor, tab: MatmulNTTTables) -> tuple[int, int]:
+    if x.dim() < 2:
+        raise ValueError(f"NTT needs [..., L, N] residues: {tuple(x.shape)}")
+    L, n = x.shape[-2], x.shape[-1]
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(
+            f"NTT needs [..., L, 2^k] with {MIN_N} <= 2^k <= {MAX_N}: {tuple(x.shape)}")
+    if tuple(tab.pre.shape) != (L, n, 2):
+        raise ValueError(f"tables {tuple(tab.pre.shape)} do not fit {tuple(x.shape)}")
+    if x.dtype != torch.int32 or not x.is_contiguous():
+        raise ValueError("NTT kernel takes contiguous int32 residues")
+    if tab.pre.device != x.device:
+        raise ValueError("NTT tables and input lie on different devices")
+    return L, n
+
+
+def _launch(name: str, x: torch.Tensor, tab: MatmulNTTTables, *tables) -> torch.Tensor:
+    L, n = _check(x, tab)
+    y = torch.empty_like(x)
+    rows = x.numel() // n
+    if rows == 0:
+        return y
+    N1, N2 = split4(n)
+    lib = build()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [x.data_ptr(), y.data_ptr(), tab.q.data_ptr()]
+    ptrs += [t.data_ptr() for t in tables]
+    with torch.cuda.device(x.device):
+        err = getattr(lib, name)(*ptrs, rows, L, N1, N2, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.matmul_ntt_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+    return y
+
+
+def matmul_ntt_forward(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
+    """Forward four-step NTT of int32 residues [..., L, N]: the kernel on
+    CUDA, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return matmul_ntt_forward_plain(x, tab)
+    if x.device.type != "cuda":
+        raise ValueError(f"no NTT for device {x.device}")
+    return _launch("matmul_ntt_forward", x, tab, tab.pre, tab.wa, tab.tw, tab.wb)
+
+
+def matmul_ntt_inverse(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
+    """Inverse four-step NTT of int32 residues [..., L, N] (see
+    `matmul_ntt_forward`)."""
+    if x.device.type == "cpu":
+        return matmul_ntt_inverse_plain(x, tab)
+    if x.device.type != "cuda":
+        raise ValueError(f"no NTT for device {x.device}")
+    return _launch("matmul_ntt_inverse", x, tab, tab.twi, tab.wai, tab.post, tab.wbi)

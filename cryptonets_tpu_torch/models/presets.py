@@ -1,23 +1,54 @@
 """Parameter presets of the port.
 
-The port's copy of two entries of `cryptonets_tpu/models/presets.py`,
-both over the full seven-limb 31-bit chain at n = 8192 (217 of the 218
-bits that 128-bit security allows):
-  * `lola`: the reference's plain primes (`LoLaCryptonets.cs:208`); its
-    network passes ks_alpha=1 (P-less key switching), so the reference's
-    digit width (dbc=8) is not carried.
-  * `cryptonets`: three ~30-bit NTT-friendly plain primes (~90 bits of CRT
-    message capacity, more than the two ~39-bit primes of
+The port's copy of four entries of `cryptonets_tpu/models/presets.py`.
+The reference truncates SEAL's CoeffModulus128(n) chain with
+SmallModulusCount; the chains here have 31-bit limbs, so a preset matches
+the TOTAL bit width of the truncated SEAL chain (`coeff_count_for`): the
+same security and noise capacity over more limbs.
+  * `lola`: the full seven-limb chain at n = 8192 (217 of the 218 bits
+    that 128-bit security allows) and the reference's plain primes
+    (`LoLaCryptonets.cs:208`); its network passes ks_alpha=1 (key
+    switching without special primes), so the reference's digit width
+    (dbc=8) is not carried.
+  * `cryptonets`: the same chain, three ~30-bit NTT-friendly plain primes
+    (~90 bits of CRT message capacity, more than the two ~39-bit primes of
     `CryptoNets.cs:17`), so slot encode and decode run on the device;
-    digit key switching at dbc=16 (SEAL 3.2's).  The reference pins an
-    NTT implementation here; the port has one NTT.
-The big-t presets (`cryptonets_bigt`, plain primes >= 2**31) are not
-ported.
+    digit key switching at dbc=16 (SEAL 3.2's).
+  * `lola_small` (`LoLaCryptonets.cs:283`, 3 of SEAL's 5 limbs at 8192):
+    five data limbs and two special primes, hybrid key switching.
+  * `caltech` (`Caltech101.cs:21`, 2 of 3 limbs at 4096): three limbs,
+    digit key switching at dbc=16.
+Data plus special limbs stay within the ring degree's 128-bit budget
+(checked below).  A preset names no NTT: `make_factory` passes the
+caller's `ntt_impl` through.  The big-t presets (plain primes >= 2**31)
+and the n = 16384 presets are not ported.
 """
 
 from __future__ import annotations
 
-from ..crypto.primes import ntt_primes
+import math
+
+from ..crypto.primes import SECURITY_BITS_128, default_coeff_modulus_128, ntt_primes
+
+# SEAL 3.2 CoeffModulus128 limb bit widths per ring degree (public
+# constants of SEAL's defaultparams.h).
+SEAL_128_CHAIN_BITS = {
+    1024: [27],
+    2048: [54],
+    4096: [36, 36, 37],
+    8192: [43, 43, 44, 44, 44],
+    16384: [48, 48, 48, 49, 49, 49, 49, 49, 49],
+}
+
+
+def coeff_count_for(n: int, small_modulus_count: int | None = None) -> int:
+    """Number of 31-bit limbs matching the (truncated) SEAL chain width."""
+    bits = SEAL_128_CHAIN_BITS[n]
+    if small_modulus_count is not None:
+        bits = bits[:small_modulus_count]
+    ours = default_coeff_modulus_128(n)
+    return min(math.ceil(sum(bits) / ours[0].bit_length()), len(ours))
+
 
 CONFIGS = {
     "lola": dict(
@@ -26,12 +57,29 @@ CONFIGS = {
     "cryptonets": dict(
         plain_primes=ntt_primes(8192, 30, 3), n=8192, dbc=16, ks_alpha=0,
     ),
+    "lola_small": dict(
+        plain_primes=(2277377, 2424833), n=8192,
+        coeff_count=coeff_count_for(8192, 3), n_special=2,
+    ),
+    "caltech": dict(
+        plain_primes=(4300801,), n=4096,
+        coeff_count=coeff_count_for(4096, 2),
+    ),
 }
+
+# total-modulus security check: data + special limbs within budget
+for _name, _cfg in CONFIGS.items():
+    _k = _cfg.get("coeff_count") or len(default_coeff_modulus_128(_cfg["n"]))
+    _bits = 31 * (_k + _cfg.get("n_special", 0))
+    if _bits > SECURITY_BITS_128[_cfg["n"]]:
+        raise AssertionError(f"preset {_name}: {_bits} modulus bits exceed "
+                             f"the 128-bit security budget")
 
 
 def make_factory(name: str, encrypt: bool = True, seed: int = 0,
-                 device=None, **overrides):
-    """Build the encrypted (CrtBfv) or Raw factory for a preset."""
+                 device=None, ntt_impl: str | None = None, **overrides):
+    """Build the encrypted (CrtBfv) or Raw factory for a preset;
+    `ntt_impl` None means the factory's default ("butterfly")."""
     from ..api.factory import CrtBfvFactory, RawFactory
 
     if name not in CONFIGS:
@@ -40,4 +88,4 @@ def make_factory(name: str, encrypt: bool = True, seed: int = 0,
     cfg.update(overrides)
     if not encrypt:
         return RawFactory(cfg["n"])
-    return CrtBfvFactory(seed=seed, device=device, **cfg)
+    return CrtBfvFactory(seed=seed, device=device, ntt_impl=ntt_impl, **cfg)

@@ -1,6 +1,6 @@
-"""LoLa layers of the main path (ref `NeuralNetworks/LL*.cs`): port of
-`LLPoolLayer`, `LLVectorizeLayer` and `LLDenseLayer` (with its BSGS
-diagonal matvec) from `cryptonets_tpu/nn/lola.py`."""
+"""LoLa layers (ref `NeuralNetworks/LL*.cs`): port of `LLPoolLayer`,
+`LLVectorizeLayer` and `LLDenseLayer` (per-row dots and the BSGS diagonal
+matvec) from `cryptonets_tpu/nn/lola.py`."""
 
 from __future__ import annotations
 
@@ -117,10 +117,14 @@ class LLVectorizeLayer(Layer):
 
 
 class LLDenseLayer(Layer):
-    """Fully connected layer over a dense input vector, outputs packed
-    into one dense vector (force_dense_format).  Encrypted it runs as the
-    hoisted BSGS diagonal matvec (`api/bsgs.py`, use_bsgs=True); on the
-    Raw backend as a matrix product."""
+    """Fully connected layer over a dense input vector.  Encrypted it runs
+    either as per-row dot products (a row-major plain matrix, SumAllSlots
+    ladders, one output ciphertext per row: a sparse vector), or, with
+    force_dense_format, as the hoisted BSGS diagonal matvec (`api/bsgs.py`)
+    with the outputs packed into one dense vector.  `use_bsgs` None takes
+    BSGS from 128 outputs up, True forces it, False forces per-row dots;
+    `bsgs_g` is the baby count.  On the Raw backend it is a matrix
+    product."""
 
     def __init__(self, source, weights, bias, weights_scale: float = 1.0,
                  input_format: str = "dense", force_dense_format: bool = False,
@@ -159,16 +163,27 @@ class LLDenseLayer(Layer):
                 wmat, "row" if self.input_format == "dense" else "col",
                 self.weights_scale)
             return
-        if not (self.force_dense_format and self.use_bsgs and self.bsgs_g):
+        if self.input_format != "dense":
             raise NotImplementedError(
-                "only the force-dense BSGS dense layer (use_bsgs, bsgs_g) "
-                "is ported for encrypted inputs")
-        from ..api.bsgs import BsgsDenseForm
+                "the column-major dense layer (sparse input) is not ported")
+        want_bsgs = self.use_bsgs if self.use_bsgs is not None else maps >= 128
+        if (self.force_dense_format and want_bsgs
+                and maps <= self.factory.n and wmat.shape[1] <= self.factory.n):
+            from ..api.bsgs import BsgsDenseForm
 
-        # the same integers as the per-element rounding (round-half-even)
-        w_int = np.round(wmat * self.weights_scale).astype(np.int64)
-        self.bsgs_form = BsgsDenseForm(
-            self.factory, w_int, maps, wmat.shape[1], g=self.bsgs_g)
+            if not self.bsgs_g:
+                raise NotImplementedError(
+                    "the default baby count is not ported: pass bsgs_g")
+            # the same integers as the per-element rounding (round-half-even)
+            w_int = np.round(wmat * self.weights_scale).astype(np.int64)
+            self.bsgs_form = BsgsDenseForm(
+                self.factory, w_int, maps, wmat.shape[1], g=self.bsgs_g)
+            return
+        if self.force_dense_format:
+            raise NotImplementedError(
+                "forced dense output of the per-row dense layer is not ported")
+        self.weights_matrix = self.factory.get_plain_matrix(
+            wmat, "row", self.weights_scale)
 
     def apply(self, m):
         if m.column_count != 1:

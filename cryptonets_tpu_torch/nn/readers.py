@@ -1,8 +1,10 @@
 """Input readers, port of `cryptonets_tpu/nn/readers.py`: `BatchReader`
 (ref `BatchReader.cs`: up to max_slots records per get_next, the batch in
-the matrix rows, which become the SIMD slots) and `LLConvReader` (ref
-`LLConvReader.cs`: one record per get_next, pre-arranged on the client
-into the corners x offsets patch matrix, im2col before encryption).
+the matrix rows, which become the SIMD slots), `LLSingleLineReader` (ref
+`LLSingleLineReader.cs`: one record per get_next as a one-column matrix)
+and `LLConvReader` (ref `LLConvReader.cs`: one record per get_next,
+pre-arranged on the client into the corners x offsets patch matrix,
+im2col before encryption).
 
 Record format (TSV): sparse = "label dim idx:val idx:val ..."; dense =
 one value per column with the label at `label_column`."""
@@ -85,6 +87,65 @@ class BatchReader(InputLayer):
 
     def output_dimension(self):
         return -1
+
+    def get_output_scale(self):
+        return self.scale
+
+
+class LLSingleLineReader(InputLayer):
+    """One record per get_next as a single-column matrix."""
+
+    def __init__(
+        self,
+        factory,
+        file_name: str | None = None,
+        normalization_factor: float = 1.0,
+        scale: float = 1.0,
+        sparse_format: bool = True,
+        label_column: int = 0,
+    ):
+        super().__init__(None, factory)
+        self.file_name = file_name
+        self.normalization_factor = normalization_factor
+        self.scale = scale
+        self.sparse_format = sparse_format
+        self.label_column = label_column
+        self.labels = []
+        self.dim = -1
+        self._records = None
+        self._lines = None
+
+    def set_source_records(self, records):
+        """Inject (label, features) records instead of reading a file."""
+        self._records = list(records)
+        return self
+
+    def _next_record(self):
+        if self._records is not None:
+            if not self._records:
+                return None
+            label, feats = self._records.pop(0)
+            return label, np.asarray(feats) * self.normalization_factor
+        if self._lines is None:
+            with open(self.file_name) as fh:
+                self._lines = fh.readlines()
+        if not self._lines:
+            return None
+        return _parse_line(self._lines.pop(0), self.sparse_format,
+                           self.label_column, self.normalization_factor)
+
+    def get_next(self):
+        rec = self._next_record()
+        if rec is None:
+            return None
+        label, features = rec
+        self.labels = [label]
+        self.dim = len(features)
+        return self.factory.get_plain_matrix(
+            features.reshape(-1, 1), "col", self.scale)
+
+    def output_dimension(self):
+        return self.dim
 
     def get_output_scale(self):
         return self.scale

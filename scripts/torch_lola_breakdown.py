@@ -1,12 +1,16 @@
 """Where a record's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 scripts/torch_lola_breakdown.py [--network LoLa|CryptoNets]
+    python3 scripts/torch_lola_breakdown.py
+        [--network LoLa|CryptoNets|LoLaSmall|Caltech] [--ntt butterfly|matmul]
         [--records 5] [--seed 11] [--batch 8192]
 
 Builds the full-width network on the card (LoLa: `build_lola_bsgs`, one
 image per record; CryptoNets: `cryptonets_mnist.build`, `--batch` images
-per record; n = 8192, real weights) and pulls records through the port's
-pipeline with a device synchronise after each stage: the reader and the
+per record; LoLaSmall: `build_lola_small`; all three n = 8192 on real
+weights; Caltech: `caltech101.build`, n = 4096, one feature vector per
+record, seeded synthetic parameters and records of seed 6) under the
+NTT `--ntt` names (LoLa takes the butterfly only) and pulls records
+through the port's pipeline with a device synchronise after each stage: the reader and the
 slot buffers (both on the host), upload + encode + encrypt, each layer,
 and decrypt + decode.  Prints the median seconds and the peak device
 memory of each stage, then profiles one more record with torch.profiler:
@@ -14,7 +18,7 @@ device busy time (sum of kernel times), the device's idle share of the
 record's wall time (profiled and unprofiled), the kernel launch count,
 the launches of the hand-written kernels, and the kernels that take the
 most device time.  Writes the same JSON to
-chiprun_out/torch_<network>_breakdown.json.  Fails without CUDA.
+chiprun_out/torch_<network>[_matmul]_breakdown.json.  Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -78,7 +82,10 @@ def staged_record(fwd, sync):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--network", choices=("LoLa", "CryptoNets"), default="LoLa")
+    ap.add_argument("--network", default="LoLa",
+                    choices=("LoLa", "CryptoNets", "LoLaSmall", "Caltech"))
+    ap.add_argument("--ntt", choices=("butterfly", "matmul"), default="butterfly",
+                    help="NTT of the ciphertext chain")
     ap.add_argument("--records", type=int, default=5,
                     help="timed records (CryptoNets: batches) after one warm-up")
     ap.add_argument("--seed", type=int, default=11)
@@ -90,23 +97,33 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
+    from cryptonets_tpu_torch.data.preprocess import (
+        synthetic_feature_records, synthetic_mnist_records)
+    from cryptonets_tpu_torch.kernels import matmul_ntt as M
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
-    from cryptonets_tpu_torch.models import cryptonets_mnist
-    from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
+    from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist
+    from cryptonets_tpu_torch.models.lola_mnist import (
+        build_lola_bsgs, build_lola_small)
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
     per_record = args.batch if args.network == "CryptoNets" else 1
-    records = synthetic_mnist_records((args.records + 2) * per_record,
-                                      seed=args.seed)
+    count = (args.records + 2) * per_record
+    if args.network == "Caltech":
+        records = synthetic_feature_records(count, caltech101.N_FEATURES, seed=6)
+        head, fac, _ = caltech101.build(True, records=records, device=dev,
+                                        ntt_impl=args.ntt)
+    else:
+        records = synthetic_mnist_records(count, seed=args.seed)
     if args.network == "CryptoNets":
         head, fac, _ = cryptonets_mnist.build(True, args.batch, records=records,
                                               device=dev)
-    else:
-        head, fac, _ = build_lola_bsgs(True, records=records, device=dev)
+    elif args.network != "Caltech":
+        build = build_lola_small if args.network == "LoLaSmall" else build_lola_bsgs
+        head, fac, _ = build(True, records=records, device=dev,
+                             ntt_impl=args.ntt)
     head.prepare_network()
     fwd = EncryptedForward(head)
     staged_record(fwd, sync)  # warm-up: lazy forms and tables
@@ -116,13 +133,14 @@ def main() -> int:
     total = [sum(r[0].values()) for r in runs]
 
     sync()
-    hand = {**K.LAUNCHES, **MM.LAUNCHES}
+    counts = lambda: {**K.LAUNCHES, **MM.LAUNCHES, **M.LAUNCHES}  # noqa: E731
+    hand = counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fwd().decrypt()
         sync()
         wall = time.perf_counter() - t0
-    hand = {k: v - hand[k] for k, v in {**K.LAUNCHES, **MM.LAUNCHES}.items()}
+    hand = {k: v - hand[k] for k, v in counts().items()}
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
          for e in prof.key_averages()
@@ -137,6 +155,7 @@ def main() -> int:
     result = {
         "card": torch.cuda.get_device_name(0),
         "network": args.network,
+        "ntt_impl": fac.ntt_impl,
         "images_per_record": per_record,
         "records": args.records,
         "record_s_median": statistics.median(total),
@@ -160,7 +179,8 @@ def main() -> int:
         print(f"{k:32s} {1e3 * v:10.3f} ms   peak {peaks.get(k, 0.0):6.2f} GiB")
     print(json.dumps(result))
     os.makedirs("chiprun_out", exist_ok=True)
-    name = f"torch_{args.network.lower()}_breakdown.json"
+    suffix = "_matmul" if fac.ntt_impl == "matmul" else ""
+    name = f"torch_{args.network.lower()}{suffix}_breakdown.json"
     with open(os.path.join("chiprun_out", name), "w") as fh:
         json.dump(result, fh, indent=1)
     return 0

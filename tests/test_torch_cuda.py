@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu and
-modmatmul.cu) against their plain versions, on the card.  Needs a CUDA device: skips
+"""The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu,
+modmatmul.cu and matmul_ntt.cu) against their plain versions, on the card.  Needs a CUDA device: skips
 without one.  On the card:
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`
 (chip_smoke.py runs the same comparison at the main path's shapes)."""
@@ -8,8 +8,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from cryptonets_tpu_torch.crypto.ntt import get_ntt_context  # noqa: E402
+from cryptonets_tpu_torch.crypto.ntt import get_ntt_context, ntt_context_for  # noqa: E402
 from cryptonets_tpu_torch.crypto.primes import ntt_primes  # noqa: E402
+from cryptonets_tpu_torch.kernels import matmul_ntt as M  # noqa: E402
 from cryptonets_tpu_torch.kernels import modmatmul as MM  # noqa: E402
 from cryptonets_tpu_torch.kernels import ntt as K  # noqa: E402
 
@@ -59,3 +60,29 @@ def test_cuda_mod_contract_matches_plain(M, O, shape):
     assert torch.equal(y, MM.exact_mod_contract_plain(W, x, qs, q_col))
     with pytest.raises(ValueError):
         MM.exact_mod_contract(W, x.long(), qs, q_col)  # not int32 storage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 7, 8192), (3, 4, 64), (5, 2, 128),
+                                   (2, 3, 512), (2, 3, 16384)])
+def test_cuda_matmul_ntt_matches_plain(shape):
+    """Square and non-square splits (128 = 8 x 16, 512 = 16 x 32), the
+    smallest rings and the largest one the shared memory takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    n, L = shape[-1], shape[-2]
+    tab = ntt_context_for("matmul", n, ntt_primes(n, 31, L)).tables("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randint(0, 1 << 31, shape, generator=gen, device="cuda")
+         % tab.q.long()).to(torch.int32)
+    x[0] = (tab.q - 1).expand(L, n)          # the largest residues everywhere
+    before = dict(M.LAUNCHES)
+    y = M.matmul_ntt_forward(x, tab)
+    assert torch.equal(y, M.matmul_ntt_forward_plain(x, tab))
+    z = M.matmul_ntt_inverse(y, tab)
+    assert torch.equal(z, M.matmul_ntt_inverse_plain(y, tab))
+    assert torch.equal(z, x)
+    assert M.LAUNCHES["matmul_ntt_forward"] == before["matmul_ntt_forward"] + 1
+    assert M.LAUNCHES["matmul_ntt_inverse"] == before["matmul_ntt_inverse"] + 1
+    with pytest.raises(ValueError):
+        M.matmul_ntt_forward(x.long(), tab)   # not int32 storage
