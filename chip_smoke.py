@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. kernel phases: each kernel held bit-equal against its plain PyTorch
      version on the card, at the main paths' shapes and a few more, with
      its time (`ntt`: the two butterfly NTT kernels at every launch shape
-     and chain of the four single-record paths; `mmntt`: the two
+     and chain of the four single-record paths, each shape also on a row
+     of q - 1 and a row of zeros, timed beside its bound, and what the
+     compiler made of each kernel instance; `mmntt`: the two
      four-step NTT kernels at the shapes of the LoLaSmall and Caltech-101
      runs and a few more, and a negacyclic product through them against
      the butterfly kernels; `contract`: the exact modular contraction at
@@ -99,27 +101,33 @@ def event_ms(fn, launches: int = 50, repeats: int = 5, warmup: int = 3) -> float
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, launches: int = 50) -> float:
+def device_ms(fn, kernel: str, launches: int = 50, attempts: int = 3) -> float:
     """Device time of one launch of `kernel` (a substring of its name):
     torch.profiler's self device time over `launches` calls, divided by
-    the count of launches it saw."""
+    the count of launches it saw.  The profiler now and then returns a
+    window without the kernel's device records: such a window is taken
+    again, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if kernel in e.key
-            and e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    count = sum(e.count for e in hits)
-    if count == 0:
-        raise SystemExit(f"the profiler recorded no device time for {kernel}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        hits = [e for e in events if kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+        seen = [e.key[:60] for e in events]
+    raise SystemExit(f"the profiler recorded no device time for {kernel} "
+                     f"in {attempts} windows; device events seen: {seen}")
 
 
 # --------------------------------------------------------------- kernels
@@ -197,9 +205,31 @@ def _residues(shape, mods, gen, dev):
                           dtype=torch.int64) % q).to(torch.int32)
 
 
+def ntt_bound(rows: int, n: int, L: int, inverse: bool) -> dict:
+    """The least time the card could take for `rows` butterfly NTTs of
+    length n over L limbs.  Bytes: the data read and written once, the
+    limb tables a row uses (twiddles and Shoup companions; n^-1 and its
+    companion for the inverse) and the moduli once.  Operations, the
+    function's need: one 32 x 32 -> 64 bit product (two 32-bit multiplies)
+    a butterfly, and a row's n products by n^-1 for the inverse.
+    `design_ops_ms` is apart: the three multiplies of each product as the
+    kernel does it (umulhi and two mullo)."""
+    logn = n.bit_length() - 1
+    nbytes = 2 * rows * n * 4 + 2 * L * n * 4 + L * 4 + (8 * L if inverse else 0)
+    products = rows * (n // 2) * logn + (rows * n if inverse else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * products / INT32_MUL_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=1e3 * t_bytes, int32_ops_ms=1e3 * t_ops,
+                design_ops_ms=1e3 * 3 * products / INT32_MUL_PER_S)
+
+
 def kernel_phase(dev) -> list[dict]:
     """K1/K2 bit-equal to their twins on the card, round trip exact, at
-    the shapes and chains the four single-record paths launch them."""
+    the shapes and chains the four single-record paths launch them, each
+    shape also on two edge rows (every residue q - 1, every residue 0);
+    every shape timed beside its bound."""
     from cryptonets_tpu_torch.crypto.bfv import BFVParams
     from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
@@ -220,38 +250,54 @@ def kernel_phase(dev) -> list[dict]:
               ((1, 3, len(bsk), 8192), bsk)]
     # every launch shape of a LoLaSmall and a Caltech-101 record
     cases += [(shape, mods) for _, shape, mods, _ in slice_c_chains(dev)]
+    names = ("ntt_forward", "ntt_inverse")
+    instances = {}
+    for n in sorted({shape[-1] for shape, _ in cases}):
+        logn = n.bit_length() - 1
+        for name in names:
+            info = K.kernel_info(logn, name == "ntt_inverse")
+            instances[f"{name}<{logn}>"] = info
+            log(f"{name}_kernel<{logn}>: {info}")
     gen = torch.Generator(device=dev).manual_seed(5)
-    err = {"ntt_forward": 0, "ntt_inverse": 0}
-    timing = {}
+    err = dict.fromkeys(names, 0)
+    timing, shapes = {}, {name: [] for name in names}
     for shape, mods in cases:
-        n = shape[-1]
+        n, L = shape[-1], shape[-2]
         tab = get_ntt_context(n, mods).tables(dev)
         x = _residues(shape, mods, gen, dev)
+        q = tab.q.view(1, L, 1)
+        edge = torch.cat([(q - 1).expand(1, L, n), torch.zeros_like(q).expand(1, L, n)])
+        for xs in (x, edge.contiguous()):
+            y = K.ntt_forward(xs, tab)
+            y_ref = K.ntt_forward_plain(xs, tab)
+            z = K.ntt_inverse(y, tab)
+            z_ref = K.ntt_inverse_plain(y, tab)
+            torch.cuda.synchronize()
+            e_f = int((y.long() - y_ref.long()).abs().max())
+            e_i = int((z.long() - z_ref.long()).abs().max())
+            if e_f or e_i or not torch.equal(z, xs):
+                raise SystemExit(
+                    f"NTT kernel disagrees with its twin at {list(xs.shape)} "
+                    f"(case {list(shape)}): forward {e_f}, inverse {e_i}, "
+                    f"round trip {torch.equal(z, xs)}")
+            err["ntt_forward"] = max(err["ntt_forward"], e_f)
+            err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
         y = K.ntt_forward(x, tab)
-        y_ref = K.ntt_forward_plain(x, tab)
-        z = K.ntt_inverse(y, tab)
-        z_ref = K.ntt_inverse_plain(y, tab)
-        torch.cuda.synchronize()
-        e_f = int((y.long() - y_ref.long()).abs().max())
-        e_i = int((z.long() - z_ref.long()).abs().max())
-        if e_f or e_i or not torch.equal(z, x):
-            raise SystemExit(
-                f"NTT kernel disagrees with its twin at {shape}: "
-                f"forward {e_f}, inverse {e_i}, round trip "
-                f"{torch.equal(z, x)}"
-            )
-        err["ntt_forward"] = max(err["ntt_forward"], e_f)
-        err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
         calls = {"ntt_forward": lambda: K.ntt_forward(x, tab),
                  "ntt_inverse": lambda: K.ntt_inverse(y, tab)}
-        ms = {name: event_ms(fn) for name, fn in calls.items()}
-        dev_ms = {name: device_ms(fn, f"{name}_kernel")
-                  for name, fn in calls.items()}
-        log(f"kernel shape {list(shape)}: bit-equal to twin; per launch, "
-            f"events over back-to-back calls / profiler device time: "
-            f"forward {ms['ntt_forward']:.4f} / {dev_ms['ntt_forward']:.4f} "
-            f"ms, inverse {ms['ntt_inverse']:.4f} / "
-            f"{dev_ms['ntt_inverse']:.4f} ms")
+        rows = x.numel() // n
+        for name, fn in calls.items():
+            entry = dict(shape=list(shape), ms=event_ms(fn),
+                         device_ms=device_ms(fn, f"{name}_kernel"),
+                         **ntt_bound(rows, n, L, name == "ntt_inverse"))
+            shapes[name].append(entry)
+        f, i = shapes["ntt_forward"][-1], shapes["ntt_inverse"][-1]
+        log(f"kernel shape {list(shape)}: bit-equal to twin, edge rows "
+            f"too; per launch, events over back-to-back calls / profiler "
+            f"device time / bound: forward {f['ms']:.4f} / "
+            f"{f['device_ms']:.4f} / {f['bound_ms']:.4f} ms by "
+            f"{f['bound_by']}, inverse {i['ms']:.4f} / {i['device_ms']:.4f} "
+            f"/ {i['bound_ms']:.4f} ms by {i['bound_by']}")
         if shape == cases[0][0]:
             plain = {
                 "ntt_forward": event_ms(lambda: K.ntt_forward_plain(x, tab),
@@ -259,29 +305,17 @@ def kernel_phase(dev) -> list[dict]:
                 "ntt_inverse": event_ms(lambda: K.ntt_inverse_plain(y, tab),
                                         launches=3, repeats=3, warmup=1),
             }
-            rows, L = x.numel() // n, shape[-2]
-            logn = n.bit_length() - 1
-            # one read and one write of the data, one read of the limb
-            # tables a row uses (psi + Shoup companion), moduli
-            nbytes = 2 * x.numel() * 4 + 2 * L * n * 4 + L * 4
-            # three 32-bit multiplies (umulhi, two mullo) per butterfly
-            ops = rows * (n // 2) * logn * 3
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_MUL_PER_S
-            timing = {
-                name: dict(ms=ms[name], device_ms=dev_ms[name],
-                           plain_ms=plain[name],
-                           bound_ms=1e3 * max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations",
-                           shape=list(shape))
-                for name in ms
-            }
+            timing = {name: dict(shapes[name][-1], plain_ms=plain[name])
+                      for name in names}
+    keep = ("shape", "ms", "device_ms", "bound_ms", "bound_by")
     return [
         dict(
             name=name, route="cuda",
             source="cryptonets_tpu_torch/kernels/ntt.cu",
             replaces=replaces, max_abs_err=err[name], library_ms=None,
             **timing[name],
+            shapes=[{k: c[k] for k in keep} for c in shapes[name]],
+            instances={k: v for k, v in instances.items() if k.startswith(name)},
         )
         for name, replaces in (
             ("ntt_forward", "cryptonets_tpu/kernels/pallas_ntt.py:158"),

@@ -94,6 +94,8 @@ def build() -> ctypes.CDLL:
     lib.ntt_forward.restype = i
     lib.ntt_inverse.argtypes = [ptr] * 7 + [ll, i, i, ptr]
     lib.ntt_inverse.restype = i
+    lib.ntt_kernel_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.ntt_kernel_info.restype = i
     lib.ntt_error_string.argtypes = [i]
     lib.ntt_error_string.restype = ctypes.c_char_p
     return lib
@@ -113,6 +115,9 @@ def _check(x: torch.Tensor, tab: NTTTables) -> tuple[int, int]:
         raise ValueError("NTT kernel takes contiguous int32 residues")
     if tab.psi.device != x.device:
         raise ValueError("NTT tables and input lie on different devices")
+    if any(t.data_ptr() % 16 for t in (x, tab.psi, tab.psi_sh, tab.ipsi, tab.ipsi_sh)):
+        raise ValueError("NTT kernel reads rows and tables as 16-byte vectors: "
+                         "x or a table is not 16-byte aligned")
     return L, logn
 
 
@@ -132,6 +137,23 @@ def _launch(name: str, x: torch.Tensor, tab: NTTTables, *tables) -> torch.Tensor
         raise RuntimeError(f"{name} launch failed: {lib.ntt_error_string(err).decode()}")
     LAUNCHES[name] += 1
     return y
+
+
+KERNEL_INFO_KEYS = ("registers", "local_bytes", "threads", "shared_bytes",
+                    "blocks_per_sm", "coefficients_per_thread", "passes")
+
+
+def kernel_info(logn: int, inverse: bool) -> dict:
+    """What the compiler and the current card made of the kernel instance
+    for rows of 2**logn: registers and local (spilled) bytes a thread,
+    threads and dynamic shared bytes a block, resident blocks an SM,
+    coefficients a thread and passes a row."""
+    lib = build()
+    out = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = lib.ntt_kernel_info(logn, int(inverse), out)
+    if err != 0:
+        raise RuntimeError(f"ntt_kernel_info failed: {lib.ntt_error_string(err).decode()}")
+    return dict(zip(KERNEL_INFO_KEYS, out))
 
 
 def ntt_forward(x: torch.Tensor, tab: NTTTables) -> torch.Tensor:

@@ -16,8 +16,8 @@ and decrypt + decode.  Prints the median seconds and the peak device
 memory of each stage, then profiles one more record with torch.profiler:
 device busy time (sum of kernel times), the device's idle share of the
 record's wall time (profiled and unprofiled), the kernel launch count,
-the launches of the hand-written kernels, and the kernels that take the
-most device time.  Writes the same JSON to
+the launches of the hand-written kernels, the device time of the
+butterfly NTT kernels, and the kernels that take the most device time.  Writes the same JSON to
 chiprun_out/torch_<network>[_matmul]_breakdown.json.  Fails without CUDA.
 """
 
@@ -169,6 +169,10 @@ def main() -> int:
             0.0, 1 - busy_ms / (1e3 * statistics.median(total))),
         "kernel_launches": sum(k[2] for k in kernels),
         "hand_kernel_launches": hand,
+        # device ms of the butterfly NTT kernels (K1, K2) in the record
+        "butterfly_ntt_device_ms": {
+            name: sum(k[1] for k in kernels if f"{name}_kernel" in k[0])
+            for name in ("ntt_forward", "ntt_inverse")},
         "top_kernels_ms": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:12]
         ],

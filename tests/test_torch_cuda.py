@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu,
-modmatmul.cu and matmul_ntt.cu) against their plain versions, on the card.  Needs a CUDA device: skips
-without one.  On the card:
+modmatmul.cu and matmul_ntt.cu) against their plain versions, on the card.
+Needs a CUDA device: skips without one.  On the card:
 `python -m pytest tests/test_torch_cuda.py -q -m cuda`
 (chip_smoke.py runs the same comparison at the main path's shapes)."""
 
@@ -33,6 +33,35 @@ def test_cuda_kernels_match_twins(shape):
     assert torch.equal(z, x)
     assert K.LAUNCHES["ntt_forward"] == before["ntt_forward"] + 1
     assert K.LAUNCHES["ntt_inverse"] == before["ntt_inverse"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 1, 2), (3, 5, 8), (1, 14, 64), (7, 3, 1024), (5, 1, 4096),
+    (1, 1, 8192), (3, 13, 8192), (2, 9, 16384), (1, 2, 32768), (3, 1, 32768),
+])
+def test_cuda_ntt_every_ring(shape):
+    """Every register width and pass split of the kernel template: rings
+    from n = 2 to 32768, one row and odd row counts, 1 to 14 limbs, a row
+    of q - 1 everywhere and a row of zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    n, L = shape[-1], shape[-2]
+    tab = get_ntt_context(n, ntt_primes(n, 31, L)).tables("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(n + L)
+    x = (torch.randint(0, 1 << 31, shape, generator=gen, device="cuda")
+         % tab.q.long()).to(torch.int32)
+    x[0] = (tab.q - 1).expand(L, n)
+    if shape[0] > 1:
+        x[-1] = 0
+    before = dict(K.LAUNCHES)
+    y = K.ntt_forward(x, tab)
+    z = K.ntt_inverse(y, tab)
+    assert K.LAUNCHES["ntt_forward"] == before["ntt_forward"] + 1
+    assert K.LAUNCHES["ntt_inverse"] == before["ntt_inverse"] + 1
+    assert torch.equal(y, K.ntt_forward_plain(x, tab))
+    assert torch.equal(z, K.ntt_inverse_plain(y, tab))
+    assert torch.equal(z, x)
 
 
 @pytest.mark.cuda
