@@ -16,7 +16,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      four-step NTT kernels at the shapes of the LoLaSmall and Caltech-101
      runs and a few more, and a negacyclic product through them against
      the butterfly kernels; `contract`: the exact modular contraction at
-     LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets);
+     LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets,
+     from raw and from prepared weights, the preparation timed apart, and
+     what the compiler made of each kernel instance);
   4. `lola`: the LoLa-MNIST network (`build_lola_bsgs`, n = 8192, k = 7,
      four plain primes, key switching without special primes) at full
      width on the real weights: keygen on the card, one warm-up and two
@@ -142,8 +144,8 @@ def modmat_bound(terms: int, nbytes: int) -> dict:
     bit product a term (two 32-bit multiplies) on the integer pipe, or 16
     plane pairs of 8-bit digits a term (a multiply and an add each) on the
     int8 tensor cores, whichever unit is the faster.  `design_ops_ms` is
-    apart: the three multiplies a term of the kernels as written (a Shoup
-    product reduced on the spot: umulhi and two mullo)."""
+    apart: three multiplies a term (a Shoup product reduced on the spot:
+    umulhi and two mullo), K5's plan; K4's is `contract_design_ms`."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_int32 = 2 * terms / INT32_MUL_PER_S
     t_int8 = 16 * 2 * terms / INT8_TENSOR_OPS_PER_S
@@ -324,10 +326,25 @@ def kernel_phase(dev) -> list[dict]:
     ]
 
 
+def contract_design_ms(P: int, positions: int, wc) -> dict:
+    """The K4 kernel's own operation count, as its plan does the work:
+    16 plane pairs (an int8 multiply and add each) for every padded output
+    and padded o on the tensor cores, and one Shoup fold (three 32-bit
+    multiplies) for each padded output, shift group and chunk on the
+    integer pipe.  The two units work side by side: the larger time is
+    `design_ops_ms`."""
+    outs = P * positions * wc.nw * wc.mt
+    t_mma = 16 * 2 * outs * wc.kc * wc.chunks / INT8_TENSOR_OPS_PER_S
+    t_fold = 3 * 7 * outs * wc.chunks / INT32_MUL_PER_S
+    return dict(design_ops_ms=1e3 * max(t_mma, t_fold),
+                design_mma_ms=1e3 * t_mma, design_fold_ms=1e3 * t_fold)
+
+
 def contract_phase(dev) -> dict:
     """K4 bit-equal to its plain version on the card at the shapes the
     two networks give it, with weights that include negatives and
-    magnitudes above 2**31 (and, at LoLa's shape, above 2**63)."""
+    magnitudes above 2**31 (and, at LoLa's shape, above 2**63); the
+    weights prepared once (timed apart), the kernel timed on them."""
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
     from cryptonets_tpu_torch.kernels import modmatmul as MM
 
@@ -338,7 +355,7 @@ def contract_phase(dev) -> dict:
     cases = [("LoLa conv", 5, 25, 4, 7), ("LoLaSmall conv", 5, 25, 2, 5),
              ("CryptoNets Dense(10)", 10, 100, 3, 7),
              ("CryptoNets Dense(100)", 100, 845, 3, 7)]
-    by_shape = []
+    by_shape, instances = [], {}
     for where, M, O, P, k in cases:
         qs = chain[:k]
         q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
@@ -349,38 +366,54 @@ def contract_phase(dev) -> dict:
         if M * O <= 1000:   # Python-int weights: magnitudes past 2**63
             W = W.astype(object)
             W[0, 1], W[1, 0] = (1 << 80) + 12345, -(1 << 70) - 7
-        y = MM.exact_mod_contract(W, x, qs, q_col)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wc = MM.prepare_contract(W, qs, dev)
+        torch.cuda.synchronize()
+        prepare_ms = 1e3 * (time.perf_counter() - t0)
+        y = MM.exact_mod_contract(wc, x, qs, q_col)
+        y_raw = MM.exact_mod_contract(W, x, qs, q_col)
         torch.cuda.synchronize()
         y_ref = MM.exact_mod_contract_plain(W, x, qs, q_col)
         torch.cuda.synchronize()
         err = int((y.long() - y_ref.long()).abs().max())
-        if err or y.shape != y_ref.shape or y.dtype != y_ref.dtype:
+        if (err or not torch.equal(y, y_raw) or y.shape != y_ref.shape
+                or y.dtype != y_ref.dtype):
             raise SystemExit(f"mod_contract disagrees with its plain version "
                              f"at [{M}, {O}] on {list(shape)}: {err}")
         big = M * O > 10000
-        call = lambda: MM.exact_mod_contract(W, x, qs, q_col)  # noqa: E731
-        ms = event_ms(call, launches=5 if big else 50, repeats=3 if big else 5)
+        call = lambda: MM.exact_mod_contract(wc, x, qs, q_col)  # noqa: E731
+        ms = event_ms(call, launches=10 if big else 50, repeats=5)
         dev_ms = device_ms(call, "mod_contract_kernel",
-                           launches=5 if big else 50)
+                           launches=10 if big else 50)
         plain = event_ms(lambda: MM.exact_mod_contract_plain(W, x, qs, q_col),
                          launches=1, repeats=1 if big else 3, warmup=0)
-        # one read of x, one write of the result, the (w, w') tables
-        nbytes = 4 * (x.numel() + y.numel()) + 8 * M * O * len(qs)
+        # one read of x, one write of the result, the weights once
+        nbytes = 4 * (x.numel() + y.numel()) + 4 * M * O * len(qs)
         bound = modmat_bound(y.numel() * O, nbytes)
+        bound.update(contract_design_ms(P, x[0, 0].numel(), wc))
+        name = f"mod_contract_kernel<{wc.nw}, {MM.row_bytes(wc.kc)}>"
+        if name not in instances:
+            instances[name] = MM.kernel_info(wc.nw, wc.kc)
+            log(f"{name}: {instances[name]}")
         by_shape.append(dict(
             where=where, weights=[M, O], shape=list(shape), ms=ms,
-            device_ms=dev_ms, plain_ms=plain, max_abs_err=err, **bound))
+            device_ms=dev_ms, plain_ms=plain, prepare_ms=prepare_ms,
+            max_abs_err=err, instance=name,
+            tiling=dict(nw=wc.nw, mt=wc.mt, kc=wc.kc, chunks=wc.chunks),
+            **bound))
         log(f"mod_contract [{M}, {O}] on {list(shape)} ({where}): bit-equal "
-            f"to its plain version; per launch, events over back-to-back "
-            f"calls {ms:.4f} ms (weight tables made on the host in each "
-            f"call), profiler device time {dev_ms:.4f} ms, plain version "
-            f"{plain:.2f} ms, bound {bound['bound_ms']:.4f} ms by "
-            f"{bound['bound_by']} (bytes {bound['bytes_bound_ms']:.4f} ms; "
-            f"the function's operations on the integer pipe "
-            f"{bound['int32_ops_ms']:.4f} ms, on the int8 tensor cores "
-            f"{bound['int8_ops_ms']:.4f} ms; the kernel's three multiplies a "
-            f"term {bound['design_ops_ms']:.4f} ms)")
-        del x, y, y_ref
+            f"to its plain version, raw and prepared weights; weights "
+            f"prepared once in {prepare_ms:.3f} ms; per launch, events over "
+            f"back-to-back calls {ms:.4f} ms, profiler device time "
+            f"{dev_ms:.4f} ms, plain version {plain:.2f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bytes "
+            f"{bound['bytes_bound_ms']:.4f} ms; the function's operations on "
+            f"the integer pipe {bound['int32_ops_ms']:.4f} ms, on the int8 "
+            f"tensor cores {bound['int8_ops_ms']:.4f} ms; the kernel's plan: "
+            f"plane pairs on the tensor cores {bound['design_mma_ms']:.4f} "
+            f"ms, folds on the integer pipe {bound['design_fold_ms']:.4f} ms)")
+        del x, y, y_raw, y_ref
     main = by_shape[-1]   # Dense(100): the largest call of the main paths
     return dict(
         name="mod_contract", route="cuda",
@@ -388,10 +421,11 @@ def contract_phase(dev) -> dict:
         replaces="cryptonets_tpu/kernels/modmatmul.py:71",
         max_abs_err=max(c["max_abs_err"] for c in by_shape),
         ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+        prepare_ms=main["prepare_ms"],
         **{k: main[k] for k in BOUND_KEYS},
         # no PyTorch call computes an integer matrix product mod q on CUDA
         library_ms=None, shape=main["shape"], weights=main["weights"],
-        by_shape=by_shape)
+        by_shape=by_shape, instances=instances)
 
 
 def mmntt_phase(dev) -> list[dict]:

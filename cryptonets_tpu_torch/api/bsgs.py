@@ -97,9 +97,10 @@ def _encode_diag_chunk(fac, tbl_a):
 def hoist_eligible(fac, g: int) -> bool:
     """True when the baby steps can be hoisted: every step 1..g-1 has its
     own Galois key (the factory's rot_steps), the switched result stays
-    in the NTT domain (no special primes, hence no mod-down), and the NTT
-    has the bit-reversed ordering that `ntt_automorphism_perm` encodes
-    (the four-step NTT has its own)."""
+    in the NTT domain (digit switching, or RNS groups without special
+    primes, hence no mod-down), and the NTT has the bit-reversed ordering
+    that `ntt_automorphism_perm` encodes (the four-step NTT has its
+    own)."""
     bfv0 = fac.bfv[0]
     p = bfv0.p
     return (
@@ -113,22 +114,26 @@ def hoist_eligible(fac, g: int) -> bool:
 
 def _hoisted_babies_hat(fac, ub, g):
     """All baby rotations of ub [P, F, 2, k, N] in the NTT domain:
-    one RNS-group decomposition + NTT, then per baby a gather by the
-    automorphism permutation and the switch-key inner product.
-    Returns bab_hat [P, g, F, 2, k, N]."""
+    one decomposition of c1 + NTT (base-2^dbc digits, or RNS groups
+    extended to Q*P with kp = k), then per baby a gather by the
+    automorphism permutation and the switch-key inner product over the J
+    components.  Returns bab_hat [P, g, F, 2, k, N]."""
     bfv0 = fac.bfv[0]
     p = bfv0.p
     cq = p.chain_q
     c0, c1 = ub[..., 0, :, :], ub[..., 1, :, :]           # [P, F, k, N]
     c0_hat = p.ntt_q.forward(c0)
     c1_hat = p.ntt_q.forward(c1)
-    dhat = p.ntt_qp.forward(bfv0._group_decompose(c1))    # [omega, P, F, kp, N]
-    perms, k0s, k1s = fac.stacked_baby_rotations(g)
+    if p.ks_hybrid:
+        dhat = p.ntt_qp.forward(bfv0._group_decompose(c1))  # [omega, P, F, kp, N]
+    else:
+        dhat = p.ntt_q.forward(bfv0._decompose_digits(c1))  # [kD, P, F, k, N]
+    perms, k0s, k1s = fac.stacked_baby_rotations(g)       # keys [g-1, J, k, N]
     rots = []
     for b0 in range(0, g - 1, BABY_CHUNK):
         perm = perms[b0 : b0 + BABY_CHUNK]                # [B, N]
         kshape = (perm.shape[0], k0s.shape[1], 1, 1, *k0s.shape[2:])
-        dp = dhat[..., perm].movedim(-2, 0)               # [B, omega, P, F, kp, N]
+        dp = dhat[..., perm].movedim(-2, 0)               # [B, J, P, F, k, N]
         t0 = mod_sum(cq.mont_mul(dp, k0s[b0 : b0 + BABY_CHUNK].reshape(kshape)),
                      cq.q, dim=1)
         t1 = mod_sum(cq.mont_mul(dp, k1s[b0 : b0 + BABY_CHUNK].reshape(kshape)),

@@ -201,10 +201,11 @@ class CrtBfvFactory:
         return stacks
 
     def stacked_baby_rotations(self, g: int):
-        """(perm [g-1, N], k0 [g-1, omega, kp, N], k1) for the hoisted BSGS
+        """(perm [g-1, N], k0 [g-1, J, L, N], k1) for the hoisted BSGS
         baby steps 1..g-1: NTT-domain automorphism gathers plus each step's
-        switch keys.  Cached per key set, so replacing `self.keys` never
-        serves stale stacks."""
+        switch keys, J components (kD digits or omega groups) over L limbs
+        (k, or kp = k without special primes).  Cached per key set, so
+        replacing `self.keys` never serves stale stacks."""
         cached = self._stack_cache.get(("bsgs_baby", g))
         if cached is not None and cached[0] is self.keys:
             return cached[1]

@@ -9,6 +9,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels.modmatmul import ContractCache
 from .convolution import ConvolutionEngine
 from .network import Layer
 
@@ -59,6 +60,7 @@ class PoolLayer(Layer):
         self.kernel_size = -1
         self._weight_ints = None
         self._bias_forms: dict = {}
+        self._contract = ContractCache()
 
     def get_output_scale(self):
         if self.weights is None:
@@ -167,7 +169,8 @@ class PoolLayer(Layer):
             # columns and one exact modular contraction over all maps
             Xg = gather([e.location(e.corners[0], off, e.input_shape)
                          for off in e.offsets])
-            stacked = exact_mod_contract(W, Xg, f.coeff_modulus, q)
+            wc = self._contract.get(f, Xh.device, self._weight_matrix)
+            stacked = exact_mod_contract(wc, Xg, f.coeff_modulus, q)
         else:
             # conv: per offset one gather of every corner's column, per
             # map a constant multiply; the reduced terms (< 2**31 each)

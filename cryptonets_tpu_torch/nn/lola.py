@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..kernels.modmatmul import ContractCache
 from .convolution import ConvolutionEngine
 from .network import Layer
 
@@ -34,6 +35,7 @@ class LLPoolLayer(Layer):
         self.weight_windows = None
         self.bias_vectors = None
         self.kernel_size = -1
+        self._contract = ContractCache()
 
     def get_output_scale(self):
         return self.weights_scale * self.source.get_output_scale()
@@ -71,6 +73,13 @@ class LLPoolLayer(Layer):
             for b in bvals
         ]
 
+    def _weight_ints(self) -> np.ndarray:
+        """The scaled integer weights [maps, offsets] of the windows."""
+        return np.stack([
+            np.asarray([int(x) for x in wv.values], dtype=np.int64)
+            for wv in self.weight_windows
+        ])
+
     def apply(self, m):
         if not m.is_encrypted:
             cols = [
@@ -82,12 +91,10 @@ class LLPoolLayer(Layer):
         from ..kernels.modmatmul import exact_mod_contract
 
         f = self.factory
-        wint = np.stack([
-            np.asarray([int(x) for x in wv.values], dtype=np.int64)
-            for wv in self.weight_windows
-        ])
+        x = m._stacked_data()
+        wc = self._contract.get(f, x.device, self._weight_ints)
         out = exact_mod_contract(
-            wint, m._stacked_data(), f.coeff_modulus, f.bfv[0].p.chain_q.q
+            wc, x, f.coeff_modulus, f.bfv[0].p.chain_q.q
         )                                                 # [P, maps, C, s, k, N]
         col0 = m.get_column(0)
         out_scale = col0.scale * self.weights_scale

@@ -17,7 +17,8 @@ memory of each stage, then profiles one more record with torch.profiler:
 device busy time (sum of kernel times), the device's idle share of the
 record's wall time (profiled and unprofiled), the kernel launch count,
 the launches of the hand-written kernels, the device time of the
-butterfly NTT kernels, and the kernels that take the most device time.  Writes the same JSON to
+butterfly NTT kernels and of the contraction, and the kernels that take
+the most device time.  Writes the same JSON to
 chiprun_out/torch_<network>[_matmul]_breakdown.json.  Fails without CUDA.
 """
 
@@ -173,6 +174,9 @@ def main() -> int:
         "butterfly_ntt_device_ms": {
             name: sum(k[1] for k in kernels if f"{name}_kernel" in k[0])
             for name in ("ntt_forward", "ntt_inverse")},
+        # device ms of the exact modular contraction (K4) in the record
+        "mod_contract_device_ms": sum(
+            k[1] for k in kernels if "mod_contract_kernel" in k[0]),
         "top_kernels_ms": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:12]
         ],

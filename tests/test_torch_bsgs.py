@@ -1,6 +1,7 @@
 """Port BSGS diagonal matvec (cryptonets_tpu_torch/api/bsgs.py) with
-hoisted babies, bit-equal to the JAX `bsgs_matvec` under the same keys
-and input ciphertext, and exact against the integer matvec."""
+hoisted babies, under RNS-group and under digit key switching: bit-equal
+to the JAX `bsgs_matvec` under the same keys and input ciphertext, and
+exact against the integer matvec."""
 
 import numpy as np
 import pytest
@@ -25,16 +26,22 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.uint32).view(np.int32))
 
 
-@pytest.fixture(scope="module")
-def pair(tmp_path_factory):
+# key switching: RNS groups without special primes, and base-2^16 digits
+KS_MODES = {"groups": dict(ks_alpha=1), "digits": dict(ks_alpha=0, dbc=16)}
+
+
+@pytest.fixture(scope="module", params=sorted(KS_MODES))
+def pair(request, tmp_path_factory):
+    ks = KS_MODES[request.param]
     jf = JaxFactory(plain_primes=PLAIN, n=N, coeff_modulus=CHAIN, seed=5,
-                    ks_alpha=1, rot_steps=tuple(range(1, G_BABY)))
+                    rot_steps=tuple(range(1, G_BABY)), **ks)
     path = str(tmp_path_factory.mktemp("keys") / "keys.npz")
     JaxFactory._save_cached_keys(path, jf.keys)
     with np.load(path) as z:
         keys = keyset_from_numpy(z, device="cpu")
     tf = CrtBfvFactory(plain_primes=PLAIN, n=N, coeff_modulus=CHAIN, seed=5,
-                       ks_alpha=1, device="cpu", keys=keys)
+                       device="cpu", keys=keys, **ks)
+    assert tf.bfv[0].p.ks_hybrid == (request.param == "groups")
     return jf, tf
 
 

@@ -65,11 +65,24 @@ def test_cuda_ntt_every_ring(shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,O,shape", [(5, 25, (2, 1, 2, 3, 1024)),
-                                       (13, 130, (1, 2, 2, 2, 64))])
-def test_cuda_mod_contract_matches_plain(M, O, shape):
-    """Ragged tiles of m (5 of 5, 13 of 8 + 8), O past one shared-memory
-    chunk, negative weights and Python ints past 2**63."""
+@pytest.mark.parametrize("M,O,shape,kind", [
+    (5, 25, (2, 1, 2, 3, 1024), "random"),
+    (13, 130, (1, 2, 2, 2, 64), "random"),
+    (1, 40, (1, 1, 2, 2, 256), "random"),       # one output
+    (8, 64, (2, 1, 2, 2, 128), "random"),       # one full 8-wide tile
+    (100, 845, (1, 1, 2, 2, 128), "random"),    # Dense(100)'s weights
+    (257, 129, (1, 1, 1, 2, 256), "random"),    # three tiles of m
+    (10, 1, (3, 1, 2, 2, 64), "random"),        # O = 1
+    (7, MM.KC_MAX + 1, (1, 1, 2, 2, 64), "random"),   # one o past a chunk
+    (9, MM.KF_MAX + 1, (1, 1, 1, 1, 64), "random"),   # past the s32 limit
+    (10, 100, (1, 1, 2, 3, 4096), "random"),    # Caltech's ring
+    (100, 300, (1, 1, 2, 2, 256), "q-1"),       # every residue q - 1
+])
+def test_cuda_mod_contract_matches_plain(M, O, shape, kind):
+    """Ragged tiles of m and O, one output and 257 over three tiles of m,
+    O = 1, O one past a chunk and past the s32 group limit, the rings of
+    n = 64 to 4096, all residues q - 1; raw and prepared weights give the
+    same result; negative weights and Python ints past 2**63."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
     import numpy as np
@@ -77,16 +90,24 @@ def test_cuda_mod_contract_matches_plain(M, O, shape):
     P, C, s, k, n = shape
     qs = ntt_primes(n, 31, k)
     q_col = torch.tensor(qs, dtype=torch.int64, device="cuda").view(-1, 1)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    x = (torch.randint(0, 1 << 31, (P, O, C, s, k, n), generator=gen,
-                       device="cuda") % q_col).to(torch.int32)
-    W = np.random.default_rng(3).integers(
-        -(1 << 62), 1 << 62, size=(M, O)).astype(object)
-    W[0, 0], W[-1, -1] = (1 << 90) + 1, -(1 << 64) - 5
+    if kind == "q-1":
+        x = (q_col - 1).to(torch.int32).expand(P, O, C, s, k, n).contiguous()
+        W = np.full((M, O), -1, dtype=np.int64)
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        x = (torch.randint(0, 1 << 31, (P, O, C, s, k, n), generator=gen,
+                           device="cuda") % q_col).to(torch.int32)
+        W = np.random.default_rng(3).integers(
+            -(1 << 62), 1 << 62, size=(M, O)).astype(object)
+        W[0, 0], W[-1, -1] = (1 << 90) + 1, -(1 << 64) - 5
     before = MM.LAUNCHES["mod_contract"]
     y = MM.exact_mod_contract(W, x, qs, q_col)
     assert MM.LAUNCHES["mod_contract"] == before + 1
-    assert torch.equal(y, MM.exact_mod_contract_plain(W, x, qs, q_col))
+    want = MM.exact_mod_contract_plain(W, x, qs, q_col)
+    assert torch.equal(y, want)
+    prepared = MM.prepare_contract(W, qs, "cuda")
+    assert torch.equal(MM.exact_mod_contract(prepared, x, qs, q_col), want)
+    assert MM.LAUNCHES["mod_contract"] == before + 2
     with pytest.raises(ValueError):
         MM.exact_mod_contract(W, x.long(), qs, q_col)  # not int32 storage
 

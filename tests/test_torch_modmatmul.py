@@ -2,9 +2,10 @@
 kernels/modmatmul.py) against the JAX reference's digit-plane
 `exact_mod_contract`: the plain version, which serves CPU tensors and is
 what the CUDA kernel is held against on the card, is bit-equal for
-negative weights, weights above 2**31, 2**62 and 2**63, and O = 1.  Also
-the weight reduction, the tile choice, and the rule that the port's
-sources import neither jax nor the JAX package."""
+negative weights, weights above 2**31, 2**62 and 2**63, and O = 1, from
+raw or from prepared weights.  Also the weight reduction, the tiling
+rule, the layers preparing their weights once, and the rule that the
+port's sources import neither jax nor the JAX package."""
 
 import re
 from pathlib import Path
@@ -52,10 +53,12 @@ def test_plain_contract_matches_reference(M, O, k, N, P, kind):
         W, jnp.asarray(x), qs, jnp.asarray(np.array(qs, np.uint32).reshape(-1, 1))))
     xt = torch.from_numpy(x.view(np.int32))
     q_col = torch.tensor(qs, dtype=torch.int64).view(-1, 1)
+    prepared = MM.prepare_contract(W, qs, "cpu")
     for fn in (MM.exact_mod_contract_plain, MM.exact_mod_contract):
-        got = fn(W, xt, qs, q_col)
-        assert got.dtype == torch.int32 and got.shape == (P, M, 1, 2, k, N)
-        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        for w in (W, prepared):
+            got = fn(w, xt, qs, q_col)
+            assert got.dtype == torch.int32 and got.shape == (P, M, 1, 2, k, N)
+            np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
     # and against exact Python-int arithmetic, limb 0
     exact = (np.array(W, dtype=object) @ x[0, :, 0, 0, 0, :].astype(object)) % qs[0]
     np.testing.assert_array_equal(want[0, :, 0, 0, 0, :].astype(object), exact)
@@ -82,8 +85,15 @@ def test_reduce_weights_paths_agree():
 
 
 def test_tile_choice_and_launch_counter():
-    assert [MM.tile_for(M) for M in (1, 5, 6, 8, 10, 16, 100, 101)] == \
-        [5, 5, 8, 8, 10, 8, 10, 8]
+    """M pads to a wgmma width (8, 16, 32, 64 or 112) in the fewest tiles
+    of at most 112, O cuts into chunks of at most 128 values (a multiple
+    of 32); the CPU path launches nothing."""
+    assert [MM.tiling(M, 25)[:2] for M in (1, 5, 8, 9, 10, 56, 65, 100, 257)] == \
+        [(8, 1), (8, 1), (8, 1), (16, 1), (16, 1), (64, 1), (112, 1),
+         (112, 1), (112, 3)]
+    assert [MM.tiling(5, O)[2:] for O in (1, 25, 32, 33, 100, 128, 129, 845)] == \
+        [(32, 1), (32, 1), (32, 1), (64, 1), (128, 1), (128, 1), (128, 2),
+         (128, 7)]
     before = MM.LAUNCHES["mod_contract"]
     qs = ntt_primes(32, 30, 2)
     x = torch.zeros((1, 2, 1, 2, 2, 32), dtype=torch.int32)
@@ -101,6 +111,65 @@ def test_contract_rejects_bad_shapes():
         MM.exact_mod_contract([[1, 2, 3]], x[0], qs, q_col)    # rank
     with pytest.raises(ValueError):
         MM.exact_mod_contract([[1, 2, 3]], x, qs[:1], q_col)   # limb count
+
+
+def test_layers_prepare_their_weights_once(monkeypatch):
+    """LLPoolLayer (LoLa's conv) and PoolLayer (a dense layer) make their
+    contraction weights once over two records, not once a call; a new
+    factory makes them anew.  The decrypted outputs equal the Raw path."""
+    from cryptonets_tpu_torch.api.factory import CrtBfvFactory, RawFactory
+    from cryptonets_tpu_torch.nn.layers import EncryptLayer, PoolLayer
+    from cryptonets_tpu_torch.nn.lola import LLPoolLayer
+    from cryptonets_tpu_torch.nn.readers import BatchReader, LLConvReader
+
+    calls = []
+    real = MM.prepare_contract
+    monkeypatch.setattr(MM, "prepare_contract",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    n = 256
+    fac = dict(plain_primes=ntt_primes(n, 20, 2), n=n,
+               coeff_modulus=ntt_primes(n, 30, 3), seed=3)
+    rng = np.random.default_rng(6)
+    geo = dict(input_shape=[6, 6], kernel_shape=[3, 3], stride=[3, 3])
+    conv_w = rng.integers(-2, 3, 2 * 9).astype(float)
+    dense_w = rng.integers(-3, 4, 3 * 12).astype(float)
+    records = [(0, rng.integers(0, 4, 36).astype(float)) for _ in range(4)]
+
+    def lola(factory):
+        reader = LLConvReader(RawFactory(n), normalization_factor=1.0,
+                              scale=2.0, **geo)
+        reader.set_source_records([(lb, f.copy()) for lb, f in records[:2]])
+        enc = EncryptLayer(reader)
+        enc.factory = factory
+        conv = LLPoolLayer(enc, map_count=[2, 1], weights=conv_w,
+                           bias=np.array([1.0, -1.0]), weights_scale=2.0, **geo)
+        conv.prepare_network()
+        return conv
+
+    def dense(factory):
+        reader = BatchReader(RawFactory(n), max_slots=2, scale=2.0)
+        reader.set_source_records([(lb, f.copy()[:12]) for lb, f in records])
+        enc = EncryptLayer(reader)
+        enc.factory = factory
+        layer = PoolLayer(enc, input_shape=[12], kernel_shape=[12],
+                          stride=[13], map_count=[3], weights=dense_w,
+                          bias=np.array([2.0, 0.0, -3.0]), weights_scale=2.0)
+        layer.prepare_network()
+        return layer
+
+    enc_fac = CrtBfvFactory(**fac, device="cpu")
+    for build, shape in ((lola, (2, 9)), (dense, (3, 12))):
+        calls.clear()
+        head, raw = build(enc_fac), build(RawFactory(n))
+        for _ in range(2):
+            got = head.get_next()
+            want = raw.get_next()
+            for i in range(len(got.vectors)):
+                assert list(got.get_column(i).decrypt_full_precision()) == \
+                    list(want.get_column(i).decrypt_full_precision())
+        assert calls == [shape]
+        build(CrtBfvFactory(**fac, device="cpu")).get_next()
+        assert calls == [shape, shape]
 
 
 def test_port_sources_import_no_jax():
