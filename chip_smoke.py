@@ -14,8 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of q - 1 and a row of zeros, timed beside its bound, and what the
      compiler made of each kernel instance; `mmntt`: the two
      four-step NTT kernels at the shapes of the LoLaSmall and Caltech-101
-     runs and a few more, and a negacyclic product through them against
-     the butterfly kernels; `contract`: the exact modular contraction at
+     runs and a few more, each with a row of q - 1, timed beside the
+     bound and the kernel's own plan, with each instance's registers,
+     spills and blocks per SM, and a negacyclic product through them
+     against the butterfly kernels; `contract`: the exact modular contraction at
      LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets,
      from raw and from prepared weights, the preparation timed apart, and
      what the compiler made of each kernel instance);
@@ -143,9 +145,8 @@ def modmat_bound(terms: int, nbytes: int) -> dict:
     The operations are the function's, not a kernel's: one 32 x 32 -> 64
     bit product a term (two 32-bit multiplies) on the integer pipe, or 16
     plane pairs of 8-bit digits a term (a multiply and an add each) on the
-    int8 tensor cores, whichever unit is the faster.  `design_ops_ms` is
-    apart: three multiplies a term (a Shoup product reduced on the spot:
-    umulhi and two mullo), K5's plan; K4's is `contract_design_ms`."""
+    int8 tensor cores, whichever unit is the faster.  A kernel's own plan
+    is apart: K4's `contract_design_ms`, K5's `mmntt_design_ms`."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_int32 = 2 * terms / INT32_MUL_PER_S
     t_int8 = 16 * 2 * terms / INT8_TENSOR_OPS_PER_S
@@ -153,8 +154,35 @@ def modmat_bound(terms: int, nbytes: int) -> dict:
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes_bound_ms=1e3 * t_bytes, int32_ops_ms=1e3 * t_int32,
-                int8_ops_ms=1e3 * t_int8,
-                design_ops_ms=1e3 * 3 * terms / INT32_MUL_PER_S)
+                int8_ops_ms=1e3 * t_int8)
+
+
+# K5's integer instructions a coefficient, counted from matmul_ntt.cu: per
+# product and output 7 wide multiply-adds (the shift groups), the fold of
+# hi (two Shoup products and a 64-bit add: 8) and the final `reduce64` (two
+# Shoup products, three conditional subtractions: 11), so 26 for each of
+# the two products; the twiddle (4); the split of the row (1.5: six byte
+# permutes a word of four) and the split between the products (6: byte
+# permutes or shifts, and stores)
+MMNTT_INT_PER_COEFF = 2 * 26 + 4 + 1.5 + 6
+
+
+def mmntt_design_ms(rows: int, n: int) -> dict:
+    """The K5 kernel's own operation count, as its plan does the work: 16
+    plane pairs (an int8 multiply and add each) for every term of its
+    padded tiles on the tensor cores (rows a padded to 64 a warpgroup,
+    output columns to 8, sums to 32 terms), and `MMNTT_INT_PER_COEFF`
+    instructions a coefficient on the integer pipe (at the rate of its
+    multiplies, 64 an SM a clock).  The two units work side by side: the
+    larger time is `design_ops_ms`."""
+    from cryptonets_tpu_torch.kernels.matmul_ntt import geometry
+
+    g = geometry(n)
+    terms = rows * g.mp * g.np_ * (max(32, g.n2) + max(32, g.n1))
+    t_mma = 16 * 2 * terms / INT8_TENSOR_OPS_PER_S
+    t_int = MMNTT_INT_PER_COEFF * rows * n / INT32_MUL_PER_S
+    return dict(design_ops_ms=1e3 * max(t_mma, t_int),
+                design_mma_ms=1e3 * t_mma, design_int_ms=1e3 * t_int)
 
 
 def slice_c_chains(dev) -> list[tuple]:
@@ -431,8 +459,11 @@ def contract_phase(dev) -> dict:
 def mmntt_phase(dev) -> list[dict]:
     """K5 forward and inverse bit-equal to their plain versions on the
     card, round trip exact, at every ciphertext NTT shape of a LoLaSmall
-    and a Caltech-101 record and a few more; and a negacyclic product
-    through K5 equal to the same product through K1/K2."""
+    and a Caltech-101 record and a few more (each also on a row of q - 1),
+    timed at the record shapes and at [64, 7, 8192] beside the bound and
+    the kernel's own plan, with what the compiler made of each kernel
+    instance; and a negacyclic product through K5 equal to the same
+    product through K1/K2."""
     from cryptonets_tpu_torch.crypto.ntt import ntt_context_for
     from cryptonets_tpu_torch.crypto.primes import (default_coeff_modulus_128,
                                                     ntt_primes)
@@ -453,12 +484,20 @@ def mmntt_phase(dev) -> list[dict]:
     cases += [(shape, mods) for _, shape, mods, _ in chains]
     gen = torch.Generator(device=dev).manual_seed(9)
     names = ("matmul_ntt_forward", "matmul_ntt_inverse")
+    instances = {}
+    for n in sorted({shape[-1] for shape, _ in cases}):
+        for name in names:
+            info = M.kernel_info(n, name == names[1])
+            instances[f"{name}<{n.bit_length() - 1}>"] = info
+            log(f"matmul_ntt_kernel<{n.bit_length() - 1}, "
+                f"{str(name == names[1]).lower()}>: {info}")
     err = dict.fromkeys(names, 0)
     timing, by_shape = {}, []
     for shape, mods in cases:
         n = shape[-1]
         tab = ntt_context_for("matmul", n, mods).tables(dev)
         x = _residues(shape, mods, gen, dev)
+        x.view(-1, shape[-2], n)[0] = tab.q.view(-1, 1) - 1   # every residue q - 1
         y = M.matmul_ntt_forward(x, tab)
         y_ref = M.matmul_ntt_forward_plain(x, tab)
         z = M.matmul_ntt_inverse(y, tab)
@@ -478,12 +517,18 @@ def mmntt_phase(dev) -> list[dict]:
         if shape in record_shapes:
             dev_ms = [device_ms(calls[name], "matmul_ntt_kernel", launches=20)
                       for name in names]
+            ev_ms = [event_ms(calls[name], launches=20, repeats=3)
+                     for name in names]
+            design = mmntt_design_ms(x.numel() // n, n)
             by_shape.append(dict(where=record_shapes[shape], shape=list(shape),
-                                 device_ms=dev_ms))
+                                 device_ms=dev_ms, ms=ev_ms, **design))
             log(f"four-step NTT {list(shape)} ({record_shapes[shape]}): "
-                f"bit-equal to its plain version, round trip exact; profiler "
-                f"device time forward {dev_ms[0]:.4f} ms, inverse "
-                f"{dev_ms[1]:.4f} ms")
+                f"bit-equal to its plain version, round trip exact; forward "
+                f"/ inverse: profiler device time {dev_ms[0]:.4f} / "
+                f"{dev_ms[1]:.4f} ms, events {ev_ms[0]:.4f} / {ev_ms[1]:.4f} "
+                f"ms; the kernel's plan {design['design_ops_ms']:.4f} ms "
+                f"(plane pairs {design['design_mma_ms']:.4f}, integer work "
+                f"{design['design_int_ms']:.4f})")
         else:
             log(f"four-step NTT {list(shape)}: forward and inverse bit-equal "
                 f"to their plain versions, round trip exact")
@@ -497,6 +542,7 @@ def mmntt_phase(dev) -> list[dict]:
         nbytes = 2 * x.numel() * 4 + L * 8 * (2 * n + N1 * N1 + N2 * N2) + L * 4
         # N * (N1 + N2) terms a row
         bound = modmat_bound(rows * n * (N1 + N2), nbytes)
+        bound.update(mmntt_design_ms(rows, n))
         for name in names:
             timing[name] = dict(
                 ms=event_ms(calls[name], launches=20),
@@ -512,8 +558,9 @@ def mmntt_phase(dev) -> list[dict]:
                 f"{t['bound_by']} (bytes {t['bytes_bound_ms']:.4f} ms; the "
                 f"function's operations on the integer pipe "
                 f"{t['int32_ops_ms']:.4f} ms, on the int8 tensor cores "
-                f"{t['int8_ops_ms']:.4f} ms; the kernel's three multiplies a "
-                f"term {t['design_ops_ms']:.4f} ms)")
+                f"{t['int8_ops_ms']:.4f} ms; the kernel's plan: plane pairs "
+                f"on the tensor cores {t['design_mma_ms']:.4f} ms, integer "
+                f"work {t['design_int_ms']:.4f} ms)")
     # a negacyclic product of two random polynomials through either NTT
     mods = default_coeff_modulus_128(8192)
     mm = ntt_context_for("matmul", 8192, mods)
@@ -535,7 +582,11 @@ def mmntt_phase(dev) -> list[dict]:
              # no single PyTorch call is a modular matrix product
              library_ms=None, **timing[name],
              by_shape=[dict(where=c["where"], shape=c["shape"],
-                            device_ms=c["device_ms"][i]) for c in by_shape])
+                            device_ms=c["device_ms"][i], ms=c["ms"][i],
+                            design_ops_ms=c["design_ops_ms"])
+                       for c in by_shape],
+             instances={k: v for k, v in instances.items()
+                        if k.startswith(name + "<")})
         for i, (name, replaces) in enumerate((
             (names[0], "cryptonets_tpu/kernels/matmul_ntt.py:211"),
             (names[1], "cryptonets_tpu/kernels/matmul_ntt.py:222"),

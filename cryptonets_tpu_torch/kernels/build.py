@@ -2,8 +2,9 @@
 
 Each `*.cu` here has a plain C interface and includes no PyTorch header:
 `nvcc` compiles it for `sm_90a` into a shared library under `_build/`
-(named by a hash of the source and the flags, so a changed source is
-rebuilt and an unchanged one is reused), and the binding module loads it
+(named by a hash of the flags, the source and the local headers it
+includes, so a changed source or header is rebuilt and an unchanged one
+is reused), and the binding module loads it
 with ctypes.  `build_sources` starts one `nvcc` per missing library, all
 at once, and waits for them; a failed build raises.  Nothing is built
 when this module is imported.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -41,7 +43,13 @@ def _nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    tag = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode())
+    """The library of `src`, named by a hash of the flags, the source and
+    the local headers it includes (`#include "x.cuh"`), so a changed
+    header rebuilds every source that includes it."""
+    text = src.read_bytes()
+    tag = hashlib.sha256(repr(NVCC_FLAGS).encode() + text)
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        tag.update((src.parent / name.decode()).read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{tag.hexdigest()[:16]}.so"
 
 

@@ -179,22 +179,6 @@ class ContractCache:
         return e[2]
 
 
-class ContractCache:
-    """A layer's prepared weights, remade only for another factory or
-    device: `get(factory, device, weights)` calls `weights()` for the
-    integer matrix and `prepare_contract` on a miss."""
-
-    def __init__(self):
-        self._entry = None
-
-    def get(self, factory, device, weights) -> ContractWeights:
-        e = self._entry
-        if e is None or e[0] is not factory or e[1] != device:
-            e = self._entry = (factory, device, prepare_contract(
-                weights(), factory.coeff_modulus, device))
-        return e[2]
-
-
 # ------------------------------------------------------------ plain version
 def exact_mod_contract_plain(w, x, q_list, q_col):
     """The contraction in plain PyTorch (int64 arithmetic): the reference

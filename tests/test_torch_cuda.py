@@ -114,10 +114,13 @@ def test_cuda_mod_contract_matches_plain(M, O, shape, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 7, 8192), (3, 4, 64), (5, 2, 128),
-                                   (2, 3, 512), (2, 3, 16384)])
+                                   (2, 3, 512), (2, 3, 16384),
+                                   (3, 2, 10, 1, 7, 8192),
+                                   (6, 1, 102, 1, 3, 4096)])
 def test_cuda_matmul_ntt_matches_plain(shape):
     """Square and non-square splits (128 = 8 x 16, 512 = 16 x 32), the
-    smallest rings and the largest one the shared memory takes."""
+    smallest rings and the largest one, a LoLaSmall record's ladder over
+    Q*P (420 rows) and Caltech-101's six-digit ladder (1836 rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
     n, L = shape[-1], shape[-2]
@@ -136,3 +139,19 @@ def test_cuda_matmul_ntt_matches_plain(shape):
     assert M.LAUNCHES["matmul_ntt_inverse"] == before["matmul_ntt_inverse"] + 1
     with pytest.raises(ValueError):
         M.matmul_ntt_forward(x.long(), tab)   # not int32 storage
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 4096, 8192, 16384])
+def test_cuda_matmul_ntt_all_residues_q_minus_1(n):
+    """Every residue q - 1 of 31-bit primes, into the forward and into the
+    inverse kernel: the largest bytes in every plane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    L = 3
+    tab = ntt_context_for("matmul", n, ntt_primes(n, 31, L)).tables("cuda")
+    x = (tab.q - 1).expand(2, L, n).contiguous()
+    assert torch.equal(M.matmul_ntt_forward(x, tab),
+                       M.matmul_ntt_forward_plain(x, tab))
+    assert torch.equal(M.matmul_ntt_inverse(x, tab),
+                       M.matmul_ntt_inverse_plain(x, tab))
