@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases build,ntt,mmntt,contract,lola,
-                           cryptonets,lola_small,caltech]
+                           cryptonets,lola_small,caltech,lola_packed,
+                           lola_large]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -19,7 +20,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      spills and blocks per SM, and a negacyclic product through them
      against the butterfly kernels; `contract`: the exact modular contraction at
      LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets,
-     from raw and from prepared weights, the preparation timed apart, and
+     from raw and from prepared weights, LoLaLarge's conv at n = 16384,
+     each with an input row of q - 1, the preparation timed apart, and
      what the compiler made of each kernel instance);
   4. `lola`: the LoLa-MNIST network (`build_lola_bsgs`, n = 8192, k = 7,
      four plain primes, key switching without special primes) at full
@@ -41,7 +43,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      four-step NTT: keygen on the card, one warm-up and two timed records,
      every record against the Raw oracle, the launch counts held to the
      kernels each run must and must not use, a positive final budget, and
-     the two runs' decoded logits equal.
+     the two runs' decoded logits equal;
+  7. `lola_packed`: LoLaPacked, the reference packing of LoLa (n = 8192,
+     digit key switching at dbc = 8, real weights), one warm-up and two
+     timed records, and `lola_large`: LoLaLarge (n = 16384, eleven data
+     limbs and three special primes, seeded synthetic weights), one
+     warm-up and one timed record; each record against the Raw oracle,
+     the launches held to K1, K2 and K4 without K5, a positive final
+     budget, keygen and prepare seconds, Galois keys, peak memory; every
+     NTT launch shape of their warm-up records is recorded and K1/K2 are
+     then held bit-equal to their twins and timed at each.
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -68,7 +79,7 @@ INT32_MUL_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
 PHASES = ("build", "ntt", "mmntt", "contract", "lola", "cryptonets",
-          "lola_small", "caltech")
+          "lola_small", "caltech", "lola_packed", "lola_large")
 
 
 def log(msg: str) -> None:
@@ -255,6 +266,58 @@ def ntt_bound(rows: int, n: int, L: int, inverse: bool) -> dict:
                 design_ops_ms=1e3 * 3 * products / INT32_MUL_PER_S)
 
 
+def ntt_shape_case(shape, tab, gen, err: dict, names=("ntt_forward",
+                                                      "ntt_inverse"),
+                   launches: int = 50) -> tuple:
+    """K1/K2 at one launch shape: random residues and two edge rows (every
+    residue q - 1, every residue 0) bit-equal to the twins, round trip
+    exact; then each of `names` timed (events and profiler device time)
+    beside its bound.  Raises the largest errors into `err`; returns (x,
+    NTT(x), {name: entry})."""
+    from cryptonets_tpu_torch.kernels import ntt as K
+
+    n, L = shape[-1], shape[-2]
+    mods = [int(v) for v in tab.q.view(-1).tolist()]
+    x = _residues(shape, mods, gen, tab.q.device)
+    q = tab.q.view(1, L, 1)
+    edge = torch.cat([(q - 1).expand(1, L, n), torch.zeros_like(q).expand(1, L, n)])
+    for xs in (x, edge.contiguous()):
+        y = K.ntt_forward(xs, tab)
+        y_ref = K.ntt_forward_plain(xs, tab)
+        z = K.ntt_inverse(y, tab)
+        z_ref = K.ntt_inverse_plain(y, tab)
+        torch.cuda.synchronize()
+        e_f = int((y.long() - y_ref.long()).abs().max())
+        e_i = int((z.long() - z_ref.long()).abs().max())
+        if e_f or e_i or not torch.equal(z, xs):
+            raise SystemExit(
+                f"NTT kernel disagrees with its twin at {list(xs.shape)} "
+                f"(case {list(shape)}): forward {e_f}, inverse {e_i}, "
+                f"round trip {torch.equal(z, xs)}")
+        err["ntt_forward"] = max(err["ntt_forward"], e_f)
+        err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
+        del y_ref, z, z_ref
+    y = K.ntt_forward(x, tab)
+    calls = {"ntt_forward": lambda: K.ntt_forward(x, tab),
+             "ntt_inverse": lambda: K.ntt_inverse(y, tab)}
+    rows = x.numel() // n
+    entries = {
+        name: dict(shape=list(shape),
+                   ms=event_ms(calls[name], launches=launches),
+                   device_ms=device_ms(calls[name], f"{name}_kernel",
+                                       launches=launches),
+                   **ntt_bound(rows, n, L, name == "ntt_inverse"))
+        for name in names}
+    line = ", ".join(
+        f"{name[4:]} {e['ms']:.4f} / {e['device_ms']:.4f} / "
+        f"{e['bound_ms']:.4f} ms by {e['bound_by']}"
+        for name, e in entries.items())
+    log(f"kernel shape {list(shape)}: bit-equal to twin, edge rows too; per "
+        f"launch, events over back-to-back calls / profiler device time / "
+        f"bound: {line}")
+    return x, y, entries
+
+
 def kernel_phase(dev) -> list[dict]:
     """K1/K2 bit-equal to their twins on the card, round trip exact, at
     the shapes and chains the four single-record paths launch them, each
@@ -292,42 +355,10 @@ def kernel_phase(dev) -> list[dict]:
     err = dict.fromkeys(names, 0)
     timing, shapes = {}, {name: [] for name in names}
     for shape, mods in cases:
-        n, L = shape[-1], shape[-2]
-        tab = get_ntt_context(n, mods).tables(dev)
-        x = _residues(shape, mods, gen, dev)
-        q = tab.q.view(1, L, 1)
-        edge = torch.cat([(q - 1).expand(1, L, n), torch.zeros_like(q).expand(1, L, n)])
-        for xs in (x, edge.contiguous()):
-            y = K.ntt_forward(xs, tab)
-            y_ref = K.ntt_forward_plain(xs, tab)
-            z = K.ntt_inverse(y, tab)
-            z_ref = K.ntt_inverse_plain(y, tab)
-            torch.cuda.synchronize()
-            e_f = int((y.long() - y_ref.long()).abs().max())
-            e_i = int((z.long() - z_ref.long()).abs().max())
-            if e_f or e_i or not torch.equal(z, xs):
-                raise SystemExit(
-                    f"NTT kernel disagrees with its twin at {list(xs.shape)} "
-                    f"(case {list(shape)}): forward {e_f}, inverse {e_i}, "
-                    f"round trip {torch.equal(z, xs)}")
-            err["ntt_forward"] = max(err["ntt_forward"], e_f)
-            err["ntt_inverse"] = max(err["ntt_inverse"], e_i)
-        y = K.ntt_forward(x, tab)
-        calls = {"ntt_forward": lambda: K.ntt_forward(x, tab),
-                 "ntt_inverse": lambda: K.ntt_inverse(y, tab)}
-        rows = x.numel() // n
-        for name, fn in calls.items():
-            entry = dict(shape=list(shape), ms=event_ms(fn),
-                         device_ms=device_ms(fn, f"{name}_kernel"),
-                         **ntt_bound(rows, n, L, name == "ntt_inverse"))
-            shapes[name].append(entry)
-        f, i = shapes["ntt_forward"][-1], shapes["ntt_inverse"][-1]
-        log(f"kernel shape {list(shape)}: bit-equal to twin, edge rows "
-            f"too; per launch, events over back-to-back calls / profiler "
-            f"device time / bound: forward {f['ms']:.4f} / "
-            f"{f['device_ms']:.4f} / {f['bound_ms']:.4f} ms by "
-            f"{f['bound_by']}, inverse {i['ms']:.4f} / {i['device_ms']:.4f} "
-            f"/ {i['bound_ms']:.4f} ms by {i['bound_by']}")
+        tab = get_ntt_context(shape[-1], mods).tables(dev)
+        x, y, entries = ntt_shape_case(shape, tab, gen, err)
+        for name in names:
+            shapes[name].append(entries[name])
         if shape == cases[0][0]:
             plain = {
                 "ntt_forward": event_ms(lambda: K.ntt_forward_plain(x, tab),
@@ -370,25 +401,28 @@ def contract_design_ms(P: int, positions: int, wc) -> dict:
 
 def contract_phase(dev) -> dict:
     """K4 bit-equal to its plain version on the card at the shapes the
-    two networks give it, with weights that include negatives and
-    magnitudes above 2**31 (and, at LoLa's shape, above 2**63); the
-    weights prepared once (timed apart), the kernel timed on them."""
+    networks give it, with weights that include negatives and magnitudes
+    above 2**31 (and, at LoLa's shape, above 2**63) and an input row of
+    q - 1; the weights prepared once (timed apart), the kernel timed on
+    them."""
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
     from cryptonets_tpu_torch.kernels import modmatmul as MM
 
-    chain = default_coeff_modulus_128(8192)
     gen = torch.Generator(device=dev).manual_seed(7)
     rng = np.random.default_rng(7)
-    # (where, M, O, plain primes, limbs); the last is the largest call
-    cases = [("LoLa conv", 5, 25, 4, 7), ("LoLaSmall conv", 5, 25, 2, 5),
-             ("CryptoNets Dense(10)", 10, 100, 3, 7),
-             ("CryptoNets Dense(100)", 100, 845, 3, 7)]
+    # (where, M, O, plain primes, limbs, n); the last is the largest call
+    cases = [("LoLa conv", 5, 25, 4, 7, 8192),
+             ("LoLaSmall conv", 5, 25, 2, 5, 8192),
+             ("CryptoNets Dense(10)", 10, 100, 3, 7, 8192),
+             ("LoLaLarge conv", 83, 64, 3, 11, 16384),
+             ("CryptoNets Dense(100)", 100, 845, 3, 7, 8192)]
     by_shape, instances = [], {}
-    for where, M, O, P, k in cases:
-        qs = chain[:k]
+    for where, M, O, P, k, n in cases:
+        qs = default_coeff_modulus_128(n)[:k]
         q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
-        shape = (P, O, 1, 2, k, 8192)
+        shape = (P, O, 1, 2, k, n)
         x = _residues(shape, qs, gen, dev)
+        x[:, 0] = (q_col - 1).to(torch.int32)   # an input row of q - 1
         W = rng.integers(-(1 << 62), 1 << 62, size=(M, O))
         W[0, 0], W[-1, -1] = -1, (1 << 31) + 1
         if M * O <= 1000:   # Python-int weights: magnitudes past 2**63
@@ -627,66 +661,140 @@ def check_launches(where: str, launched: dict, expect, absent=()) -> None:
             f"and should not {stray}: {launched}")
 
 
-def lola_phase(dev) -> dict:
-    """Full-width LoLa on the card, gated on the Raw oracle."""
+class LaunchShapes:
+    """Within `with`, records the shape and tables of every K1/K2 launch:
+    a path's own NTT launch shapes, read off its run for the kernel check
+    that follows the paths."""
+
+    def __init__(self):
+        self.seen = {}      # (shape, id(tables)) -> (tables, {kernel names})
+
+    def __enter__(self):
+        from cryptonets_tpu_torch.kernels import ntt as K
+
+        self._orig = orig = K._launch
+
+        def launch(name, x, tab, *tables):
+            entry = self.seen.setdefault((tuple(x.shape), id(tab)), (tab, set()))
+            entry[1].add(name)
+            return orig(name, x, tab, *tables)
+
+        K._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from cryptonets_tpu_torch.kernels import ntt as K
+
+        K._launch = self._orig
+
+
+# the single-image paths: (title, builder, timed records after one warm-up)
+def _lola_builders() -> dict:
+    from cryptonets_tpu_torch.models import lola_mnist as LM
+
+    return {"lola": ("LoLa", LM.build_lola_bsgs, TIMED_RECORDS),
+            "lola_packed": ("LoLaPacked", LM.build_lola, TIMED_RECORDS),
+            "lola_large": ("LoLaLarge", LM.build_lola_large, 1)}
+
+
+def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> dict:
+    """A full-width single-image network on the card (LoLa, LoLaPacked or
+    LoLaLarge), every record's logits gated on the Raw oracle, the launch
+    counts held to the butterfly NTT and the contraction, a positive final
+    budget; `shapes` records the warm-up record's NTT launch shapes."""
     from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
-    from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
-    records = synthetic_mnist_records(1 + TIMED_RECORDS, seed=11)
-    head_r, _, _ = build_lola_bsgs(
-        False, records=[(lb, f.copy()) for lb, f in records])
+    title, build, timed = _lola_builders()[which]
+    records = synthetic_mnist_records(1 + timed, seed=11)
+    head_r, _, _ = build(False, records=[(lb, f.copy()) for lb, f in records])
     head_r.prepare_network()
     raws = [head_r.get_next().get_column(0) for _ in records]
 
     reset_kernel_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    head, fac, _ = build_lola_bsgs(True, records=records, device=dev)
+    head, fac, _ = build(True, records=records, device=dev)
     torch.cuda.synchronize()
     keygen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     head.prepare_network()
     prepare_s = time.perf_counter() - t0
-    log(f"factory + keygen on the card: {keygen_s:.3f} s; "
-        f"prepare: {prepare_s:.3f} s; "
-        f"{len(fac.keys.galois)} Galois keys")
+    galois = len(fac.keys.galois)
+    log(f"{title} factory + keygen on the card: {keygen_s:.3f} s; "
+        f"prepare: {prepare_s:.3f} s; {galois} Galois keys")
 
     fwd = EncryptedForward(head)
-    lats, per_record = [], None
+    lats, per_record, peaks = [], None, []
     out = None
     for i, raw in enumerate(raws):
         before = kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fwd().get_column(0)
+        if i == 0 and shapes is not None:
+            with shapes:
+                out = fwd().get_column(0)
+        else:
+            out = fwd().get_column(0)
         enc = out.decrypt()
         lat = time.perf_counter() - t0
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         # bench.py's gate: the Raw oracle is float64 and the logits reach
         # 2**67 in fixed point, so it carries its own rounding (~1e-16)
         raw_logits = raw.decrypt()
         if enc.shape != raw_logits.shape or not np.allclose(
                 enc, raw_logits, rtol=1e-9, atol=0):
             raise SystemExit(
-                f"record {i}: encrypted logits {enc[:10]} disagree with "
-                f"the Raw oracle {raw_logits[:10]}")
+                f"{title} record {i}: encrypted logits {enc[:10]} disagree "
+                f"with the Raw oracle {raw_logits[:10]}")
         rel = float(np.max(np.abs(enc - raw_logits) / np.abs(raw_logits)))
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
-        check_launches(f"LoLa record {i}", launched,
+        check_launches(f"{title} record {i}", launched,
                        BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
         kind = "warm-up" if i == 0 else "timed"
-        log(f"record {i} ({kind}): {lat:.4f} s, logits match the Raw "
-            f"oracle (max relative difference {rel:.3e}), "
-            f"kernel launches {launched}")
+        log(f"{title} record {i} ({kind}): {lat:.4f} s, logits match the Raw "
+            f"oracle (max relative difference {rel:.3e}), peak memory "
+            f"{peaks[-1]:.2f} GiB, kernel launches {launched}")
         if i > 0:
             lats.append(lat)
             per_record = launched
     launches = kernel_counts()
     budget = out.noise_budget()
-    log(f"LoLa record latency: median {statistics.median(lats):.4f} s over "
-        f"{len(lats)} records {lats}; final noise budget {budget} bits")
+    if budget <= 0:
+        raise SystemExit(f"{title}: the noise budget is exhausted")
+    log(f"{title} record latency: median {statistics.median(lats):.4f} s over "
+        f"{len(lats)} records {lats}; peak memory {max(peaks):.2f} GiB; final "
+        f"noise budget {budget} bits")
     return dict(launches=launches, per_record=per_record, latency=lats,
-                keygen_s=keygen_s, prepare_s=prepare_s, budget=budget)
+                keygen_s=keygen_s, prepare_s=prepare_s, budget=budget,
+                galois_keys=galois, peak_gib=max(peaks))
+
+
+def record_shape_phase(recorded: dict) -> tuple[dict, dict]:
+    """K1/K2 held bit-equal to their twins and timed beside the bound at
+    every NTT launch shape recorded on the paths' warm-up records (each
+    (shape, moduli) once, in the first path that launched it).  Returns
+    ({kernel name: [entries with `where`]}, {kernel name: max error})."""
+    names = ("ntt_forward", "ntt_inverse")
+    err = dict.fromkeys(names, 0)
+    out = {name: [] for name in names}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    done = set()
+    for where, shapes in recorded.items():
+        for (shape, _), (tab, launched) in sorted(
+                shapes.seen.items(), key=lambda kv: (kv[0][0][-1], kv[0][0])):
+            mods = tuple(tab.q.view(-1).tolist())
+            if (shape, mods) in done:
+                continue
+            done.add((shape, mods))
+            _, _, entries = ntt_shape_case(shape, tab, gen, err,
+                                           names=sorted(launched), launches=20)
+            for name, e in entries.items():
+                out[name].append(dict(where=where, limbs=len(mods), **e))
+    log(f"record shapes: {len(done)} NTT launch shapes of "
+        f"{', '.join(recorded)} bit-equal to the twins, edge rows too")
+    return out, err
 
 
 def cryptonets_phase(dev, batch: int = 8192) -> dict:
@@ -897,6 +1005,22 @@ def main() -> int:
             for impl, run in slice_c_phase(dev, phase).items():
                 paths[f"{phase}_{impl}"] = run
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    recorded = {}
+    for phase in ("lola_packed", "lola_large"):
+        if phase in phases:
+            t0 = time.perf_counter()
+            recorded[phase] = LaunchShapes()
+            paths[phase] = lola_phase(dev, phase, recorded[phase])
+            torch.cuda.empty_cache()
+            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if recorded:
+        t0 = time.perf_counter()
+        by_name, err = record_shape_phase(recorded)
+        for k in kernels:
+            if k["name"] in by_name:
+                k["record_shapes"] = by_name[k["name"]]
+                k["max_abs_err"] = max(k["max_abs_err"], err[k["name"]])
+        log(f"phase record shapes: {time.perf_counter() - t0:.1f} s")
     if set(phases) != set(PHASES):
         log(f"phases {phases} passed; run every phase for the result lines")
         return 0

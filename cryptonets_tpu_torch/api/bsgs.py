@@ -8,12 +8,17 @@ and the diagonals pre-rotated by -g*a on the host:
 
     y = sum_a rot_{g*a}( sum_{b,f} diag'[a, b, f] * rot_b(u_f) )
 
-The babies rot_b(u) are HOISTED: the input is decomposed and NTT'd once,
-then every baby is an NTT-domain gather (`ntt_automorphism_perm`) plus
-one switch-key inner product, with no further NTT.  The giant sum runs
-as a Horner chain over the giant indices whose diagonals are not all
-zero.  The diagonal plaintexts are encoded on the device per record
-(Z_t inverse NTT + NTT_q + Montgomery), one giant chunk at a time.
+Where `hoist_eligible` holds, the babies rot_b(u) are HOISTED: the input
+is decomposed and NTT'd once, then every baby is an NTT-domain gather
+(`ntt_automorphism_perm`) plus one switch-key inner product, with no
+further NTT.  Otherwise (special primes, the four-step NTT, missing
+per-step keys) they are CHAINED: g - 1 single-step rotations, then one
+forward NTT of all babies.  The giant sum is a Horner chain: over the
+giant indices whose diagonals are not all zero when they are few (sparse
+support), else over every giant index, zero chunks included (dense
+support).  The diagonal plaintexts are encoded on the device per record
+(Z_t inverse NTT + NTT_q + Montgomery), one giant chunk at a time, from a
+slot table that stays on the host.
 """
 
 from __future__ import annotations
@@ -26,13 +31,28 @@ from ..crypto.modular import add_mod, mod_sum
 BABY_CHUNK = 16  # babies gathered per step (bounds the int64 temporaries)
 
 
+def _choose_g(row: int, F: int, cap: int = 256) -> int:
+    """Power-of-two baby count minimising F*(g-1) + (row/g - 1), the
+    rotations of a chained BSGS; the smallest g on a tie."""
+    best_g, best_cost = 1, None
+    g = 1
+    while g <= min(row, cap):
+        cost = F * (g - 1) + (row // g - 1)
+        if best_cost is None or cost < best_cost:
+            best_g, best_cost = g, cost
+        g *= 2
+    return best_g
+
+
 class BsgsDenseForm:
     """Host preparation of W [R, D]: the diagonal slot-value table
-    [G, g, F, n] (index-mapped for the encoder), and its non-zero giant
-    chunks placed on the factory's device."""
+    [G, g, F, n] (index-mapped for the encoder) and its non-zero giant
+    indices.  The table stays on the host (pinned when the factory is on
+    CUDA): `chunk(a)` copies one giant chunk to the device at its turn.
+    `g` None takes `_choose_g`."""
 
     def __init__(self, factory, w_int: np.ndarray, out_dim: int,
-                 in_dim: int, g: int):
+                 in_dim: int, g: int | None = None):
         n = factory.n
         row = n // 2
         R, D = int(out_dim), int(in_dim)
@@ -44,38 +64,51 @@ class BsgsDenseForm:
         t_min = min(factory.plain_primes)
         if np.abs(w_int).max(initial=0) >= t_min:
             raise ValueError(f"BSGS weight magnitude >= smallest plain prime {t_min}")
-        if g & (g - 1) or not 1 <= g <= row:
-            raise ValueError(f"baby count {g} must be a power of two <= n/2")
         self.factory = factory
         self.out_dim, self.in_dim = R, D
         F = 2 if (R > row or D > row) else 1
+        if g is None:
+            g = _choose_g(row, F)
+        if g & (g - 1) or not 1 <= g <= row:
+            raise ValueError(f"baby count {g} must be a power of two <= n/2")
         G = row // g
         self.F, self.g, self.G = F, g, G
 
-        Wfull = np.zeros((n, n), np.int64)
+        # diag[f][r][c', d] = W[r*row + c', (r^f)*row + (c' + d) % row]:
+        # block (r, r^f) of W with row c' rotated left by c'
+        Wfull = np.zeros((n, n), np.int32)  # |w| < t_min < 2**31
         Wfull[:R, :D] = w_int
-        r = np.arange(n) // row
-        c = np.arange(n) % row
-        imap = np.asarray(factory.encoders[0].index_map)
-        table = np.zeros((G, g, F, n), np.int32)
+        diag = [[None, None] for _ in range(F)]
+        for f in range(F):
+            for r in range(2):
+                blk = Wfull[r * row:(r + 1) * row,
+                            (r ^ f) * row:((r ^ f) + 1) * row]
+                dg = np.empty((row, row), np.int32)
+                for cc in range(row):
+                    dg[cc] = np.roll(blk[cc], -cc)
+                diag[f][r] = dg
+        del Wfull
+        # the encoder's slot order: buffer position p holds slot inv[p]
+        inv = torch.from_numpy(np.argsort(factory.encoders[0].index_map))
+        table = torch.zeros((G, g, F, n), dtype=torch.int32)
         active = []
-        jcol = (c[None, :] + np.arange(g)[:, None]) % row  # [g, n]
         for a in range(G):
-            i_idx = r * row + (c - g * a) % row
-            chunk = np.zeros((g, F, n), np.int64)
+            # chunk[b, f, r*row + c] = diag[f][r][(c - g*a) % row, g*a + b]
+            chunk = np.empty((g, F, n), np.int32)
             for f in range(F):
-                j_idx = (r[None, :] ^ f) * row + jcol
-                chunk[:, f, :] = Wfull[i_idx[None, :], j_idx]
+                for r in range(2):
+                    cols = diag[f][r][:, g * a : g * a + g]
+                    chunk[:, f, r * row:(r + 1) * row] = np.roll(cols, g * a, axis=0).T
             if chunk.any():
                 active.append(a)
-                t_im = np.zeros_like(chunk)
-                t_im[..., imap] = chunk
-                table[a] = t_im.astype(np.int32)
-        self.table = table
+                torch.index_select(torch.from_numpy(chunk), 2, inv, out=table[a])
+        self._host = table.pin_memory() if factory.device.type == "cuda" else table
+        self.table = self._host.numpy()
         self.active = active  # ascending
-        self.chunks = {
-            a: torch.from_numpy(table[a]).to(factory.device) for a in active
-        }
+
+    def chunk(self, a: int) -> torch.Tensor:
+        """Giant chunk a [g, F, n] on the factory's device."""
+        return self._host[a].to(self.factory.device, non_blocking=True)
 
 
 def _encode_diag_chunk(fac, tbl_a):
@@ -144,6 +177,18 @@ def _hoisted_babies_hat(fac, ub, g):
     return torch.cat([base, *rots], dim=0).movedim(0, 1)  # [P, g, F, 2, k, N]
 
 
+def _chained_babies_hat(fac, ub, g):
+    """The baby rotations of ub [P, F, 2, k, N] as a chain of g - 1
+    single-step rotations, then one forward NTT of all of them:
+    bab_hat [P, g, F, 2, k, N]."""
+    bfv0 = fac.bfv[0]
+    babies, cur = [ub], ub
+    for _ in range(1, g):
+        cur = bfv0.rotate_rows(cur, 1, fac.keys)
+        babies.append(cur)
+    return bfv0.p.ntt_q.forward(torch.stack(babies, dim=1))
+
+
 def bsgs_matvec(form: BsgsDenseForm, data):
     """Apply the prepared form to ciphertext data [P, 1, 2, k, N] ->
     [P, 1, 2, k, N], y[i] in flat slot i."""
@@ -155,30 +200,33 @@ def bsgs_matvec(form: BsgsDenseForm, data):
     g, G, F = form.g, form.G, form.F
     if not form.active:
         raise ValueError("BSGS form has no nonzero diagonals")
-    if not hoist_eligible(fac, g):
-        raise NotImplementedError(
-            "chained (unhoisted) baby steps are not ported: give the factory "
-            "Galois keys for steps 1..g-1, the butterfly NTT and no special "
-            "primes")
-    if len(form.active) > max(4, G // 4):
-        raise NotImplementedError("the dense-support (scanned) BSGS is not ported")
 
     u = data[:, 0]                                        # [P, 2, k, N]
     if F == 2:
         ub = torch.stack([u, bfv0.rotate_columns(u, keys)], dim=1)
     else:
         ub = u[:, None]
-    bab_hat = _hoisted_babies_hat(fac, ub, g)             # [P, g, F, 2, k, N]
+    if hoist_eligible(fac, g):
+        bab_hat = _hoisted_babies_hat(fac, ub, g)         # [P, g, F, 2, k, N]
+    else:
+        bab_hat = _chained_babies_hat(fac, ub, g)
 
     def chunk_acc(a):
         """Giant chunk a -> coefficient-domain acc [P, 2, k, N]."""
-        forms = _encode_diag_chunk(fac, form.chunks[a])   # [P, g, F, k, N]
+        forms = _encode_diag_chunk(fac, form.chunk(a))    # [P, g, F, k, N]
         prod = p.chain_q.mont_mul(bab_hat, forms[:, :, :, None])
         acc_hat = mod_sum(prod.reshape(prod.shape[0], g * F, *prod.shape[3:]),
                           q, dim=1)
         return p.ntt_q.inverse(acc_hat)
 
-    # Horner over the non-zero giant chunks, last first
+    if len(form.active) > max(4, G // 4):
+        # dense support: every giant step, zero chunks included, from a
+        # zero accumulator (G key switches, the first of a zero ciphertext)
+        z = torch.zeros_like(u)
+        for a in reversed(range(G)):
+            z = add_mod(bfv0.rotate_rows(z, g, keys), chunk_acc(a), q)
+        return z[:, None]
+    # sparse support: Horner over the non-zero giant chunks, last first
     z, prev = None, None
     for a in reversed(form.active):
         acc = chunk_acc(a)

@@ -1,7 +1,7 @@
 """Factories: parameter/key owners and vector/matrix constructors.
 
-Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa, CryptoNets,
-LoLaSmall and Caltech-101 paths use.  `CrtBfvFactory` is the CRT "double
+Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa, LoLaPacked,
+LoLaLarge, CryptoNets, LoLaSmall and Caltech-101 paths use.  `CrtBfvFactory` is the CRT "double
 decker" over plain primes: each value is split into residues mod each plain prime
 t_p, and every residue stream is a BFV pipeline over the SAME coefficient
 chain and key set, stacked on a leading P axis ([P, C, size, k, N]
@@ -96,6 +96,7 @@ class CrtBfvFactory:
         # the index map depends on n only; its inverse permutation
         self._slot_of_position = np.argsort(self.encoders[0].index_map)
         self._stack_cache: dict = {}
+        self._mask_cache: dict = {}
 
     # ------------------------------------------------- encrypt / decrypt
     def encode_bufs(self, slotsets_int: np.ndarray) -> np.ndarray:
@@ -254,6 +255,16 @@ class CrtBfvFactory:
         return torch.stack([
             self.bfv[pi].add_plain(data[pi], form[pi]) for pi in range(self.P)
         ])
+
+    def flat_mask_form(self, lo: int, hi: int) -> torch.Tensor:
+        """0/1 mask over the flat slots [lo, hi) (it spans both rows),
+        prepared for multiply: [P, 1, k, N], cached."""
+        key = ("flat", lo, hi)
+        if key not in self._mask_cache:
+            m = np.zeros(self.n, np.int64)
+            m[lo:hi] = 1
+            self._mask_cache[key] = self.plain_mult_form(m, self.n)
+        return self._mask_cache[key]
 
     # ------------------------------------------- vector/matrix constructors
     @staticmethod

@@ -1,6 +1,6 @@
 """HEMatrix: a list of uniform HEVectors, columns or rows (port of
-`cryptonets_tpu/api/matrix.py`, the operations the LoLa, CryptoNets,
-LoLaSmall and Caltech-101 paths use).
+`cryptonets_tpu/api/matrix.py`, the operations the LoLa, LoLaPacked,
+LoLaLarge, CryptoNets, LoLaSmall and Caltech-101 paths use).
 
 `mul` is the row-major matvec of a plain matrix with an encrypted dense
 vector: one plaintext multiply per row, then SumAllSlots over every row
@@ -95,6 +95,11 @@ class HEMatrix:
             raise ValueError("get_column needs a column-major matrix")
         return self.vectors[i]
 
+    def get_row(self, i: int) -> HEVector:
+        if self.fmt != ROW_MAJOR:
+            raise ValueError("get_row needs a row-major matrix")
+        return self.vectors[i]
+
     def _stacked_data(self) -> torch.Tensor:
         """[P, V, C, s, k, N] — vector index as its own axis."""
         return torch.stack([v.data for v in self.vectors], dim=1)
@@ -163,6 +168,9 @@ class HEMatrix:
     def convert_to_column_vector(self) -> HEVector:
         """Stack all vectors into one long dense vector."""
         return HEVector.stack(self.vectors)
+
+    def interleave(self, shift: int) -> HEVector:
+        return HEVector.interleave(self.vectors, shift)
 
     def decrypt(self) -> np.ndarray:
         """[dim, nvec] array of floats (column-major orientation)."""

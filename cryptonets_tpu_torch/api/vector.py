@@ -1,5 +1,6 @@
 """HEVector: the scale-tracked ciphertext vector (port of
-`cryptonets_tpu/api/vector.py`, the operations the ported networks use).
+`cryptonets_tpu/api/vector.py`, the operations the ported networks use;
+`permute`, `subtract` and plain-vector rotation are not ported).
 
 Layout: `data` is int32 [P, C, size, k, N] — P plain-CRT primes, C blocks.
   * dense:  C = ceil(dim/n) blocks; flat slot order (slots [0, n/2) =
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..crypto.modular import add_mod
+from ..crypto.modular import add_mod, sub_mod
 from ..crypto.noise import invariant_noise_budget
 
 DENSE = "dense"
@@ -169,40 +170,158 @@ class HEVector:
                     length: int | None = None) -> "HEVector":
         return self.pointwise_multiply(other).sum_all_slots(length)
 
+    # ------------------------------------------------------------ duplicate
+    def duplicate(self, count: int) -> "HEVector":
+        """`count` copies at the next power-of-two stride above dim, in one
+        ciphertext: copy i is the input rotated right by i*stride; from
+        half the ring on, the rotation starts from the column-swapped
+        input (made once) and is i*stride - n/2."""
+        if not self.is_encrypted or self.fmt != DENSE:
+            raise ValueError("duplicate takes an encrypted dense vector")
+        p = self.factory
+        n = p.n
+        stride = 1
+        while stride < self.dim:
+            stride *= 2
+        if stride * count > n:
+            raise ValueError("the packed vector must fit in one ciphertext")
+        q = p.bfv[0].p.chain_q.q
+        base = res = self.data
+        rotator = None
+        for i in range(1, count):
+            amt = i * stride
+            src = base
+            if 2 * amt >= n:
+                if rotator is None:
+                    rotator = self._col_swap_data(base)
+                src = rotator
+                amt -= n // 2
+            res = add_mod(res, p.bfv[0].rotate_rows(src, -amt, p.keys), q)
+        return self._clone_meta(data=res, dim=stride * count)
+
     # ----------------------------------------------------------- interleave
     @staticmethod
     def interleave(vecs, shift: int) -> "HEVector":
-        """Merge vectors: vec k lands at flat offset shift*k.
+        """Merge vectors: vec k lands at flat offset shift*k (negative
+        shift: row + shift*k), the reference's case analysis
+        (`AtomicSealBfvVector.cs:600-750`) followed exactly.  The
+        placement extent is |shift|.  A piece is a right rotation into the
+        lower or the upper half-row of an output block; one that crosses
+        the row or the block boundary is split by a prefix mask.  The upper
+        halves of a block are merged by one column rotation.
 
-        Only the placements LoLa's Vectorize reaches are ported: shift > 0,
-        fewer than 24 pieces, and every piece landing inside the lower
-        half-row of block 0 (`in_block == 0` or `in_block + |shift| <
-        n/2`); each piece is then one row rotation.  Every other branch of
-        the reference's case analysis raises NotImplementedError."""
+        Uniform runs: with a positive shift, at least 24 pieces and a
+        single-hop Galois key for -shift, each run of at least 8
+        consecutive pieces placed by a pure rotation into the same
+        (half-row, block) folds into a Horner loop z <- rot_right(z,
+        shift) + piece seeded with its last piece, then one rotation to
+        the run's first offset: the same key switches in the same order as
+        the reference's scan."""
         v0 = vecs[0]
         p = v0.factory
+        bfv0 = p.bfv[0]
         n = p.n
         row = n // 2
-        q = p.bfv[0].p.chain_q.q
+        q = bfv0.p.chain_q.q
+        d = v0.dim
         absh = abs(shift)
-        if shift <= 0 or len(vecs) >= 24:
-            raise NotImplementedError(
-                "interleave: negative shifts and scanned runs are not ported")
+        out_blocks = -(-int(d * len(vecs)) // n) if shift > 0 else 1
+        if absh * len(vecs) > n * out_blocks:
+            raise ValueError("interleave: not enough room for the pieces")
         for v in vecs:
-            if v.num_blocks != 1 or v.fmt != DENSE:
-                raise ValueError("interleave inputs must be single-block dense vectors")
-        out = None
+            if not v.is_encrypted or v.num_blocks != 1 or v.fmt != DENSE:
+                raise ValueError(
+                    "interleave inputs must be encrypted single-block dense "
+                    f"vectors (got {v!r})")
+        lower = [None] * out_blocks
+        upper = [None] * out_blocks
+
+        def acc(store, b, piece):
+            store[b] = piece if store[b] is None else add_mod(store[b], piece, q)
+
+        def rot_right(data, amt):
+            if amt % row == 0:
+                return data
+            return bfv0.rotate_rows(data, -amt, p.keys)
+
+        def prefix_masked(data, ups):
+            """data * mask(flat slots [0, ups)): the wrapped-around part."""
+            return bfv0.mul_plain(data, p.flat_mask_form(0, ups)[:, :, None])
+
+        scanned = set()
+        if (shift > 0 and len(vecs) >= 24
+                and bfv0.galois_elt_rows((-shift) % row) in p.keys.galois):
+            classes = []
+            for kidx in range(len(vecs)):
+                ts = shift * kidx
+                in_block = ts % n
+                start_b, end_b = ts // n, (ts + absh) // n
+                if in_block == 0 or in_block + absh < row:
+                    classes.append(("lower", start_b, ts % row))
+                elif in_block >= row and start_b == end_b:
+                    classes.append(("upper", start_b, in_block - row))
+                else:
+                    classes.append(None)
+            k = 0
+            while k < len(vecs):
+                if classes[k] is None:
+                    k += 1
+                    continue
+                j = k
+                while (j + 1 < len(vecs) and classes[j + 1] is not None
+                       and classes[j + 1][:2] == classes[k][:2]):
+                    j += 1
+                if j - k + 1 >= 8:
+                    half, b, base_amt = classes[k]
+                    z = vecs[j].data
+                    for i in range(j - 1, k - 1, -1):
+                        z = add_mod(bfv0.rotate_rows(z, -shift, p.keys),
+                                    vecs[i].data, q)
+                    if base_amt % row:
+                        z = bfv0.rotate_rows(z, -base_amt, p.keys)
+                    acc(lower if half == "lower" else upper, b, z)
+                    scanned.update(range(k, j + 1))
+                k = j + 1
+
         for kidx, v in enumerate(vecs):
+            if kidx in scanned:
+                continue
             this_shift = shift * kidx
+            if this_shift < 0:
+                this_shift = row + this_shift
             in_block = this_shift % n
-            if this_shift // n != 0 or (in_block and in_block + absh >= row):
-                raise NotImplementedError(
-                    "interleave: pieces crossing a row or block are not ported")
+            start_b = this_shift // n
+            end_b = (this_shift + absh) // n
             z = v.data
-            if in_block:
-                z = p.bfv[0].rotate_rows(z, -this_shift, p.keys)  # right
-            out = z if out is None else add_mod(out, z, q)
-        return v0._clone_meta(data=out, dim=v0.dim)
+            if in_block == 0:
+                acc(lower, start_b, z)
+            elif in_block + absh < row:
+                acc(lower, start_b, rot_right(z, this_shift))
+            elif in_block >= row:
+                z = rot_right(z, in_block - row)
+                if start_b == end_b:
+                    acc(upper, start_b, z)
+                else:
+                    zm = prefix_masked(z, in_block + absh - n)
+                    acc(upper, start_b, sub_mod(z, zm, q))
+                    acc(lower, end_b, zm)
+            else:
+                z = rot_right(z, in_block)
+                ups = in_block + absh - row
+                if ups > 0:
+                    zm = prefix_masked(z, ups)
+                    acc(upper, start_b, zm)
+                    acc(lower, start_b, sub_mod(z, zm, q))
+                else:
+                    acc(lower, start_b, z)
+        outs = []
+        for b in range(out_blocks):
+            blk = lower[b]
+            if upper[b] is not None:
+                up = v0._col_swap_data(upper[b])
+                blk = up if blk is None else add_mod(blk, up, q)
+            outs.append(torch.zeros_like(v0.data) if blk is None else blk)
+        return v0._clone_meta(data=torch.cat(outs, dim=1), dim=d)
 
     @staticmethod
     def stack(vecs) -> "HEVector":

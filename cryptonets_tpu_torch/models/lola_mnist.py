@@ -9,12 +9,25 @@ over the `lola` preset with RNS-group key switching without special primes
 LoLa (`LoLaCryptonets.cs:203-278`), so the same logits as the Raw oracle.
 It needs the butterfly NTT (hoisted baby steps).
 
+`build_lola` ("LoLaPacked", `LoLaCryptonets.cs:203-278`): the reference's
+own packing of the same model, Conv -> Vectorize -> Square ->
+Duplicate(8) -> PackedDense(100, shift 1024) -> Interleave(-1) -> Square
+-> InterleavedDense(10), over the `lola` preset (digit key switching at
+dbc=8) with the default power-of-two Galois keys.
+
+`build_lola_large` ("LoLaLarge", `LoLaCryptonets.cs:332-410`), n = 16384:
+8x8 stride-2 conv (83 maps) -> Vectorize (83 pieces at stride 144) ->
+Square -> conv-as-dense(2608, BSGS with chained babies) -> Square ->
+Dense(10, per-row dots) over the `lola_large` preset (eleven data limbs,
+three special primes).  Seeded synthetic weights unless CSVs are given.
+
 `build_lola_small` ("LoLaSmall", `LoLaCryptonets.cs:280-329`): Conv ->
 Vectorize -> Square -> Dense(10, per-row dots over SumAllSlots ladders)
 over the `lola_small` preset (hybrid key switching, two special primes),
 under either NTT.
 
-CLI: python -m cryptonets_tpu_torch.models.lola_mnist -n LoLaSmall [-e]
+CLI: python -m cryptonets_tpu_torch.models.lola_mnist
+     -n LoLa|LoLaPacked|LoLaSmall|LoLaLarge [-e]
      [--ntt butterfly|matmul] [--records K] [--data FILE] [--device cpu]
 It runs on the card unless `--device cpu` is given; run a full-width
 encrypted network on a GPU only.
@@ -32,8 +45,17 @@ from ..data import weights_extract
 from ..data.preprocess import synthetic_mnist_records
 from ..nn.forward import EncryptedForward
 from ..nn.layers import EncryptLayer, SquareActivation
-from ..nn.lola import LLDenseLayer, LLPoolLayer, LLVectorizeLayer
-from ..nn.readers import LLConvReader
+from ..nn.convolution import ConvolutionEngine
+from ..nn.lola import (
+    LLDenseLayer,
+    LLDuplicateLayer,
+    LLInterleavedDenseLayer,
+    LLInterleaveLayer,
+    LLPackedDenseLayer,
+    LLPoolLayer,
+    LLVectorizeLayer,
+)
+from ..nn.readers import LLConvReader, WeightsReader
 from .presets import make_factory
 
 # single-hop Galois keys: baby steps 1..63, the Vectorize strides
@@ -140,6 +162,105 @@ def build_lola_small(encrypt: bool, records=None, file_name=None, seed: int = 0,
     return dense, factory, reader
 
 
+def build_lola(encrypt: bool, records=None, file_name=None, seed: int = 0,
+               device=None, weights: dict | None = None, keys=None,
+               ntt_impl: str | None = None):
+    """(head, factory, reader) of LoLaPacked, the reference packing of
+    LoLa: the same weights and scales as `build_lola_bsgs`, hence the same
+    logits."""
+    factory = make_factory(
+        "lola", encrypt, seed, device=device, ntt_impl=ntt_impl,
+        **({"keys": keys} if encrypt and keys is not None else {}),
+    )
+    W = weights if weights is not None else load_cryptonets_weights()
+    weightscale = 32
+    geo = _mnist_geometry()
+    reader = LLConvReader(
+        make_factory("lola", False), file_name=file_name,
+        normalization_factor=1.0 / 256.0, scale=16.0, **geo,
+    )
+    if records is not None:
+        reader.set_source_records(records)
+    enc = EncryptLayer(reader)
+    enc.factory = factory
+    conv = LLPoolLayer(enc, map_count=[5, 1], weights=W["Weights_0"],
+                       weights_scale=weightscale, **geo)
+    act = SquareActivation(LLVectorizeLayer(conv))
+    dup = LLDuplicateLayer(act, count=8)
+    dense5 = LLPackedDenseLayer(
+        dup, weights=transpose_flat(W["Weights_1"], 5 * 13 * 13, 100),
+        bias=W["Biases_2"], packing_count=8, packing_shift=1024,
+        weights_scale=weightscale * weightscale,
+    )
+    selected = [1023 + i * 1024 for i in range(8)]
+    inter6 = LLInterleaveLayer(dense5, shift=-1, selected_indices=selected)
+    act7 = SquareActivation(inter6)
+    dense8 = LLInterleavedDenseLayer(
+        act7, weights=W["Weights_3"], bias=W["Biases_3"],
+        weights_scale=weightscale, shift=-1, selected_indices=selected,
+    )
+    return dense8, factory, reader
+
+
+def lola_large_weights(weights_csv=None, bias_csv=None):
+    """(w0, b0, w1, b1, w2, b2) of LoLaLarge: from the two local CSV files
+    (w0 divided by 256, `LoLaCryptonets.cs:372`), else the reference's
+    seeded stand-ins at its magnitudes (w0 / 256, 0.2 x w1 and w2), which
+    keep the peak message within the three ~30-bit plain primes."""
+    if weights_csv and bias_csv:
+        wr = WeightsReader(weights_csv, bias_csv)
+        return (np.asarray(wr.weights[0]) / 256.0, np.asarray(wr.biases[0]),
+                np.asarray(wr.weights[1]), np.asarray(wr.biases[1]),
+                np.asarray(wr.weights[2]), np.asarray(wr.biases[2]))
+    syn = weights_extract.synthetic_weights({
+        "w0": 83 * 64, "b0": 83, "w1": 163 * 83 * 36, "b1": 163,
+        "w2": 10 * 163 * 16, "b2": 10,
+    })
+    return (syn["w0"] / 256.0, syn["b0"], syn["w1"] * 0.2, syn["b1"],
+            syn["w2"] * 0.2, syn["b2"])
+
+
+def build_lola_large(encrypt: bool, records=None, file_name=None,
+                     seed: int = 0, device=None, keys=None,
+                     ntt_impl: str | None = None, weights_csv=None,
+                     bias_csv=None):
+    """(head, factory, reader) of LoLaLarge.  The factory carries a
+    single-hop Galois key for -144, so the 83-piece Vectorize runs its
+    uniform runs as Horner loops."""
+    factory = make_factory(
+        "lola_large", encrypt, seed, device=device, ntt_impl=ntt_impl,
+        rot_steps=(-144,),
+        **({"keys": keys} if encrypt and keys is not None else {}),
+    )
+    w0, b0, w1, b1, w2, b2 = lola_large_weights(weights_csv, bias_csv)
+    geo = dict(input_shape=[1, 28, 28], kernel_shape=[1, 8, 8],
+               upper_padding=[0, 1, 1], lower_padding=[0, 1, 1],
+               stride=[1000, 2, 2])
+    reader = LLConvReader(
+        make_factory("lola_large", False), file_name=file_name,
+        normalization_factor=1.0, scale=16.0, **geo,
+    )
+    if records is not None:
+        reader.set_source_records(records)
+    enc = EncryptLayer(reader)
+    enc.factory = factory
+    conv1 = LLPoolLayer(enc, map_count=[83, 1, 1], weights=w0, bias=b0,
+                        weights_scale=4096, **geo)
+    act3 = SquareActivation(LLVectorizeLayer(conv1))
+    engine = ConvolutionEngine(input_shape=[83, 12, 12],
+                               kernel_shape=[83, 6, 6], stride=[83, 2, 2],
+                               map_count=[163, 1, 1])
+    dense4 = LLDenseLayer(
+        act3, weights=engine.get_dense_weights(w1).ravel(),
+        bias=engine.get_dense_bias(b1), weights_scale=64,
+        input_format="dense", force_dense_format=True,
+    )
+    act5 = SquareActivation(dense4)
+    dense6 = LLDenseLayer(act5, weights=w2, bias=b2, weights_scale=512,
+                          input_format="dense")
+    return dense6, factory, reader
+
+
 def _not_ported(name: str):
     def refuse(*args, **kwargs):
         raise NotImplementedError(f"the network {name} is not ported")
@@ -150,9 +271,9 @@ BUILDERS = {
     "LoLa": build_lola_bsgs,
     "LoLaBsgs": build_lola_bsgs,
     "LoLaSmall": build_lola_small,
-    "LoLaPacked": _not_ported("LoLaPacked"),
+    "LoLaPacked": build_lola,
     "LoLaDense": _not_ported("LoLaDense"),
-    "LoLaLarge": _not_ported("LoLaLarge"),
+    "LoLaLarge": build_lola_large,
 }
 
 

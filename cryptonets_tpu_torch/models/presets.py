@@ -1,15 +1,16 @@
 """Parameter presets of the port.
 
-The port's copy of four entries of `cryptonets_tpu/models/presets.py`.
+The port's copy of five entries of `cryptonets_tpu/models/presets.py`.
 The reference truncates SEAL's CoeffModulus128(n) chain with
 SmallModulusCount; the chains here have 31-bit limbs, so a preset matches
 the TOTAL bit width of the truncated SEAL chain (`coeff_count_for`): the
 same security and noise capacity over more limbs.
   * `lola`: the full seven-limb chain at n = 8192 (217 of the 218 bits
-    that 128-bit security allows) and the reference's plain primes
-    (`LoLaCryptonets.cs:208`); its network passes ks_alpha=1 (key
-    switching without special primes), so the reference's digit width
-    (dbc=8) is not carried.
+    that 128-bit security allows), the reference's plain primes
+    (`LoLaCryptonets.cs:208`) and digit key switching at dbc=8: the
+    reference packing (LoLaPacked) keeps 7-11 bits of final budget at
+    dbc=8 and as little as 0 at dbc=16.  LoLa's BSGS network passes
+    ks_alpha=1 (RNS-group switching, where dbc plays no part).
   * `cryptonets`: the same chain, three ~30-bit NTT-friendly plain primes
     (~90 bits of CRT message capacity, more than the two ~39-bit primes of
     `CryptoNets.cs:17`), so slot encode and decode run on the device;
@@ -18,10 +19,14 @@ same security and noise capacity over more limbs.
     five data limbs and two special primes, hybrid key switching.
   * `caltech` (`Caltech101.cs:21`, 2 of 3 limbs at 4096): three limbs,
     digit key switching at dbc=16.
+  * `lola_large` (`LoLaCryptonets.cs:341`, 7 of SEAL's 9 limbs at 16384):
+    eleven data limbs and three special primes, and three ~30-bit
+    NTT-friendly plain primes in place of the reference's three primes
+    just above 2**31, so slot encode and decode run on the device.
 Data plus special limbs stay within the ring degree's 128-bit budget
 (checked below).  A preset names no NTT: `make_factory` passes the
-caller's `ntt_impl` through.  The big-t presets (plain primes >= 2**31)
-and the n = 16384 presets are not ported.
+caller's `ntt_impl` through.  The big-t presets (plain primes >= 2**31),
+`lola_dense` and `cifar` are not ported.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ def coeff_count_for(n: int, small_modulus_count: int | None = None) -> int:
 
 CONFIGS = {
     "lola": dict(
-        plain_primes=(557057, 638977, 737281, 786433), n=8192,
+        plain_primes=(557057, 638977, 737281, 786433), n=8192, dbc=8,
     ),
     "cryptonets": dict(
         plain_primes=ntt_primes(8192, 30, 3), n=8192, dbc=16, ks_alpha=0,
@@ -64,6 +69,10 @@ CONFIGS = {
     "caltech": dict(
         plain_primes=(4300801,), n=4096,
         coeff_count=coeff_count_for(4096, 2),
+    ),
+    "lola_large": dict(
+        plain_primes=ntt_primes(16384, 30, 3), n=16384,
+        coeff_count=coeff_count_for(16384, 7), n_special=3,
     ),
 }
 

@@ -93,22 +93,29 @@ class ConvolutionEngine:
     # -- lowering a convolution to an explicit dense matrix -----------------
     def get_dense_weights(self, weights) -> np.ndarray:
         """[maps*corners, prod(input_shape)] row-major dense matrix (ref
-        GetDenseWeights; used by LoLaLarge/CIFAR conv-as-dense layers)."""
+        GetDenseWeights; used by LoLaLarge/CIFAR conv-as-dense layers):
+        row m*corners + i holds map m's kernel placed at corner i, taps in
+        the padding dropped.  Vectorised over corners and offsets (the
+        reference's loop takes tens of seconds at LoLaLarge's size)."""
         weights = np.asarray(weights, dtype=np.float64)
-        rows = self.maps * len(self.corners)
-        columns = int(np.prod(self.input_shape))
+        corners = np.asarray(self.corners)                  # [nc, d]
+        offsets = np.asarray(self.offsets)                  # [no, d]
+        shape = np.asarray(self.input_shape)
+        kshape = np.asarray(self.kernel_shape)
+        coords = corners[:, None, :] + offsets[None, :, :]  # [nc, no, d]
+        valid = np.all((coords >= 0) & (coords < shape), axis=-1)
+        loc = np.zeros(valid.shape, np.int64)
+        for i in range(len(shape)):
+            loc = loc * shape[i] + coords[..., i]
+        k = np.zeros(len(offsets), np.int64)
+        for i in range(len(kshape)):
+            k = k * kshape[i] + offsets[:, i]
+        nc = len(self.corners)
         kernel_size = int(np.prod(self.kernel_shape))
-        mat = np.zeros((rows, columns))
+        mat = np.zeros((self.maps * nc, int(np.prod(self.input_shape))))
+        ci, oi = np.nonzero(valid)
         for m in range(self.maps):
-            for i, c in enumerate(self.corners):
-                for o in self.offsets:
-                    l = self.location(c, o, self.input_shape)
-                    if l < 0:
-                        continue
-                    k = self.location(None, o, self.kernel_shape)
-                    mat[m * len(self.corners) + i, l] = weights[
-                        k + m * kernel_size
-                    ]
+            mat[m * nc + ci, loc[ci, oi]] = weights[k[oi] + m * kernel_size]
         return mat
 
     def get_dense_bias(self, bias) -> np.ndarray:

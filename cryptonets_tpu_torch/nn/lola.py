@@ -1,10 +1,13 @@
 """LoLa layers (ref `NeuralNetworks/LL*.cs`): port of `LLPoolLayer`,
-`LLVectorizeLayer` and `LLDenseLayer` (per-row dots and the BSGS diagonal
-matvec) from `cryptonets_tpu/nn/lola.py`."""
+`LLVectorizeLayer`, the reference packing's `LLDuplicateLayer`,
+`LLPackedDenseLayer`, `LLInterleaveLayer` and `LLInterleavedDenseLayer`,
+and `LLDenseLayer` (per-row dots and the BSGS diagonal matvec) from
+`cryptonets_tpu/nn/lola.py`."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..kernels.modmatmul import ContractCache
 from .convolution import ConvolutionEngine
@@ -123,6 +126,202 @@ class LLVectorizeLayer(Layer):
         return self.source.output_dimension()
 
 
+class LLDuplicateLayer(Layer):
+    """Each column `count` times at the next power-of-two stride, in one
+    ciphertext (ref `LLDuplicateLayer.cs`)."""
+
+    def __init__(self, source=None, count: int = 1):
+        super().__init__(source)
+        self.count = count
+
+    def apply(self, m):
+        cols = [m.get_column(i).duplicate(self.count)
+                for i in range(m.column_count)]
+        return self.factory.get_matrix(cols, m.fmt)
+
+    def output_dimension(self):
+        shift = 1
+        d = self.source.output_dimension()
+        while shift < d:
+            shift *= 2
+        return shift * self.count
+
+
+class LLPackedDenseLayer(Layer):
+    """Fully connected layer over a duplicated vector: the weight rows
+    packed `packing_count` to a stacked row at `packing_shift` stride; a
+    bucketed dot product leaves output i at slot (col + 1) * shift - 1 of
+    stacked row i // packing_count, where its bias is added (ref
+    `LLPackedDenseLayer.cs`).  Encrypted, one plaintext multiply over all
+    stacked rows and one rotate-and-add ladder of length packing_shift."""
+
+    def __init__(self, source, weights, bias, packing_count: int,
+                 packing_shift: int, weights_scale: float = 1.0):
+        super().__init__(source)
+        self.weights = np.asarray(weights, float)
+        self.bias = np.asarray(bias, float)
+        self.packing_count = packing_count
+        self.packing_shift = packing_shift
+        self.weights_scale = float(weights_scale)
+        self.weights_matrix = None
+        self.bias_matrix = None
+        self._bias_forms = None
+
+    def get_output_scale(self):
+        return self.weights_scale * self.source.get_output_scale()
+
+    def output_dimension(self):
+        return len(self.bias)
+
+    def prepare(self):
+        if self.layer_prepared:
+            return
+        maps = len(self.bias)
+        map_len = len(self.weights) // maps
+        pc, shift = self.packing_count, self.packing_shift
+        new_rows = (maps + pc - 1) // pc
+        stacked = np.zeros((new_rows, pc * shift))
+        padded_bias = np.zeros((new_rows, pc * shift))
+        w = self.weights.reshape(maps, map_len)
+        for i in range(maps):
+            col, row = i % pc, i // pc
+            stacked[row, col * shift : col * shift + map_len] = w[i]
+            padded_bias[row, (col + 1) * shift - 1] = self.bias[i]
+        self.weights_matrix = self.factory.get_plain_matrix(
+            stacked, "row", self.weights_scale)
+        self.bias_matrix = self.factory.get_plain_matrix(
+            padded_bias, "row",
+            self.source.get_output_scale() * self.weights_scale)
+
+    def apply(self, m):
+        if m.column_count != 1:
+            raise ValueError("expecting only one column")
+        vector = m.get_column(0)
+        if not vector.is_encrypted:
+            cols = [
+                self.weights_matrix.get_row(k)
+                .dot_product(vector, length=self.packing_shift)
+                .add(self.bias_matrix.get_row(k))
+                for k in range(self.weights_matrix.row_count)
+            ]
+            return self.factory.get_matrix(cols, "col")
+        from ..api.matrix import _sum_slots_data
+        from ..api.vector import HEVector
+
+        f = self.factory
+        W = self.weights_matrix._stacked_mult_forms()      # [P, R, C, k, N]
+        prod = f.bfv[0].mul_plain(vector.data[:, None], W[:, :, :, None])
+        sums = _sum_slots_data(f, prod, length=self.packing_shift)
+        if self._bias_forms is None:
+            self._bias_forms = torch.stack(
+                [v.add_form() for v in self.bias_matrix.vectors], dim=1)
+        out = f.add_plain_data(sums, self._bias_forms)     # [P, R, 1, 2, k, N]
+        out_scale = vector.scale * self.weights_matrix.scale
+        dim = self.packing_count * self.packing_shift
+        return f.get_matrix([
+            HEVector(f, data=out[:, r], dim=dim, scale=out_scale,
+                     fmt="dense", is_signed=vector.is_signed)
+            for r in range(out.shape[1])
+        ], "col")
+
+
+class LLInterleaveLayer(Layer):
+    """The selected slots of every column (a 0/1 mask multiply), merged
+    into one vector by `interleave(shift)` (ref `LLInterleaveLayer.cs`).
+    Encrypted, one mask multiply over all columns."""
+
+    def __init__(self, source, shift: int, selected_indices,
+                 input_gross_dimension: int = -1):
+        super().__init__(source)
+        self.shift = shift
+        self.selected_indices = list(selected_indices)
+        self.input_gross_dimension = input_gross_dimension
+        self.mask = None
+
+    def prepare(self):
+        if self.input_gross_dimension < 0:
+            self.input_gross_dimension = max(self.selected_indices) + 1
+        mv = np.zeros(self.input_gross_dimension)
+        mv[self.selected_indices] = 1.0
+        self.mask = self.factory.get_plain_vector(mv, "dense", 1.0)
+
+    def apply(self, m):
+        col0 = m.get_column(0)
+        if col0.is_encrypted:
+            from ..api.vector import HEVector
+
+            f = self.factory
+            stacked = m._stacked_data()                    # [P, V, C, 2, k, N]
+            mf = self.mask.mult_form()                     # [P, C, k, N]
+            cleaned = f.bfv[0].mul_plain(stacked, mf[:, None, :, None])
+            clean = [
+                HEVector(f, data=cleaned[:, i], dim=col0.dim,
+                         scale=col0.scale * self.mask.scale, fmt="dense",
+                         is_signed=col0.is_signed)
+                for i in range(m.column_count)
+            ]
+        else:
+            clean = [m.get_column(i).pointwise_multiply(self.mask)
+                     for i in range(m.column_count)]
+        interleaved = self.factory.get_matrix(clean, "col").interleave(self.shift)
+        return self.factory.get_matrix([interleaved], "col")
+
+    def output_dimension(self):
+        return self.input_gross_dimension
+
+
+class LLInterleavedDenseLayer(Layer):
+    """Fully connected layer whose weight columns are scattered to the
+    interleaved slot positions (ref `LLInterleavedDenseLayer.cs`): per-row
+    dot products, one output ciphertext per row."""
+
+    def __init__(self, source, weights, bias, shift: int, selected_indices,
+                 weights_scale: float = 1.0):
+        super().__init__(source)
+        self.weights = np.asarray(weights, float)
+        self.bias = np.asarray(bias, float)
+        self.shift = shift
+        self.selected_indices = list(selected_indices)
+        self.weights_scale = float(weights_scale)
+        self.weights_matrix = None
+        self.bias_vector = None
+
+    def get_output_scale(self):
+        return self.source.get_output_scale() * self.weights_scale
+
+    def output_dimension(self):
+        return len(self.bias)
+
+    def _target_indices(self, count):
+        out = []
+        offset = 0
+        while count > 0:
+            for i in self.selected_indices:
+                if count <= 0:
+                    break
+                out.append(i + offset)
+                count -= 1
+            offset += self.shift
+        return out
+
+    def prepare(self):
+        rows = len(self.bias)
+        columns = len(self.weights) // rows
+        small = self.weights.reshape(rows, columns)
+        big = np.zeros((rows, self.source.output_dimension()))
+        ti = self._target_indices(columns)
+        for i in range(columns):
+            big[:, ti[i]] = small[:, i]
+        self.bias_vector = self.factory.get_plain_vector(
+            self.bias, "sparse", self.get_output_scale())
+        self.weights_matrix = self.factory.get_plain_matrix(
+            big, "row", self.weights_scale)
+
+    def apply(self, m):
+        mul = self.weights_matrix.mul(m.get_column(0))
+        return self.factory.get_matrix([mul.add(self.bias_vector)], "col")
+
+
 class LLDenseLayer(Layer):
     """Fully connected layer over a dense input vector.  Encrypted it runs
     either as per-row dot products (a row-major plain matrix, SumAllSlots
@@ -130,7 +329,7 @@ class LLDenseLayer(Layer):
     force_dense_format, as the hoisted BSGS diagonal matvec (`api/bsgs.py`)
     with the outputs packed into one dense vector.  `use_bsgs` None takes
     BSGS from 128 outputs up, True forces it, False forces per-row dots;
-    `bsgs_g` is the baby count.  On the Raw backend it is a matrix
+    `bsgs_g` is the baby count (None: `api/bsgs.py` `_choose_g`).  On the Raw backend it is a matrix
     product."""
 
     def __init__(self, source, weights, bias, weights_scale: float = 1.0,
@@ -178,9 +377,6 @@ class LLDenseLayer(Layer):
                 and maps <= self.factory.n and wmat.shape[1] <= self.factory.n):
             from ..api.bsgs import BsgsDenseForm
 
-            if not self.bsgs_g:
-                raise NotImplementedError(
-                    "the default baby count is not ported: pass bsgs_g")
             # the same integers as the per-element rounding (round-half-even)
             w_int = np.round(wmat * self.weights_scale).astype(np.int64)
             self.bsgs_form = BsgsDenseForm(

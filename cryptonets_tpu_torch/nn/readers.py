@@ -1,10 +1,11 @@
 """Input readers, port of `cryptonets_tpu/nn/readers.py`: `BatchReader`
 (ref `BatchReader.cs`: up to max_slots records per get_next, the batch in
 the matrix rows, which become the SIMD slots), `LLSingleLineReader` (ref
-`LLSingleLineReader.cs`: one record per get_next as a one-column matrix)
-and `LLConvReader` (ref `LLConvReader.cs`: one record per get_next,
+`LLSingleLineReader.cs`: one record per get_next as a one-column matrix),
+`LLConvReader` (ref `LLConvReader.cs`: one record per get_next,
 pre-arranged on the client into the corners x offsets patch matrix,
-im2col before encryption).
+im2col before encryption), and `WeightsReader` (ref `WeightsReader.cs`:
+a model's weights and biases from two local CSV files).
 
 Record format (TSV): sparse = "label dim idx:val idx:val ..."; dense =
 one value per column with the label at `label_column`."""
@@ -220,3 +221,22 @@ class LLConvReader(InputLayer):
 
     def get_output_scale(self):
         return self.scale
+
+
+class WeightsReader:
+    """CSV weights and biases -> one float array per non-empty line of
+    each file (a layer per line)."""
+
+    def __init__(self, weights_csv_path: str, biases_csv_path: str):
+        self.weights = self._read(weights_csv_path)
+        self.biases = self._read(biases_csv_path)
+
+    @staticmethod
+    def _read(path: str) -> list[np.ndarray]:
+        out = []
+        with open(path) as fh:
+            for line in fh:
+                line = line.strip()
+                if line:
+                    out.append(np.array([float(x) for x in line.split(",")]))
+        return out

@@ -1,16 +1,19 @@
 """Where a record's time goes in the PyTorch/CUDA port, on one GPU.
 
     python3 scripts/torch_lola_breakdown.py
-        [--network LoLa|CryptoNets|LoLaSmall|Caltech] [--ntt butterfly|matmul]
+        [--network LoLa|LoLaPacked|LoLaLarge|CryptoNets|LoLaSmall|Caltech]
+        [--ntt butterfly|matmul]
         [--records 5] [--seed 11] [--batch 8192]
 
 Builds the full-width network on the card (LoLa: `build_lola_bsgs`, one
-image per record; CryptoNets: `cryptonets_mnist.build`, `--batch` images
-per record; LoLaSmall: `build_lola_small`; all three n = 8192 on real
-weights; Caltech: `caltech101.build`, n = 4096, one feature vector per
+image per record; LoLaPacked: `build_lola`, the reference packing;
+CryptoNets: `cryptonets_mnist.build`, `--batch` images per record;
+LoLaSmall: `build_lola_small`; all four n = 8192 on real weights;
+LoLaLarge: `build_lola_large`, n = 16384, seeded synthetic weights;
+Caltech: `caltech101.build`, n = 4096, one feature vector per
 record, seeded synthetic parameters and records of seed 6) under the
-NTT `--ntt` names (LoLa and CryptoNets take the butterfly only; the
-script refuses `--network CryptoNets --ntt matmul`) and pulls records
+NTT `--ntt` names (the script refuses `--network CryptoNets --ntt
+matmul`: that builder takes the butterfly only) and pulls records
 through the port's pipeline with a device synchronise after each stage: the reader and the
 slot buffers (both on the host), upload + encode + encrypt, each layer,
 and decrypt + decode.  Prints the median seconds and the peak device
@@ -86,7 +89,8 @@ def staged_record(fwd, sync):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--network", default="LoLa",
-                    choices=("LoLa", "CryptoNets", "LoLaSmall", "Caltech"))
+                    choices=("LoLa", "LoLaPacked", "LoLaLarge", "CryptoNets",
+                             "LoLaSmall", "Caltech"))
     ap.add_argument("--ntt", choices=("butterfly", "matmul"), default="butterfly",
                     help="NTT of the ciphertext chain")
     ap.add_argument("--records", type=int, default=5,
@@ -110,8 +114,7 @@ def main() -> int:
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
     from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist
-    from cryptonets_tpu_torch.models.lola_mnist import (
-        build_lola_bsgs, build_lola_small)
+    from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
     dev = torch.device("cuda", 0)
@@ -128,9 +131,8 @@ def main() -> int:
         head, fac, _ = cryptonets_mnist.build(True, args.batch, records=records,
                                               device=dev)
     elif args.network != "Caltech":
-        build = build_lola_small if args.network == "LoLaSmall" else build_lola_bsgs
-        head, fac, _ = build(True, records=records, device=dev,
-                             ntt_impl=args.ntt)
+        head, fac, _ = BUILDERS[args.network](True, records=records, device=dev,
+                                              ntt_impl=args.ntt)
     head.prepare_network()
     fwd = EncryptedForward(head)
     staged_record(fwd, sync)  # warm-up: lazy forms and tables

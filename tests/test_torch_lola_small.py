@@ -208,13 +208,17 @@ def test_presets_and_network_table_equal_reference():
     assert presets.SEAL_128_CHAIN_BITS == jp.SEAL_128_CHAIN_BITS
     for n, smc in ((4096, 2), (8192, 3), (8192, None), (16384, 7)):
         assert presets.coeff_count_for(n, smc) == jp.coeff_count_for(n, smc)
-    for name in ("lola_small", "caltech"):
+    for name in ("lola_small", "caltech", "lola", "lola_large"):
         assert presets.CONFIGS[name] == jp.CONFIGS[name]
     assert sorted(lola_mnist.BUILDERS) == [
         "LoLa", "LoLaBsgs", "LoLaDense", "LoLaLarge", "LoLaPacked", "LoLaSmall"]
-    for name in ("LoLaPacked", "LoLaDense", "LoLaLarge"):
-        with pytest.raises(NotImplementedError, match=name):
-            lola_mnist.BUILDERS[name](False)
+    with pytest.raises(NotImplementedError, match="LoLaDense"):
+        lola_mnist.BUILDERS["LoLaDense"](False)
+    # the Raw paths of the two builders of slice D and LoLaLarge
+    for name in ("LoLaPacked", "LoLaLarge"):
+        res = lola_mnist.evaluate(lola_mnist.BUILDERS[name], encrypt=False,
+                                  n_records=1)
+        assert res["count"] == 1
     with pytest.raises(NotImplementedError, match="not ported"):
         presets.make_factory("cifar", False)
     # the Raw path of the evaluation harness (full width is cheap in Raw)
