@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,lola,
+    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,bigt,lola,
                            cryptonets,lola_small,caltech,lola_packed,
-                           lola_large]
+                           lola_large,cifar,lola_dense]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -20,9 +20,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      spills and blocks per SM, and a negacyclic product through them
      against the butterfly kernels; `contract`: the exact modular contraction at
      LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets,
-     from raw and from prepared weights, LoLaLarge's conv at n = 16384,
-     each with an input row of q - 1, the preparation timed apart, and
-     what the compiler made of each kernel instance);
+     from raw and from prepared weights, the convs of LoLaLarge, CIFAR and
+     LoLaDense at n = 16384, each with an input row of q - 1, the preparation timed apart, and
+     what the compiler made of each kernel instance); `bigt`: the C++
+     host NTT of the plain primes of 2**31 and above (built from the
+     checkout with `c++`) bit-equal to its exact object-int twin at
+     n = 16384 on LoLaDense's primes, and the two-plane decrypt on the
+     card bit-equal to the same decrypt on the CPU;
   4. `lola`: the LoLa-MNIST network (`build_lola_bsgs`, n = 8192, k = 7,
      four plain primes, key switching without special primes) at full
      width on the real weights: keygen on the card, one warm-up and two
@@ -52,7 +56,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the launches held to K1, K2 and K4 without K5, a positive final
      budget, keygen and prepare seconds, Galois keys, peak memory; every
      NTT launch shape of their warm-up records is recorded and K1/K2 are
-     then held bit-equal to their twins and timed at each.
+     then held bit-equal to their twins and timed at each;
+  8. `cifar`: LoLa-CIFAR (n = 16384, thirteen data limbs and one special
+     prime, seeded stand-in weights; K4 at [83, 192], the 5488 x 16268
+     conv-as-dense through BSGS with F = 2), one warm-up and one timed
+     record, and `lola_dense`: LoLaDense (n = 16384, plain primes near
+     2**35: host encode, two-plane decrypt; real weights), one warm-up
+     and two timed records; the same checks as the paths of 7, their
+     warm-up records' NTT launch shapes among those of 7.
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -66,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -78,8 +90,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
-PHASES = ("build", "ntt", "mmntt", "contract", "lola", "cryptonets",
-          "lola_small", "caltech", "lola_packed", "lola_large")
+PHASES = ("build", "ntt", "mmntt", "contract", "bigt", "lola", "cryptonets",
+          "lola_small", "caltech", "lola_packed", "lola_large", "cifar",
+          "lola_dense")
 
 
 def log(msg: str) -> None:
@@ -415,6 +428,8 @@ def contract_phase(dev) -> dict:
              ("LoLaSmall conv", 5, 25, 2, 5, 8192),
              ("CryptoNets Dense(10)", 10, 100, 3, 7, 8192),
              ("LoLaLarge conv", 83, 64, 3, 11, 16384),
+             ("LoLaDense conv", 5, 25, 2, 12, 16384),
+             ("CIFAR conv", 83, 192, 3, 13, 16384),
              ("CryptoNets Dense(100)", 100, 845, 3, 7, 8192)]
     by_shape, instances = [], {}
     for where, M, O, P, k, n in cases:
@@ -628,6 +643,79 @@ def mmntt_phase(dev) -> list[dict]:
     ]
 
 
+def bigt_phase(dev) -> dict:
+    """The pieces of the plain moduli of 2**31 and above that are not CUDA
+    kernels: the C++ host NTT (`runtime/hostcrypto.cpp`) bit-equal to its
+    exact object-int twin at n = 16384 on LoLaDense's two primes, forward
+    and inverse, each timed; and `decrypt_big_t_planes` on the card
+    bit-equal to the same decrypt on the CPU, on one ciphertext of the
+    `lola_dense` parameters (12 limbs) and on its square, with the joined
+    plaintext equal to the message."""
+    from cryptonets_tpu_torch.crypto.bfv import BFV, BFVParams
+    from cryptonets_tpu_torch.crypto.encoder import (BatchEncoder, _host_tables,
+                                                     _intt_host, _ntt_host)
+    from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+    from cryptonets_tpu_torch.runtime import hostcrypto
+
+    cfg = CONFIGS["lola_dense"]
+    n = cfg["n"]
+    rng = np.random.default_rng(17)
+    out = {}
+    for t in cfg["plain_primes"]:
+        enc = BatchEncoder(n, t)
+        x = rng.integers(0, t, size=n, dtype=np.int64)
+        x[:2] = (t - 1, 0)
+        t0 = time.perf_counter()
+        fwd = hostcrypto.ntt_forward(x, enc.pf, t)
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        inv = hostcrypto.ntt_inverse(x, enc.pi, enc.n_inv, t)
+        inv_ms = 1e3 * (time.perf_counter() - t0)
+        xo = x.astype(object)
+        pf, pi = _host_tables(n, t)[:2]      # exact object-int tables
+        if (list(fwd.astype(object)) != list(_ntt_host(xo, pf, t))
+                or list(inv.astype(object))
+                != list(_intt_host(xo, pi, enc.n_inv, t))):
+            raise SystemExit(f"the C++ host NTT differs from its object-int "
+                             f"twin at n = {n}, t = {t}")
+        out[str(t)] = dict(forward_ms=fwd_ms, inverse_ms=inv_ms)
+        log(f"C++ host NTT n = {n}, t = {t}: forward and inverse bit-equal to "
+            f"the object-int twin (edge values t - 1 and 0 included); "
+            f"{fwd_ms:.3f} / {inv_ms:.3f} ms a row")
+
+    chain = default_coeff_modulus_128(n)[: cfg["coeff_count"]]
+    t = cfg["plain_primes"][0]
+    kw = dict(coeff_modulus=chain, n_special=cfg["n_special"])
+    bfv = BFV(BFVParams(n, t, device=dev, **kw))
+    keys = bfv.keygen(seed=3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = rng.integers(0, 1 << 16, size=n, dtype=np.int64)
+    res = torch.from_numpy(bfv.p.plain_to_residues(m).view(np.int32)).to(dev)
+    ct = bfv.encrypt(keys, res, gen)
+    sq = bfv.relinearize(bfv.multiply(ct, ct), keys)
+    cpu = BFV(BFVParams(n, t, device="cpu", **kw))
+    ckeys = keys.to("cpu")
+    for name, c in (("fresh", ct), ("square", sq)):
+        lo, m2 = bfv.decrypt_big_t_planes(keys, c)
+        torch.cuda.synchronize()
+        clo, cm2 = cpu.decrypt_big_t_planes(ckeys, c.cpu())
+        if not (torch.equal(lo.cpu(), clo) and torch.equal(m2.cpu(), cm2)):
+            raise SystemExit(f"the two-plane decrypt on the card differs from "
+                             f"the CPU's ({name} ciphertext)")
+        got = bfv.join_big_t_planes(lo.cpu(), m2.cpu()).astype(np.int64)
+        want = m if name == "fresh" else None
+        if want is not None and not np.array_equal(got, want):
+            raise SystemExit("the two-plane decrypt does not return the message")
+        out[f"planes_{name}_ms"] = event_ms(
+            lambda c=c: bfv.decrypt_big_t_planes(keys, c), launches=5, repeats=3)
+    log(f"two-plane decrypt at n = {n}, {len(chain)} limbs, t = {t}: the card "
+        f"bit-equal to the CPU on a fresh ciphertext and on its square, the "
+        f"message recovered; {out['planes_fresh_ms']:.3f} ms a ciphertext "
+        f"on the card")
+    return out
+
+
 # ---------------------------------------------------------------- slices
 BUTTERFLY_KERNELS = ("ntt_forward", "ntt_inverse")
 MATMUL_KERNELS = ("matmul_ntt_forward", "matmul_ntt_inverse")
@@ -688,25 +776,33 @@ class LaunchShapes:
         K._launch = self._orig
 
 
-# the single-image paths: (title, builder, timed records after one warm-up)
+# the single-image paths: (title, builder, timed records after one warm-up,
+# the records: MNIST-like images of seed 11, CIFAR-like ones of seed 4)
 def _lola_builders() -> dict:
+    from cryptonets_tpu_torch.data.preprocess import (synthetic_cifar_records,
+                                                      synthetic_mnist_records)
+    from cryptonets_tpu_torch.models import lola_cifar
     from cryptonets_tpu_torch.models import lola_mnist as LM
 
-    return {"lola": ("LoLa", LM.build_lola_bsgs, TIMED_RECORDS),
-            "lola_packed": ("LoLaPacked", LM.build_lola, TIMED_RECORDS),
-            "lola_large": ("LoLaLarge", LM.build_lola_large, 1)}
+    mnist = lambda k: synthetic_mnist_records(k, seed=11)  # noqa: E731
+    return {"lola": ("LoLa", LM.build_lola_bsgs, TIMED_RECORDS, mnist),
+            "lola_packed": ("LoLaPacked", LM.build_lola, TIMED_RECORDS, mnist),
+            "lola_large": ("LoLaLarge", LM.build_lola_large, 1, mnist),
+            "cifar": ("CIFAR", lola_cifar.build, 1,
+                      lambda k: synthetic_cifar_records(k, seed=4)),
+            "lola_dense": ("LoLaDense", LM.build_lola_dense, TIMED_RECORDS, mnist)}
 
 
 def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> dict:
-    """A full-width single-image network on the card (LoLa, LoLaPacked or
-    LoLaLarge), every record's logits gated on the Raw oracle, the launch
-    counts held to the butterfly NTT and the contraction, a positive final
-    budget; `shapes` records the warm-up record's NTT launch shapes."""
-    from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
+    """A full-width single-image network on the card (LoLa, LoLaPacked,
+    LoLaLarge, CIFAR or LoLaDense), every record's logits gated on the Raw
+    oracle, the launch counts held to the butterfly NTT and the
+    contraction, a positive final budget; `shapes` records the warm-up
+    record's NTT launch shapes."""
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
-    title, build, timed = _lola_builders()[which]
-    records = synthetic_mnist_records(1 + timed, seed=11)
+    title, build, timed, make_records = _lola_builders()[which]
+    records = make_records(1 + timed)
     head_r, _, _ = build(False, records=[(lb, f.copy()) for lb, f in records])
     head_r.prepare_network()
     raws = [head_r.get_next().get_column(0) for _ in records]
@@ -974,18 +1070,26 @@ def main() -> int:
     from cryptonets_tpu_torch.kernels import matmul_ntt as M
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
+    from cryptonets_tpu_torch.runtime import hostcrypto
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    B.build_sources([B.source("ntt.cu"), B.source("modmatmul.cu"),
-                     B.source("matmul_ntt.cu")])
+    # the host runtime (c++) builds beside the three nvcc runs
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: (hostcrypto.build(), time.perf_counter() - t0))
+        B.build_sources([B.source("ntt.cu"), B.source("modmatmul.cu"),
+                         B.source("matmul_ntt.cu")])
+        host_lib, host_s = host.result()
+    hostcrypto.get_lib()
     K.build()
     MM.build()
     M.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s, the three sources "
-        f"in parallel (nvcc {B.BUILD_SECONDS})")
+        f"in parallel (nvcc {B.BUILD_SECONDS}); host runtime {host_lib.name} "
+        f"({host_s:.2f} s)")
     kernels = []
     for phase, run in (("ntt", kernel_phase), ("mmntt", mmntt_phase),
                        ("contract", lambda d: [contract_phase(d)])):
@@ -993,6 +1097,10 @@ def main() -> int:
             t0 = time.perf_counter()
             kernels += run(dev)
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if "bigt" in phases:
+        t0 = time.perf_counter()
+        bigt_phase(dev)
+        log(f"phase bigt: {time.perf_counter() - t0:.1f} s")
     paths = {}
     for phase, run in (("lola", lola_phase), ("cryptonets", cryptonets_phase)):
         if phase in phases:
@@ -1006,7 +1114,7 @@ def main() -> int:
                 paths[f"{phase}_{impl}"] = run
             log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     recorded = {}
-    for phase in ("lola_packed", "lola_large"):
+    for phase in ("lola_packed", "lola_large", "cifar", "lola_dense"):
         if phase in phases:
             t0 = time.perf_counter()
             recorded[phase] = LaunchShapes()
@@ -1021,6 +1129,7 @@ def main() -> int:
                 k["record_shapes"] = by_name[k["name"]]
                 k["max_abs_err"] = max(k["max_abs_err"], err[k["name"]])
         log(f"phase record shapes: {time.perf_counter() - t0:.1f} s")
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s, build included")
     if set(phases) != set(PHASES):
         log(f"phases {phases} passed; run every phase for the result lines")
         return 0

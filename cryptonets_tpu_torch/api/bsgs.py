@@ -64,6 +64,12 @@ class BsgsDenseForm:
         t_min = min(factory.plain_primes)
         if np.abs(w_int).max(initial=0) >= t_min:
             raise ValueError(f"BSGS weight magnitude >= smallest plain prime {t_min}")
+        # the diagonals are encoded on the device, one residue for every
+        # limb: that needs every plain prime below 2**31 and every limb
+        if not getattr(factory, "_device_encode", False):
+            raise ValueError(
+                "BSGS dense matvec needs device-side encoding (every plain "
+                "prime below 2**31 and below every limb); use the per-row path")
         self.factory = factory
         self.out_dim, self.in_dim = R, D
         F = 2 if (R > row or D > row) else 1

@@ -1,13 +1,22 @@
 """Factories: parameter/key owners and vector/matrix constructors.
 
 Port of `cryptonets_tpu/api/factory.py`, as much as the LoLa, LoLaPacked,
-LoLaLarge, CryptoNets, LoLaSmall and Caltech-101 paths use.  `CrtBfvFactory` is the CRT "double
-decker" over plain primes: each value is split into residues mod each plain prime
-t_p, and every residue stream is a BFV pipeline over the SAME coefficient
-chain and key set, stacked on a leading P axis ([P, C, size, k, N]
-ciphertext data).  Slot encode (inverse NTT over Z_t) and decode (forward
-NTT over Z_t) run on the device with the butterfly CUDA NTT, whichever
-NTT carries the ciphertext chain (`ntt_impl`).  Keys are made on the
+LoLaLarge, LoLaDense, CIFAR, CryptoNets, LoLaSmall and Caltech-101 paths
+use.  `CrtBfvFactory` is the CRT "double decker" over plain primes: each
+value is split into residues mod each plain prime t_p, and every residue
+stream is a BFV pipeline over the SAME coefficient chain and key set,
+stacked on a leading P axis ([P, C, size, k, N] ciphertext data).
+
+Where the plain primes allow, slot encode (inverse NTT over Z_t) and
+decode (forward NTT over Z_t) run on the device with the butterfly CUDA
+NTT, whichever NTT carries the ciphertext chain (`ntt_impl`): encode
+when every t is below 2**31 and below every limb (`_device_encode`: the
+coefficients then are the same residue on every limb), decode with the
+gamma decrypt when every t is below 2**31 (`_device_decode`).  Plain
+primes of 2**31 to 2**62 (`_device_decode_big`) encode on the host (the
+C++ 128-bit NTT, per-limb residues) and decrypt on the device to two
+planes that the host joins exactly and decodes with the same C++ NTT.
+Any other mix decrypts exactly on the host.  Keys are made on the
 factory's device; the reference's keygen on a host CPU backend, its
 on-disk key cache and its environment switches answer a remote-compile
 set-up the port does not have, and are not carried.  `RawFactory` is the
@@ -20,7 +29,7 @@ import numpy as np
 import torch
 
 from ..crypto.bfv import BFV, BFVParams, _automorphism_tables_np
-from ..crypto.encoder import BatchEncoder
+from ..crypto.encoder import BIG_T, BatchEncoder
 from ..crypto.hostmath import CRT
 from ..crypto.ntt import get_ntt_context, ntt_automorphism_perm
 from ..crypto.primes import default_coeff_modulus_128
@@ -68,11 +77,6 @@ class CrtBfvFactory:
         if coeff_count is not None:
             chain = chain[:coeff_count]
         self.coeff_modulus = chain
-        if not all(t < min(chain) for t in self.plain_primes):
-            raise NotImplementedError(
-                "device slot encoding needs every plain prime below every "
-                "limb modulus"
-            )
         self.params = [
             BFVParams(n, t, coeff_modulus=chain, dbc=dbc, ks_alpha=ks_alpha,
                       seed=seed, n_special=n_special, ntt_impl=self.ntt_impl,
@@ -88,9 +92,13 @@ class CrtBfvFactory:
         self.plain_crt = CRT(list(self.plain_primes))
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed ^ 0x5EED)
-        # one context over all plain primes: the slot encode/decode NTTs of
-        # every prime run as one launch with P as the limb axis
-        self._plain_ntt = get_ntt_context(n, self.plain_primes)
+        ts = self.plain_primes
+        self._device_encode = all(t < BIG_T and t < min(chain) for t in ts)
+        self._device_decode = all(t < BIG_T for t in ts)
+        self._device_decode_big = all(BIG_T <= t < 1 << 62 for t in ts)
+        # one context over all plain primes: the device slot encode/decode
+        # NTTs of every prime run as one launch with P as the limb axis
+        self._plain_ntt = get_ntt_context(n, ts) if self._device_decode else None
         self._index_map = torch.from_numpy(
             self.encoders[0].index_map).to(self.device)
         # the index map depends on n only; its inverse permutation
@@ -134,6 +142,98 @@ class CrtBfvFactory:
                     self._gen)
         return out
 
+    def _encode_slotsets_np(self, slotsets) -> np.ndarray:
+        """[C, n] slot values (ints, signed ok) -> coefficient residues
+        [P, C, k, N] uint32 on the host: the encoder's NTT over Z_t (the
+        C++ 128-bit one for t >= 2**31), then every limb's own residue."""
+        return np.stack([
+            np.stack([self.encode_slots_to_residues(row, pi) for row in slotsets])
+            for pi in range(self.P)
+        ])
+
+    def _encrypt_all(self, res_all) -> torch.Tensor:
+        """Coefficient residues [P, C, k, N] (uint32 numpy or int32
+        tensor) -> ciphertext data [P, C, 2, k, N], in pieces of
+        ENCRYPT_CHUNK columns."""
+        if isinstance(res_all, np.ndarray):
+            res_all = torch.from_numpy(
+                np.ascontiguousarray(res_all, np.uint32).view(np.int32))
+        res_all = res_all.to(self.device)
+        C = res_all.shape[1]
+        out = torch.empty((self.P, C, 2) + tuple(res_all.shape[2:]),
+                          dtype=torch.int32, device=self.device)
+        for c0 in range(0, C, ENCRYPT_CHUNK):
+            for pi in range(self.P):
+                piece = res_all[pi, c0 : c0 + ENCRYPT_CHUNK]
+                out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
+                    self.keys, piece, self._gen)
+        return out
+
+    def _encrypt_slotsets(self, slotsets) -> torch.Tensor:
+        """[C, n] slot values (ints, object ints allowed) -> ciphertext
+        data [P, C, 2, k, N]: the device encode where the plain primes
+        allow it and the values fit int64, else the host encode and
+        per-limb residues."""
+        ss = np.asarray(slotsets)
+        if self._device_encode:
+            try:
+                return self._encrypt_all_dev(
+                    self.encode_bufs(ss.astype(np.int64, copy=False)))
+            except OverflowError:
+                pass
+        return self._encrypt_all(self._encode_slotsets_np(ss))
+
+    def encrypt_blocks(self, int_values, dim: int) -> torch.Tensor:
+        """Signed int slot values (len <= C*n, object ints allowed) ->
+        ciphertext data [P, C, 2, k, N]; C = ceil(dim / n)."""
+        n = self.n
+        C = max(1, -(-dim // n))
+        vals = np.zeros(C * n, dtype=object)
+        vv = np.asarray(int_values, dtype=object)
+        vals[: len(vv)] = vv
+        return self._encrypt_slotsets(vals.reshape(C, n))
+
+    def split_big_numbers(self, values) -> list[np.ndarray]:
+        """Signed ints -> per-prime residue arrays (ref SplitBigNumbers,
+        `EncryptedSealBfvVector.cs:352-379`)."""
+        v = np.asarray(values, dtype=object)
+        return [(v % t).astype(np.int64) for t in self.plain_primes]
+
+    def _decrypt_big_all(self, data):
+        """[P, C, size, k, N] -> (W mod 2**32 int64, W mod m2 int32)
+        [P, C, N] on the device, for 2**31 <= every t < 2**62."""
+        planes = [self.bfv[pi].decrypt_big_t_planes(self.keys, data[pi])
+                  for pi in range(self.P)]
+        return (torch.stack([lo for lo, _ in planes]),
+                torch.stack([m2 for _, m2 in planes]))
+
+    def _decode_big_slots(self, lo, m2, pi: int) -> np.ndarray:
+        """Host: join the planes [C, N] of prime pi and slot-decode them
+        with the C++ NTT -> slot values [C, N] int64 in [0, t)."""
+        W = self.bfv[pi].join_big_t_planes(lo, m2)        # [C, N] uint64
+        return self.encoders[pi].decode(W)
+
+    def decrypt_slots(self, data) -> np.ndarray:
+        """[P, C, size, k, N] -> slot values mod t_p [P, C, N] on the host:
+        the device decrypt and decode (t < 2**31), the two-plane device
+        decrypt with the host join and C++ decode (2**31 <= t < 2**62),
+        else the exact host decrypt."""
+        if self._device_decode:
+            return self._decrypt_decode_all(data).cpu().numpy().astype(np.int64)
+        if self._device_decode_big:
+            lo, m2 = self._decrypt_big_all(data)
+            lo, m2 = lo.cpu().numpy(), m2.cpu().numpy()
+            return np.stack([self._decode_big_slots(lo[pi], m2[pi], pi)
+                             for pi in range(self.P)])
+        return np.stack([
+            self.encoders[pi].decode(self.bfv[pi].decrypt(self.keys, data[pi]))
+            for pi in range(self.P)
+        ])
+
+    def decrypt_blocks(self, data, dim: int) -> np.ndarray:
+        """[P, C, size, k, N] -> centered big-int slot values [dim]."""
+        return self.join_decoded_blocks(self.decrypt_slots(data), dim)
+
     def _decrypt_all(self, data) -> torch.Tensor:
         """[P, C, size, k, N] -> plaintext coefficients mod t_p [P, C, N]."""
         return torch.stack([
@@ -154,13 +254,13 @@ class CrtBfvFactory:
         P, V, C = data.shape[:3]
         flat = data.reshape(P, V * C, *data.shape[3:])
         return self.join_decoded_columns(
-            self._decrypt_decode_all(flat).reshape(P, V, C, self.n), dim)
+            self.decrypt_slots(flat).reshape(P, V, C, self.n), dim)
 
-    def join_decoded_columns(self, slots, dim: int) -> np.ndarray:
-        """Decoded slot residues [P, V, C, N] (device) -> centered big-int
-        values [V, dim]: one copy to the host, one vectorized CRT join."""
+    def join_decoded_columns(self, slots: np.ndarray, dim: int) -> np.ndarray:
+        """Decoded slot residues [P, V, C, N] (host) -> centered big-int
+        values [V, dim]: one vectorized CRT join."""
         P, V = slots.shape[:2]
-        host = slots.cpu().numpy().reshape(P, V, -1).astype(np.int64)
+        host = slots.reshape(P, V, -1)
         return self.join_split_numbers([host[pi, :, :dim] for pi in range(P)])
 
     def join_split_numbers(self, residues) -> np.ndarray:
@@ -221,7 +321,8 @@ class CrtBfvFactory:
 
     # --------------------------------------------- prepared plaintext forms
     def encode_slots_to_residues(self, slots, prime_idx: int) -> np.ndarray:
-        """Slot values (ints mod t) -> coefficient residues [k, N] (host)."""
+        """Slot values (ints mod t) -> coefficient residues [k, N] uint32
+        (host); for t >= 2**31 through the C++ NTT."""
         coeffs = self.encoders[prime_idx].encode(slots)
         return self.params[prime_idx].plain_to_residues(coeffs)
 
@@ -278,6 +379,18 @@ class CrtBfvFactory:
         ints = self._scaled_ints(values, scale)
         return HEVector(self, values=ints, dim=len(ints), scale=scale, fmt=fmt)
 
+    def get_encrypted_vector(self, values, fmt: str = "dense", scale: float = 1.0):
+        """Encrypt a vector: dense (ceil(dim / n) blocks in flat slot order)
+        or sparse (one ciphertext a value, replicated over the slots)."""
+        from .vector import HEVector
+
+        ints = self._scaled_ints(values, scale)
+        if fmt == "sparse":
+            data = self._encrypt_slotsets(np.repeat(ints[:, None], self.n, axis=1))
+        else:
+            data = self.encrypt_blocks(ints, len(ints))
+        return HEVector(self, data=data, dim=len(ints), scale=scale, fmt=fmt)
+
     def get_plain_matrix(self, m, fmt: str = "col", scale: float = 1.0):
         """A matrix of plain dense vectors, its columns or its rows."""
         from .matrix import HEMatrix
@@ -298,7 +411,7 @@ class CrtBfvFactory:
         C = max(1, -(-dim // self.n))
         padded = np.zeros((V, C * self.n), np.int64)
         padded[:, :dim] = np.round(vecs * scale).astype(np.int64)
-        data = self._encrypt_all_dev(self.encode_bufs(padded.reshape(V * C, self.n)))
+        data = self._encrypt_slotsets(padded.reshape(V * C, self.n))
         data = data.reshape(self.P, V, C, *data.shape[2:])
         return HEMatrix(self, [
             HEVector(self, data=data[:, i], dim=dim, scale=scale, fmt="dense")

@@ -184,7 +184,7 @@ class HEMatrix:
             vals = f.decrypt_columns(self._stacked_data(), vs[0].dim)
         elif uniform and all(v._dec_slots is not None for v in vs):
             vals = f.join_decoded_columns(
-                torch.stack([v._dec_slots for v in vs], dim=1), vs[0].dim)
+                np.stack([v._dec_slots for v in vs], axis=1), vs[0].dim)
         else:
             return np.stack([v.decrypt() for v in vs], axis=1)
         return np.stack([

@@ -1,6 +1,6 @@
 """HEVector: the scale-tracked ciphertext vector (port of
 `cryptonets_tpu/api/vector.py`, the operations the ported networks use;
-`permute`, `subtract` and plain-vector rotation are not ported).
+`subtract` and plain-vector rotation are not ported).
 
 Layout: `data` is int32 [P, C, size, k, N] — P plain-CRT primes, C blocks.
   * dense:  C = ceil(dim/n) blocks; flat slot order (slots [0, n/2) =
@@ -34,7 +34,7 @@ class HEVector:
         self.is_signed = is_signed
         self._mult_form = None
         self._add_form = None
-        # decoded slot residues [P, C, N] from a fused forward
+        # decoded slot residues [P, C, N] (host) from the record pipeline
         # (nn/forward.py): decrypt then only does the host CRT join
         self._dec_slots = None
 
@@ -199,6 +199,34 @@ class HEVector:
             res = add_mod(res, p.bfv[0].rotate_rows(src, -amt, p.keys), q)
         return self._clone_meta(data=res, dim=stride * count)
 
+    # -------------------------------------------------------------- permute
+    def permute(self, selections, shifts, output_dim: int) -> "HEVector":
+        """sum_i RotateRows(self * sel_i, shifts[i]) over the selections
+        that are not None (ref `AtomicSealBfvVector.cs:1436-1475`): a mask
+        multiply and a row rotation each."""
+        if self.fmt != DENSE:
+            raise ValueError("Permute works only on dense vectors")
+        if self.num_blocks != 1:
+            raise ValueError(
+                f"can permute only a single block (got {self.num_blocks})")
+        q = self.factory.bfv[0].p.chain_q.q
+        res = first = None
+        for sel, sh in zip(selections, shifts):
+            if sel is None:
+                continue
+            if first is None:
+                first = sel
+            if sel.dim != self.dim:
+                raise ValueError("selection dimension mismatch")
+            if sel.scale != first.scale:
+                raise ValueError("selection scales must match")
+            rot = self.pointwise_multiply(sel)._rot_rows(sh)
+            res = rot if res is None else add_mod(res, rot, q)
+        if first is None:
+            raise ValueError("permuting with no selections")
+        return self._clone_meta(data=res, dim=output_dim,
+                                scale=self.scale * first.scale)
+
     # ----------------------------------------------------------- interleave
     @staticmethod
     def interleave(vecs, shift: int) -> "HEVector":
@@ -336,10 +364,9 @@ class HEVector:
         if not self.is_encrypted:
             return np.asarray(self.values[: self.dim], dtype=object)
         p = self.factory
-        slots = self._dec_slots
-        if slots is None:
-            slots = p._decrypt_decode_all(self.data)
-        slots_all = slots.cpu().numpy()                  # [P, C, N]
+        slots_all = self._dec_slots
+        if slots_all is None:
+            slots_all = p.decrypt_slots(self.data)
         if self.fmt == SPARSE:
             return p.join_split_numbers([
                 slots_all[pi, :, 0].astype(np.int64)[: self.dim]

@@ -7,8 +7,10 @@ tensors in Montgomery form (x * 2**32 mod q), the reference's layout, so a
 key set exported from the JAX package (`convert.keyset_from_numpy`) works
 here unchanged and every deterministic op is bit-equal to the reference.
 
-Ported: parameters and tables, keygen, encrypt, decrypt (raw residues and
-the BEHZ gamma scale-and-round mod t), plaintext multiply, the BEHZ
+Ported: parameters and tables, keygen, encrypt, decrypt (raw residues,
+the BEHZ gamma scale-and-round mod t for t < 2**31, the two-plane
+scale-and-round for 2**31 <= t < 2**62 with its exact host join, and the
+exact host decrypt), plaintext multiply, the BEHZ
 ciphertext multiply, relinearization, Galois automorphisms, row/column
 rotations and the rotate-and-add ladder, with three key-switching modes:
 digit decomposition (base 2**dbc digits of every limb, SEAL 3.2's), in a
@@ -48,10 +50,22 @@ from .ntt import ntt_context_for
 from .primes import aux_base_primes, default_coeff_modulus_128, ntt_primes
 
 
+M32 = 1 << 32
+MASK32 = M32 - 1
+
+
 def _col(vals, device) -> torch.Tensor:
     """Per-limb constants as an int64 [L, 1] column."""
     return torch.tensor([int(v) for v in vals], dtype=torch.int64,
                         device=device).view(-1, 1)
+
+
+def _mul32(a, c):
+    """a * c mod 2**32 for a in [0, 2**32) (int64) and c in [0, 2**32) (an
+    int or an int64 tensor): the product split at c's 16-bit halves, so
+    no partial product passes 2**48."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + ((a * hi) & 0xFFFF) * 0x10000) & MASK32
 
 
 class ModChain:
@@ -141,8 +155,8 @@ class BFVParams:
         if not 0 < (1 << self.dbc) < min(qs):
             raise ValueError("digit width must fit the smallest limb")
         self.digits_per_limb = -(-max(q.bit_length() for q in qs) // self.dbc)
-        if self.t >= 1 << 31:
-            raise NotImplementedError("plain moduli >= 2**31 are not ported")
+        if self.t >= 1 << 62:
+            raise NotImplementedError("plain moduli >= 2**62 are not ported")
 
         self.chain_q = get_mod_chain(qs, device)
         self.ntt_q = ntt_context_for(ntt_impl, n, qs)
@@ -183,19 +197,14 @@ class BFVParams:
         self.t_mod_bsk = self.chain_bsk.scalar_col(self.t)
         self.qinv_mod_bsk = self.chain_bsk.col([modinv(q_big % m, m) for m in bsk])
 
-        # ---- BEHZ gamma-correction decrypt (device scale-and-round, t < 2**31)
-        cand = ntt_primes(n, 31, self.k + len(aux) + 4)
-        g = next(c for c in cand if c not in qs and c not in aux and c != self.t)
-        self.gamma = g
-        self.chain_tg = get_mod_chain([self.t, g], device)
-        self.gt_mod_q = self.chain_q.scalar_col(self.t * g)
-        self.punct_q_to_tg = self._punct_matrix(self.crt_q.punctured, self.chain_tg)
-        self.neg_qinv_tg = self.chain_tg.col([
-            (-modinv(q_big % self.t, self.t)) % self.t,
-            (-modinv(q_big % g, g)) % g,
-        ])
-        self.gamma_mod_t = g % self.t
-        self.gamma_inv_t = modinv(g % self.t, self.t)
+        # ---- device scale-and-round decrypt: the BEHZ gamma correction
+        # for t < 2**31, the two-plane form (W mod 2**32 and mod m2, joined
+        # exactly on the host) for 2**31 <= t < 2**62
+        self.gamma = self.big_gamma = None
+        if self.t < 1 << 31:
+            self._init_gamma_decrypt(qs, aux)
+        else:
+            self._init_big_t_decrypt(qs, aux)
 
         # ---- B -> q back-conversion (Shenoy-Kumaresan with m_sk)
         self.chain_B = get_mod_chain(self.B_list, device)
@@ -226,6 +235,49 @@ class BFVParams:
             self._init_digit_switching()
         if self.n_special:
             self._init_mod_down()
+
+    def _init_gamma_decrypt(self, qs, aux):
+        """Tables of the BEHZ gamma-correction decrypt (t < 2**31)."""
+        n, q_big = self.n, self.q_big
+        cand = ntt_primes(n, 31, self.k + len(aux) + 4)
+        g = next(c for c in cand if c not in qs and c not in aux and c != self.t)
+        self.gamma = g
+        self.chain_tg = get_mod_chain([self.t, g], self.device)
+        self.gt_mod_q = self.chain_q.scalar_col(self.t * g)
+        self.punct_q_to_tg = self._punct_matrix(self.crt_q.punctured, self.chain_tg)
+        self.neg_qinv_tg = self.chain_tg.col([
+            (-modinv(q_big % self.t, self.t)) % self.t,
+            (-modinv(q_big % g, g)) % g,
+        ])
+        self.gamma_mod_t = g % self.t
+        self.gamma_inv_t = modinv(g % self.t, self.t)
+
+    def _init_big_t_decrypt(self, qs, aux):
+        """Tables of the two-plane decrypt (2**31 <= t < 2**62): W' =
+        round(t x / q) (+ t e2) mod m2 and mod 2**32, gamma-corrected;
+        the reference's constants of the same names (its Shoup companions
+        aside).  Every constant is reduced from a Python int."""
+        n, q_big, t = self.n, self.q_big, self.t
+        cand = ntt_primes(n, 31, self.k + len(aux) + 6)
+        m2, g = [c for c in cand if c not in qs and c not in aux][:2]
+        self.big_gamma, self.big_m2 = g, m2    # descending scan: g < m2
+        self.chain_g2 = get_mod_chain([m2, g], self.device)
+        self.big_m2_chain = get_mod_chain([m2], self.device)
+        self.big_gt_mod_q = self.chain_q.scalar_col(t * g)
+        self.punct_q_to_g2 = self._punct_matrix(self.crt_q.punctured, self.chain_g2)
+        self.punct_q_to_m1 = torch.tensor(
+            [int(p) % M32 for p in self.crt_q.punctured], dtype=torch.int64,
+            device=self.device).view(-1, 1)
+        # gamma plane: s_g = -conv_y * q^-1 mod gamma (g t x = 0 mod g)
+        self.big_neg_qinv_g = (-modinv(q_big % g, g)) % g
+        # m2 and 2**32 planes carry V' = (g t conv_x - conv_y) * q^-1
+        self.big_gt_m2 = t * g % m2
+        self.big_qinv_m2 = modinv(q_big % m2, m2)
+        self.big_gamma_mod_m2 = g % m2
+        self.big_ginv_m2 = modinv(g % m2, m2)
+        self.big_gt_m1 = t * g % M32
+        self.big_qinv_m1 = modinv(q_big % M32, M32)
+        self.big_ginv_m1 = modinv(g, M32)
 
     def _init_digit_switching(self):
         """Digit key switching: w_ij = 2^(dbc*j) on limb i, zero on the
@@ -283,9 +335,20 @@ class BFVParams:
                             device=self.device).unsqueeze(-1)
 
     def plain_to_residues(self, coeffs) -> np.ndarray:
-        """Plain poly coeffs (ints mod t) -> [..., k, N] uint32 (host)."""
-        c64 = np.asarray(coeffs).astype(np.int64) % self.t
-        return np.stack([(c64 % q).astype(np.uint32) for q in self.q_list], axis=-2)
+        """Plain poly coeffs (ints mod t, leading axes allowed) -> [..., k,
+        N] uint32 residues (host).  Integer arrays reduce in int64 (t <
+        2**31) or uint64 (t < 2**62, coefficients in [0, t)); object
+        arrays exactly."""
+        c = np.asarray(coeffs)
+        if c.dtype == object:
+            c = c % self.t
+            return np.stack([(c % q).astype(np.uint32) for q in self.q_list], axis=-2)
+        if c.dtype == np.uint64:
+            cu = c % np.uint64(self.t)
+        else:
+            cu = (c.astype(np.int64) % self.t).astype(np.uint64)
+        return np.stack([(cu % np.uint64(q)).astype(np.uint32) for q in self.q_list],
+                        axis=-2)
 
 
 class SwitchKeys(NamedTuple):
@@ -482,6 +545,77 @@ class BFV:
             s_g_red.to(RES))
         diff = sub_mod(s_t, s_g_cent, t)
         return mul_const_mod(diff, p.gamma_inv_t, t)
+
+    def decrypt_big_t_planes(self, keys: KeySet, ct):
+        """Device scale-and-round decrypt for 2**31 <= t < 2**62: the
+        planes (W' mod 2**32 as int64 in [0, 2**32), W' mod m2 as int32),
+        [..., N] each, with W' = round(t x / q) + t e2 (0 <= e2 < k from
+        the approximate base conversion of x; it cancels mod t).
+        `join_big_t_planes` composes W' on the host and reduces it mod t.
+        The mod-2**32 plane wraps around as the reference's uint32
+        arithmetic does: int64 here, every product and sum masked to 32
+        bits (`_mul32`)."""
+        p = self.p
+        if p.big_gamma is None:
+            raise ValueError("the two-plane decrypt needs 2**31 <= t < 2**62")
+        g, m2 = p.big_gamma, p.big_m2
+        cq = p.chain_q
+        x = self.raw_decrypt_residues(keys, ct)            # [..., k, N]
+        xs = mul_const_mod(x, p.big_gt_mod_q, cq.q)        # |g t x|_q
+        y = mul_const_mod(xs, p.inv_punct_q, cq.q)
+        yx = mul_const_mod(x, p.inv_punct_q, cq.q)
+        # conv_y over {m2, gamma}; conv_x over {m2}
+        conv_y = self._fast_bconv(y, p.punct_q_to_g2, p.chain_g2)    # [..., 2, N]
+        conv_x_m2 = self._fast_bconv(
+            yx, p.punct_q_to_g2[:, :1], p.big_m2_chain)[..., 0, :]
+        # gamma plane: s_g = V mod gamma, V = Z - e  (g t x = 0 mod g)
+        s_g = mul_const_mod(conv_y[..., 1, :], p.big_neg_qinv_g, g)
+        # V' mod m2 = (g t conv_x - conv_y) * q^-1
+        v_m2 = mul_const_mod(
+            sub_mod(mul_const_mod(conv_x_m2, p.big_gt_m2, m2),
+                    conv_y[..., 0, :], m2),
+            p.big_qinv_m2, m2)
+        # V' mod 2**32
+        conv_y_m1 = (_mul32(wide(y), p.punct_q_to_m1).sum(dim=-2)) & MASK32
+        conv_x_m1 = (_mul32(wide(yx), p.punct_q_to_m1).sum(dim=-2)) & MASK32
+        v_m1 = _mul32((_mul32(conv_x_m1, p.big_gt_m1) - conv_y_m1) & MASK32,
+                      p.big_qinv_m1)
+        # center the gamma residue and divide by gamma: W' = (V' - e) / g
+        neg = s_g > (g >> 1)
+        e_m2 = torch.where(neg, sub_mod(s_g, p.big_gamma_mod_m2, m2), s_g)
+        w_m2 = mul_const_mod(sub_mod(v_m2, e_m2, m2), p.big_ginv_m2, m2)
+        e_m1 = (wide(s_g) - neg.to(torch.int64) * g) & MASK32
+        w_lo = _mul32((v_m1 - e_m1) & MASK32, p.big_ginv_m1)
+        return w_lo, w_m2
+
+    def join_big_t_planes(self, w_lo, w_m2) -> np.ndarray:
+        """Host: (W' mod 2**32, W' mod m2) -> exact uint64 W' (< t (k + 1)
+        < 2**63), reduced mod t.  All arithmetic fits int64: the high
+        digit u = W' >> 32 < 2**31 <= m2 is recovered exactly mod m2."""
+        m2 = self.p.big_m2
+        inv32 = modinv(M32 % m2, m2)
+        lo = np.asarray(w_lo).astype(np.int64)
+        r2 = np.asarray(w_m2).astype(np.int64)
+        d = (r2 - (lo % m2)) % m2
+        u = (d * inv32) % m2            # < 2**31; the product < 2**62
+        return (lo + (u << 32)).astype(np.uint64) % np.uint64(self.p.t)
+
+    def decrypt(self, keys: KeySet, ct) -> np.ndarray:
+        """Exact host decrypt of [..., size, k, N]: plaintext coefficients
+        as object ints [..., N] in [0, t), round(t w / q) mod t of the
+        centered CRT composition w (any t; the plain twin of the device
+        decrypts)."""
+        p = self.p
+        limbs = self.raw_decrypt_residues(keys, ct).cpu().numpy().astype(object)
+        acc = None
+        for i, (inv, punct, q) in enumerate(zip(
+                p.crt_q.inv_punctured, p.crt_q.punctured, p.crt_q.moduli)):
+            term = (limbs[..., i, :] * inv % q) * punct
+            acc = term if acc is None else acc + term
+        Q = p.q_big
+        w = acc % Q
+        w = np.where(w > Q >> 1, w - Q, w)
+        return ((2 * p.t * w + Q) // (2 * Q)) % p.t
 
     # ------------------------------------------------------- add / plain ops
     def add(self, a, b):

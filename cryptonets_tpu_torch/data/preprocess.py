@@ -1,6 +1,7 @@
 """Seeded synthetic records, so the pipelines run without downloaded data
 (the generators of `cryptonets_tpu/data/preprocess.py`, same seed -> same
-records): MNIST-like images and Caltech-101 feature vectors."""
+records): MNIST-like images, CIFAR-like images and Caltech-101 feature
+vectors."""
 
 from __future__ import annotations
 
@@ -23,6 +24,17 @@ def synthetic_mnist_records(count: int, seed: int = 0):
         img = np.clip(img, 0, 255).round()
         out.append((int(rng.integers(0, 10)), img.ravel()))
     return out
+
+
+def synthetic_cifar_records(count: int, seed: int = 0):
+    """`count` (label, 3 * 32 * 32 float pixels) records: uniform uint8
+    values, channel-major."""
+    rng = np.random.default_rng(seed)
+    return [
+        (int(rng.integers(0, 10)),
+         rng.integers(0, 256, 3 * 32 * 32).astype(np.float64))
+        for _ in range(count)
+    ]
 
 
 def synthetic_feature_records(count: int, dim: int, seed: int = 0):

@@ -21,13 +21,21 @@ Square -> conv-as-dense(2608, BSGS with chained babies) -> Square ->
 Dense(10, per-row dots) over the `lola_large` preset (eleven data limbs,
 three special primes).  Seeded synthetic weights unless CSVs are given.
 
+`build_lola_dense` ("LoLaDense", `LoLaCryptonets.cs:118-201`), n = 16384:
+the server-side im2col variant: the dense image (one ciphertext) ->
+PreConv (25 permutes of 4 blocks) -> Conv (5 maps) -> Vectorize -> Square
+-> Duplicate(16) -> PackedDense(100, shift 1024) -> Interleave(-1) ->
+Square -> InterleavedDense(10), over the `lola_dense` preset (plain primes
+near 2**35: host encode, two-plane decrypt; twelve data limbs and two
+special primes) on the real weights.
+
 `build_lola_small` ("LoLaSmall", `LoLaCryptonets.cs:280-329`): Conv ->
 Vectorize -> Square -> Dense(10, per-row dots over SumAllSlots ladders)
 over the `lola_small` preset (hybrid key switching, two special primes),
 under either NTT.
 
 CLI: python -m cryptonets_tpu_torch.models.lola_mnist
-     -n LoLa|LoLaPacked|LoLaSmall|LoLaLarge [-e]
+     -n LoLa|LoLaPacked|LoLaSmall|LoLaLarge|LoLaDense [-e]
      [--ntt butterfly|matmul] [--records K] [--data FILE] [--device cpu]
 It runs on the card unless `--device cpu` is given; run a full-width
 encrypted network on a GPU only.
@@ -48,6 +56,7 @@ from ..nn.layers import EncryptLayer, SquareActivation
 from ..nn.convolution import ConvolutionEngine
 from ..nn.lola import (
     LLDenseLayer,
+    LLPreConvLayer,
     LLDuplicateLayer,
     LLInterleavedDenseLayer,
     LLInterleaveLayer,
@@ -55,7 +64,7 @@ from ..nn.lola import (
     LLPoolLayer,
     LLVectorizeLayer,
 )
-from ..nn.readers import LLConvReader, WeightsReader
+from ..nn.readers import LLConvReader, LLSingleLineReader, WeightsReader
 from .presets import make_factory
 
 # single-hop Galois keys: baby steps 1..63, the Vectorize strides
@@ -202,6 +211,53 @@ def build_lola(encrypt: bool, records=None, file_name=None, seed: int = 0,
     return dense8, factory, reader
 
 
+def build_lola_dense(encrypt: bool, records=None, file_name=None, seed: int = 0,
+                     device=None, weights: dict | None = None, keys=None,
+                     ntt_impl: str | None = None):
+    """(head, factory, reader) of LoLaDense: the same weights and scales
+    as LoLa.  The PreConv layer is prepared here, on the encrypted
+    factory, since the conv's bias slots and the dense weights' order
+    come from it."""
+    factory = make_factory(
+        "lola_dense", encrypt, seed, device=device, ntt_impl=ntt_impl,
+        **({"keys": keys} if encrypt and keys is not None else {}),
+    )
+    W = weights if weights is not None else load_cryptonets_weights()
+    weightscale = 32
+    geo = _mnist_geometry()
+    reader = LLSingleLineReader(
+        make_factory("lola_dense", False), file_name=file_name,
+        normalization_factor=1.0 / 256.0, scale=16.0,
+    )
+    if records is not None:
+        reader.set_source_records(records)
+    enc = EncryptLayer(reader)
+    enc.factory = factory
+    pre = LLPreConvLayer(enc, use_axis_for_blocks=[True, True], **geo)
+    pre.factory = factory
+    pre.prepare()
+    pre.layer_prepared = True
+    conv = LLPoolLayer(pre, map_count=[5, 1], weights=W["Weights_0"],
+                       weights_scale=weightscale, hot_indices=pre.hot_indices,
+                       **geo)
+    act = SquareActivation(LLVectorizeLayer(conv))
+    dup = LLDuplicateLayer(act, count=16)
+    dense = LLPackedDenseLayer(
+        dup, weights=pre.rearrange_weights(
+            transpose_flat(W["Weights_1"], 5 * 13 * 13, 100)),
+        bias=W["Biases_2"], packing_count=16, packing_shift=1024,
+        weights_scale=weightscale * weightscale,
+    )
+    selected = [1023 + i * 1024 for i in range(16)]
+    inter = LLInterleaveLayer(dense, shift=-1, selected_indices=selected)
+    act2 = SquareActivation(inter)
+    head = LLInterleavedDenseLayer(
+        act2, weights=W["Weights_3"], bias=W["Biases_3"],
+        weights_scale=weightscale, shift=-1, selected_indices=selected,
+    )
+    return head, factory, reader
+
+
 def lola_large_weights(weights_csv=None, bias_csv=None):
     """(w0, b0, w1, b1, w2, b2) of LoLaLarge: from the two local CSV files
     (w0 divided by 256, `LoLaCryptonets.cs:372`), else the reference's
@@ -261,18 +317,12 @@ def build_lola_large(encrypt: bool, records=None, file_name=None,
     return dense6, factory, reader
 
 
-def _not_ported(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"the network {name} is not ported")
-    return refuse
-
-
 BUILDERS = {
     "LoLa": build_lola_bsgs,
     "LoLaBsgs": build_lola_bsgs,
     "LoLaSmall": build_lola_small,
     "LoLaPacked": build_lola,
-    "LoLaDense": _not_ported("LoLaDense"),
+    "LoLaDense": build_lola_dense,
     "LoLaLarge": build_lola_large,
 }
 

@@ -23,10 +23,19 @@ same security and noise capacity over more limbs.
     eleven data limbs and three special primes, and three ~30-bit
     NTT-friendly plain primes in place of the reference's three primes
     just above 2**31, so slot encode and decode run on the device.
-Data plus special limbs stay within the ring degree's 128-bit budget
-(checked below).  A preset names no NTT: `make_factory` passes the
-caller's `ntt_impl` through.  The big-t presets (plain primes >= 2**31),
-`lola_dense` and `cifar` are not ported.
+  * `cifar` (`LolaCifarCryptoNet.cs:35`, 8 of SEAL's 9 limbs at 16384):
+    thirteen data limbs and one special prime, three ~30-bit NTT-friendly
+    plain primes in place of the reference's two ~40-bit ones.
+  * `lola_dense` (`LoLaCryptonets.cs:123`, 7 of 9 limbs at 16384): the
+    reference's plain primes near 2**35, twelve data limbs and two special
+    primes.
+  * `cryptonets_bigt` (`CryptoNets.cs:17`): the reference's two ~39-bit
+    plain primes at n = 8192 over the full chain.
+The last two have plain primes of 2**31 and above: their factories
+encode on the host and decrypt through the two-plane form.  Data plus
+special limbs stay within the ring degree's 128-bit budget (checked
+below).  A preset names no NTT: `make_factory` passes the caller's
+`ntt_impl` through.  `lola_large_bigt` and `cifar_bigt` are not ported.
 """
 
 from __future__ import annotations
@@ -73,6 +82,17 @@ CONFIGS = {
     "lola_large": dict(
         plain_primes=ntt_primes(16384, 30, 3), n=16384,
         coeff_count=coeff_count_for(16384, 7), n_special=3,
+    ),
+    "cifar": dict(
+        plain_primes=ntt_primes(16384, 30, 3), n=16384,
+        coeff_count=coeff_count_for(16384, 8), n_special=1,
+    ),
+    "lola_dense": dict(
+        plain_primes=(34359771137, 34360754177), n=16384,
+        coeff_count=coeff_count_for(16384, 7) + 1, n_special=2,
+    ),
+    "cryptonets_bigt": dict(
+        plain_primes=(549764251649, 549764284417), n=8192,
     ),
 }
 

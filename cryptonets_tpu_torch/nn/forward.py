@@ -6,6 +6,11 @@ in the SIMD slots) from the reader and runs, on the factory's device:
 slot encode + RLWE encrypt of every input column, every layer above the
 EncryptLayer, gamma decrypt + slot decode of every output column.  The
 host only index-maps the input slots and CRT-joins the decoded outputs.
+A factory whose plain primes do not fit the device encode and decode
+(`_device_encode`, `_device_decode`: LoLaDense's and CryptoNets' big-t
+primes) takes the reference's other path: slot encode on the host (C++
+NTT, per-limb residues) and encrypt on the device, the layers, then the
+two-plane device decrypt with the host join and the C++ slot decode.
 It runs eagerly, as a sequence of kernel launches; there is no
 whole-network compile to trace.
 """
@@ -54,17 +59,16 @@ class EncryptedForward:
             m = layer.apply(m)
         return m
 
-    def slot_bufs(self, raw):
-        """Host side: RawMatrix -> (index-mapped slot buffers [P, V*C, n],
-        (V, C, dim, scale))."""
+    def slot_ints(self, raw):
+        """Host side: RawMatrix -> (slot values [V*C, n] int64, (V, C,
+        dim, scale))."""
         fac = self.encrypt_layer.factory
         vecs = np.asarray(raw.m, dtype=np.float64).T  # [V, dim] scaled ints
         V, dim = vecs.shape
         C = max(1, -(-dim // fac.n))
         padded = np.zeros((V, C * fac.n), np.int64)
         padded[:, :dim] = np.round(vecs).astype(np.int64)
-        bufs = fac.encode_bufs(padded.reshape(V * C, fac.n))
-        return bufs, (V, C, dim, float(raw.scale))
+        return padded.reshape(V * C, fac.n), (V, C, dim, float(raw.scale))
 
     def __call__(self):
         """Pull one record through encode, encrypt, the network, decrypt
@@ -73,18 +77,18 @@ class EncryptedForward:
         if raw is None:
             return None
         fac = self.encrypt_layer.factory
-        bufs, (V, C, dim, scale) = self.slot_bufs(raw)
-        data = fac._encrypt_all_dev(bufs)                # [P, V*C, 2, k, N]
+        ints, (V, C, dim, scale) = self.slot_ints(raw)
+        data = fac._encrypt_slotsets(ints)               # [P, V*C, 2, k, N]
         data = data.reshape(fac.P, V, C, *data.shape[2:])
         m = HEMatrix(fac, [
             HEVector(fac, data=data[:, i], dim=dim, scale=scale, fmt="dense")
             for i in range(V)
         ], "col")
         out = self.run_encrypted(m)
-        # gamma decrypt + slot decode of every output column in one pass
+        # decrypt + slot decode of every output column in one pass: on
+        # the device (gamma decrypt) or through the host join (big t)
         blocks = [v.data.shape[1] for v in out.vectors]
-        slots = fac._decrypt_decode_all(
-            torch.cat([v.data for v in out.vectors], dim=1))
-        for v, s in zip(out.vectors, slots.split(blocks, dim=1)):
+        slots = fac.decrypt_slots(torch.cat([v.data for v in out.vectors], dim=1))
+        for v, s in zip(out.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
             v._dec_slots = s
         return out

@@ -373,8 +373,11 @@ class LLDenseLayer(Layer):
             raise NotImplementedError(
                 "the column-major dense layer (sparse input) is not ported")
         want_bsgs = self.use_bsgs if self.use_bsgs is not None else maps >= 128
+        # BSGS encodes its diagonals on the device: a factory that encodes
+        # on the host (plain primes of 2**31 and above) takes per-row dots
         if (self.force_dense_format and want_bsgs
-                and maps <= self.factory.n and wmat.shape[1] <= self.factory.n):
+                and maps <= self.factory.n and wmat.shape[1] <= self.factory.n
+                and getattr(self.factory, "_device_encode", False)):
             from ..api.bsgs import BsgsDenseForm
 
             # the same integers as the per-element rounding (round-half-even)
@@ -407,3 +410,134 @@ class LLDenseLayer(Layer):
                 is_signed=v.is_signed,
             )
         return self.factory.get_matrix([mul.add(self.bias_vector)], "col")
+
+
+class LLPreConvLayer(Layer):
+    """Re-pack one dense image vector into the patch-matrix layout
+    homomorphically (ref `LLPreConvLayer.cs`, port of `cryptonets_tpu/
+    nn/lola.py`): column i (kernel offset i) is a `permute` of the input,
+    the sum over the corner blocks of a masked and rotated copy.  The
+    corners are grouped in blocks along the axes `use_axis_for_blocks`
+    selects; `corners_map` gives each corner's slot in the output,
+    `hot_indices` marks those slots (the conv's bias goes there), and
+    `rearrange_weights` moves a downstream dense layer's weights to them."""
+
+    def __init__(self, source, input_shape, kernel_shape, stride=None,
+                 padding=None, upper_padding=None, lower_padding=None,
+                 use_axis_for_blocks=None):
+        super().__init__(source)
+        self.engine = ConvolutionEngine(
+            input_shape, kernel_shape, stride, padding,
+            upper_padding, lower_padding,
+        )
+        self.use_axis_for_blocks = use_axis_for_blocks
+        self.output_dim = -1
+        self.shifts = None
+        self.masks = None
+        self.hot_indices = None
+        self.corners_map = None
+
+    def _block_offsets(self):
+        """Flat offsets of the corner blocks: every combination of the
+        positions below the stride on the axes used for blocks."""
+        e = self.engine
+        stride = e.stride
+        shifts = [1] * len(stride)
+        for i in range(1, len(shifts)):
+            shifts[i] = shifts[i - 1] * e.input_shape[i - 1]
+        block = [0] * len(stride)
+        offset = 0
+        out = []
+        while True:
+            out.append(offset)
+            for i in range(len(block)):
+                if not self.use_axis_for_blocks[i]:
+                    continue
+                block[i] += 1
+                offset += shifts[i]
+                if block[i] < stride[i]:
+                    break
+                offset -= block[i] * shifts[i]
+                block[i] = 0
+            else:
+                return out
+
+    def prepare(self):
+        if self.layer_prepared:
+            return
+        e = self.engine
+        if self.use_axis_for_blocks is None:
+            self.use_axis_for_blocks = [True] * len(e.input_shape)
+        dim = int(np.prod(e.input_shape))
+        plane = dim // e.input_shape[0]
+        block_offsets = self._block_offsets()
+        corners_proj = sorted({c[0] for c in e.corners})
+        expected = len(corners_proj) / len(block_offsets)
+        small_bs = int(np.floor(expected))
+        large_bs = int(np.ceil(expected))
+        n_large = len(corners_proj) - len(block_offsets) * small_bs
+        self.corners_map = [-1] * len(e.corners)
+        self.masks, self.shifts = [], []
+        for off in e.offsets:
+            selections = [[] for _ in block_offsets]
+            sh = [0] * len(block_offsets)
+            for j in range(len(sh)):
+                this_bs = small_bs if j > n_large else large_bs
+                if j == 0:
+                    sh[j] = e.location(None, off, e.input_shape)
+                else:
+                    sh[j] = (sh[j - 1] + block_offsets[j - 1] - block_offsets[j]
+                             + this_bs * e.stride[0] * plane)
+            for j, corner in enumerate(e.corners):
+                location = e.location(corner, off, e.input_shape)
+                corner_id = (corner[0] - e.corners[0][0]) // e.stride[0]
+                if corner_id < large_bs * n_large:
+                    block = corner_id // large_bs
+                else:
+                    block = n_large + (corner_id - large_bs * n_large) // small_bs
+                if location >= 0:
+                    selections[block].append(location)
+                    mp = location - sh[block]
+                    if self.corners_map[j] >= 0 and self.corners_map[j] != mp:
+                        raise RuntimeError(
+                            f"corner {j} maps to slots {self.corners_map[j]} and {mp}")
+                    self.corners_map[j] = mp
+            row_masks = []
+            for sel in selections:
+                if sel:
+                    mv = np.zeros(dim)
+                    mv[sel] = 1.0
+                    row_masks.append(self.factory.get_plain_vector(mv, "dense", 1.0))
+                else:
+                    row_masks.append(None)
+            self.masks.append(row_masks)
+            self.shifts.append(sh)
+        large_max = 0 if n_large == 0 else (
+            plane * (1 + e.stride[0] * (large_bs - 1)) + block_offsets[n_large - 1])
+        small_max = plane * (1 + e.stride[0] * (small_bs - 1)) + block_offsets[-1]
+        self.output_dim = max(large_max, small_max)
+        hot = np.zeros(self.output_dim)
+        hot[self.corners_map] = 1.0
+        self.hot_indices = hot
+
+    def apply(self, m):
+        if m.column_count != 1:
+            raise ValueError("expecting a single column")
+        v = m.get_column(0)
+        cols = [v.permute(masks, shifts, self.output_dim)
+                for masks, shifts in zip(self.masks, self.shifts)]
+        return self.factory.get_matrix(cols, "col")
+
+    def output_dimension(self):
+        return self.output_dim
+
+    def rearrange_weights(self, weights) -> np.ndarray:
+        """A downstream dense layer's weights [maps * corners] moved to
+        the blocked order: weight (i, j) to slot corners_map[j] of map i's
+        output_dim-long row (ref RearrangeWeights)."""
+        weights = np.asarray(weights, float)
+        corners = len(self.engine.corners)
+        maps = len(weights) // corners
+        out = np.zeros((maps, self.output_dim))
+        out[:, self.corners_map] = weights[: maps * corners].reshape(maps, corners)
+        return out.ravel()

@@ -1,7 +1,8 @@
 """Where a record's time goes in the PyTorch/CUDA port, on one GPU.
 
     python3 scripts/torch_lola_breakdown.py
-        [--network LoLa|LoLaPacked|LoLaLarge|CryptoNets|LoLaSmall|Caltech]
+        [--network LoLa|LoLaPacked|LoLaLarge|LoLaDense|CIFAR|CryptoNets|
+                   LoLaSmall|Caltech]
         [--ntt butterfly|matmul]
         [--records 5] [--seed 11] [--batch 8192]
 
@@ -10,7 +11,11 @@ image per record; LoLaPacked: `build_lola`, the reference packing;
 CryptoNets: `cryptonets_mnist.build`, `--batch` images per record;
 LoLaSmall: `build_lola_small`; all four n = 8192 on real weights;
 LoLaLarge: `build_lola_large`, n = 16384, seeded synthetic weights;
-Caltech: `caltech101.build`, n = 4096, one feature vector per
+LoLaDense: `build_lola_dense`, n = 16384, real weights, plain primes near
+2**35, so the slot encode runs on the host (C++ NTT) and the decrypt is
+the two-plane device decrypt, then the host join and C++ decode, each
+timed as its own stage; CIFAR: `lola_cifar.build`, n = 16384, seeded
+stand-in weights and synthetic CIFAR records of seed 4; Caltech: `caltech101.build`, n = 4096, one feature vector per
 record, seeded synthetic parameters and records of seed 6) under the
 NTT `--ntt` names (the script refuses `--network CryptoNets --ntt
 matmul`: that builder takes the butterfly only) and pulls records
@@ -36,6 +41,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -63,10 +69,18 @@ def staged_record(fwd, sync):
     raw = fwd.reader.get_next()
     times["reader (host)"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    bufs, (V, C, dim, scale) = fwd.slot_bufs(raw)
-    times["slot buffers (host)"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    data = fac._encrypt_all_dev(bufs).reshape(fac.P, V, C, 2, -1, fac.n)
+    ints, (V, C, dim, scale) = fwd.slot_ints(raw)
+    if fac._device_encode:
+        bufs = fac.encode_bufs(ints)
+        times["slot buffers (host)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = fac._encrypt_all_dev(bufs)
+    else:
+        res = fac._encode_slotsets_np(ints)
+        times["slot encode, C++ NTT (host)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = fac._encrypt_all(res)
+    data = data.reshape(fac.P, V, C, 2, -1, fac.n)
     m = HEMatrix(fac, [HEVector(fac, data=data[:, i], dim=dim, scale=scale)
                        for i in range(V)], "col")
     del data
@@ -78,19 +92,29 @@ def staged_record(fwd, sync):
         m = layer.apply(m)
         done(f"{i}:{type(layer).__name__}", t0)
     t0 = time.perf_counter()
-    slots = fac._decrypt_decode_all(torch.cat([v.data for v in m.vectors], dim=1))
-    for v, s in zip(m.vectors, slots.split([v.data.shape[1] for v in m.vectors], dim=1)):
+    blocks = [v.data.shape[1] for v in m.vectors]
+    data = torch.cat([v.data for v in m.vectors], dim=1)
+    if fac._device_decode:
+        slots = fac._decrypt_decode_all(data).cpu().numpy()
+    else:
+        lo, m2 = fac._decrypt_big_all(data)
+        done("two-plane decrypt (device)", t0)
+        t0 = time.perf_counter()
+        lo, m2 = lo.cpu().numpy(), m2.cpu().numpy()
+        slots = np.stack([fac._decode_big_slots(lo[pi], m2[pi], pi)
+                          for pi in range(fac.P)])
+    for v, s in zip(m.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
         v._dec_slots = s
     m.decrypt()
-    done("decrypt+decode", t0)
+    done("decrypt+decode" if fac._device_decode else "join + decode, C++ NTT (host)", t0)
     return times, peaks
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--network", default="LoLa",
-                    choices=("LoLa", "LoLaPacked", "LoLaLarge", "CryptoNets",
-                             "LoLaSmall", "Caltech"))
+                    choices=("LoLa", "LoLaPacked", "LoLaLarge", "LoLaDense",
+                             "CIFAR", "CryptoNets", "LoLaSmall", "Caltech"))
     ap.add_argument("--ntt", choices=("butterfly", "matmul"), default="butterfly",
                     help="NTT of the ciphertext chain")
     ap.add_argument("--records", type=int, default=5,
@@ -109,11 +133,12 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from cryptonets_tpu_torch.data.preprocess import (
-        synthetic_feature_records, synthetic_mnist_records)
+        synthetic_cifar_records, synthetic_feature_records,
+        synthetic_mnist_records)
     from cryptonets_tpu_torch.kernels import matmul_ntt as M
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
-    from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist
+    from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
     from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
@@ -125,12 +150,16 @@ def main() -> int:
         records = synthetic_feature_records(count, caltech101.N_FEATURES, seed=6)
         head, fac, _ = caltech101.build(True, records=records, device=dev,
                                         ntt_impl=args.ntt)
+    elif args.network == "CIFAR":
+        records = synthetic_cifar_records(count, seed=4)
+        head, fac, _ = lola_cifar.build(True, records=records, device=dev,
+                                        ntt_impl=args.ntt)
     else:
         records = synthetic_mnist_records(count, seed=args.seed)
     if args.network == "CryptoNets":
         head, fac, _ = cryptonets_mnist.build(True, args.batch, records=records,
                                               device=dev)
-    elif args.network != "Caltech":
+    elif args.network not in ("Caltech", "CIFAR"):
         head, fac, _ = BUILDERS[args.network](True, records=records, device=dev,
                                               ntt_impl=args.ntt)
     head.prepare_network()

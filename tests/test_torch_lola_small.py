@@ -203,24 +203,24 @@ def test_full_width_raw_paths_match_reference():
 
 def test_presets_and_network_table_equal_reference():
     from cryptonets_tpu.models import presets as jp
-    from cryptonets_tpu_torch.models import lola_mnist, presets
+    from cryptonets_tpu_torch.models import lola_cifar, lola_mnist, presets
 
     assert presets.SEAL_128_CHAIN_BITS == jp.SEAL_128_CHAIN_BITS
     for n, smc in ((4096, 2), (8192, 3), (8192, None), (16384, 7)):
         assert presets.coeff_count_for(n, smc) == jp.coeff_count_for(n, smc)
-    for name in ("lola_small", "caltech", "lola", "lola_large"):
+    for name in ("lola_small", "caltech", "lola", "lola_large", "cifar",
+                 "lola_dense", "cryptonets_bigt"):
         assert presets.CONFIGS[name] == jp.CONFIGS[name]
     assert sorted(lola_mnist.BUILDERS) == [
         "LoLa", "LoLaBsgs", "LoLaDense", "LoLaLarge", "LoLaPacked", "LoLaSmall"]
-    with pytest.raises(NotImplementedError, match="LoLaDense"):
-        lola_mnist.BUILDERS["LoLaDense"](False)
-    # the Raw paths of the two builders of slice D and LoLaLarge
-    for name in ("LoLaPacked", "LoLaLarge"):
+    # the Raw paths of the builders of slices D and E and of CIFAR
+    for name in ("LoLaPacked", "LoLaLarge", "LoLaDense"):
         res = lola_mnist.evaluate(lola_mnist.BUILDERS[name], encrypt=False,
                                   n_records=1)
         assert res["count"] == 1
+    assert lola_cifar.evaluate(encrypt=False, n_records=1)["count"] == 1
     with pytest.raises(NotImplementedError, match="not ported"):
-        presets.make_factory("cifar", False)
+        presets.make_factory("cifar_bigt", False)
     # the Raw path of the evaluation harness (full width is cheap in Raw)
     res = lola_mnist.evaluate(lola_mnist.build_lola_small, encrypt=False,
                               n_records=2)
