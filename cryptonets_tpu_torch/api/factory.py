@@ -39,6 +39,11 @@ from ..device import resolve_device
 # int64 temporaries of [piece, k, N] per plain prime (59 MB each at 128
 # columns, k = 7, N = 8192), so a 784-column input never widens whole.
 ENCRYPT_CHUNK = 128
+# Rows per piece of the batched plaintext encode (`plain_mult_forms`): a
+# piece's slot encode runs on the host, its coefficients cross to the
+# device as int64 [piece, N] and widen to [piece, k, N] there (1.7 GB at
+# n = 16384 and 13 limbs).
+ENCODE_CHUNK = 1024
 
 
 class CrtBfvFactory:
@@ -147,7 +152,7 @@ class CrtBfvFactory:
         [P, C, k, N] uint32 on the host: the encoder's NTT over Z_t (the
         C++ 128-bit one for t >= 2**31), then every limb's own residue."""
         return np.stack([
-            np.stack([self.encode_slots_to_residues(row, pi) for row in slotsets])
+            self.params[pi].plain_to_residues(self.encoders[pi].encode(slotsets))
             for pi in range(self.P)
         ])
 
@@ -347,6 +352,27 @@ class CrtBfvFactory:
         """Slot values -> NTT + Montgomery plaintext multiplier [P, C, k, N]."""
         return self.bfv[0].prepare_plain_mult(self._plain_residues(int_values, dim))
 
+    def plain_mult_forms(self, slot_rows) -> torch.Tensor:
+        """Slot values [R, n] (int64, signed) -> NTT + Montgomery plaintext
+        multipliers [P, R, k, N], row r equal to `plain_mult_form` of row
+        r.  Pieces of ENCODE_CHUNK rows: the slot encode on the host (the
+        C++ NTT, in threads, for t >= 2**31), each limb's residue and the
+        NTT on the device."""
+        rows = np.asarray(slot_rows, dtype=np.int64)
+        R = rows.shape[0]
+        bfv0 = self.bfv[0]
+        q = bfv0.p.chain_q.q
+        out = torch.empty((self.P, R, len(self.coeff_modulus), self.n),
+                          dtype=torch.int32, device=self.device)
+        for r0 in range(0, R, ENCODE_CHUNK):
+            piece = rows[r0 : r0 + ENCODE_CHUNK]
+            for pi, enc in enumerate(self.encoders):
+                # coefficients in [0, t) < 2**62: exact as int64
+                c = torch.from_numpy(enc.encode(piece).astype(np.int64))
+                res = (c.to(self.device)[:, None, :] % q).to(torch.int32)
+                out[pi, r0 : r0 + len(piece)] = bfv0.prepare_plain_mult(res)
+        return out
+
     def plain_add_form(self, int_values, dim: int) -> torch.Tensor:
         """Slot values -> coefficient residues [P, C, k, N] for add_plain."""
         return self._plain_residues(int_values, dim)
@@ -367,11 +393,51 @@ class CrtBfvFactory:
             self._mask_cache[key] = self.plain_mult_form(m, self.n)
         return self._mask_cache[key]
 
+    def mask_mult_form(self, lo: int, hi: int) -> torch.Tensor:
+        """0/1 mask over the row positions [lo, hi) of both rows (slot i
+        is set iff lo <= i mod (n/2) < hi), prepared for multiply:
+        [P, 1, k, N], cached."""
+        key = ("rows", lo, hi)
+        if key not in self._mask_cache:
+            pos = np.arange(self.n) % (self.n // 2)
+            m = ((pos >= lo) & (pos < hi)).astype(np.int64)
+            self._mask_cache[key] = self.plain_mult_form(m, self.n)
+        return self._mask_cache[key]
+
+    def unit_mask_form(self, col: int) -> torch.Tensor:
+        """The mask of flat slot `col` alone (ForceOutputInColumn),
+        prepared for multiply: [P, 1, k, N], cached."""
+        key = ("unit", col)
+        if key not in self._mask_cache:
+            m = np.zeros(self.n, np.int64)
+            m[col] = 1
+            self._mask_cache[key] = self.plain_mult_form(m, self.n)
+        return self._mask_cache[key]
+
+    def unit_mask_forms(self, cols) -> torch.Tensor:
+        """The unit masks of flat slots `cols` [R] as one [P, R, k, N]
+        tensor, equal to `unit_mask_form` of each (not cached: the matrix
+        that forces its rows keeps them), built a piece at a time."""
+        cols = np.asarray(cols, dtype=np.int64)
+        out = torch.empty((self.P, len(cols), len(self.coeff_modulus), self.n),
+                          dtype=torch.int32, device=self.device)
+        for r0 in range(0, len(cols), ENCODE_CHUNK):
+            piece = cols[r0 : r0 + ENCODE_CHUNK]
+            m = np.zeros((len(piece), self.n), np.int64)
+            m[np.arange(len(piece)), piece] = 1
+            out[:, r0 : r0 + len(piece)] = self.plain_mult_forms(m)
+        return out
+
     # ------------------------------------------- vector/matrix constructors
     @staticmethod
     def _scaled_ints(values, scale: float) -> np.ndarray:
-        v = np.asarray(values, dtype=np.float64)
-        return np.array([int(x) for x in np.round(v * scale)], dtype=object)
+        """round(values * scale) (half to even) as Python ints; through
+        int64 where every value fits, the same integers without a Python
+        call per element (the 5488 x 16268 weights of CIFAR)."""
+        r = np.round(np.asarray(values, dtype=np.float64) * scale)
+        if np.all(np.abs(r) < 2.0**62):
+            return r.astype(np.int64).astype(object)
+        return np.array([int(x) for x in r], dtype=object)
 
     def get_plain_vector(self, values, fmt: str = "dense", scale: float = 1.0):
         from .vector import HEVector

@@ -1,19 +1,27 @@
 """HEMatrix: a list of uniform HEVectors, columns or rows (port of
-`cryptonets_tpu/api/matrix.py`, the operations the LoLa, LoLaPacked,
-LoLaLarge, CryptoNets, LoLaSmall and Caltech-101 paths use).
+`cryptonets_tpu/api/matrix.py`; `add` and `set_column` are not ported).
 
-`mul` is the row-major matvec of a plain matrix with an encrypted dense
-vector: one plaintext multiply per row, then SumAllSlots over every row
-at once (`_sum_slots_data`), which leaves row r's dot product in every
-slot of ciphertext r (a sparse vector).  The column-major matvec, the
-encrypted-matrix branches and the forced dense output are not ported."""
+`mul` takes every branch of the reference:
+  * row-major by a dense vector (an encrypted or a plain matrix by an
+    encrypted or a plain vector, not both plain): one multiply per row,
+    then SumAllSlots over the rows at once (`_sum_slots_data`), which
+    leaves row r's dot product in every slot of ciphertext r (a sparse
+    vector); with `force_dense` each row's sum is multiplied by the unit
+    mask of flat slot r and the rows are added into one dense ciphertext;
+  * column-major by a sparse vector: sum_j col_j * v_j, a dense vector
+    (an encrypted matrix by an encrypted vector with one relinearisation
+    after the sum, an encrypted matrix by plain scalars, a plain matrix by
+    an encrypted vector).
+The rows (columns) run in pieces of about DOT_CHUNK_BYTES of products,
+whose sums add up piece by piece: a modular sum is exact in any order, so
+the result is bit-equal to the reference's one stack of every row."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..crypto.modular import add_mod, mod_sum
+from ..crypto.modular import add_mod, mod_sum, mul_const_mod
 from .vector import DENSE, SPARSE, HEVector
 
 # Columns per piece of the batched ciphertext multiply.  The BEHZ multiply
@@ -21,9 +29,32 @@ from .vector import DENSE, SPARSE, HEVector
 # the q and Bsk bases at once; the Python loop keeps one piece's alive at
 # a time.  Tests lower it to run several pieces and a remainder.
 MULT_CHUNK = 64
+# Bytes of ciphertext products a piece of the matvecs holds (rows of the
+# row-major matvec, columns of the column-major one): a piece's key
+# switches widen it about thirty-fold in int64 temporaries.  Tests lower
+# it to run several pieces and a remainder.
+DOT_CHUNK_BYTES = 1 << 28
 
 COLUMN_MAJOR = "col"
 ROW_MAJOR = "row"
+
+
+def _scalar_residue_table(factory, values) -> torch.Tensor:
+    """Integer scalars -> their residues [V, k, 1] on every limb, on the
+    factory's device.  An integer acts alike on every plain prime's
+    pipeline (the ciphertext ring is mod q; decrypt reduces mod t), so the
+    table is shared over the P axis.  The reference's Shoup companions
+    have no use here: `mul_const_mod` multiplies exactly in int64."""
+    qs = factory.coeff_modulus
+    w = np.array([[int(v) % q for q in qs] for v in values], np.int64)
+    return torch.from_numpy(w.reshape(len(values), len(qs), 1)).to(factory.device)
+
+
+def _pieces(count: int, item_bytes: int):
+    """(start, stop) pieces of `count` items of `item_bytes` each, about
+    DOT_CHUNK_BYTES a piece and at least one item."""
+    step = max(1, DOT_CHUNK_BYTES // item_bytes)
+    return [(i, min(i + step, count)) for i in range(0, count, step)]
 
 
 def _sum_slots_data(factory, d, length=None):
@@ -64,6 +95,7 @@ class HEMatrix:
         self.vectors = list(vectors)
         self.fmt = fmt
         self._mult_forms = None
+        self._unit_masks = None
 
     @property
     def column_count(self) -> int:
@@ -106,33 +138,137 @@ class HEMatrix:
 
     def _stacked_mult_forms(self) -> torch.Tensor:
         """[P, V, C, k, N] plaintext multipliers of a plain matrix, made
-        at first use and kept."""
+        at first use and kept: dense vectors whose values fit int64 in one
+        batched encode (`plain_mult_forms`), else vector by vector."""
+        if self._mult_forms is None:
+            self._mult_forms = self._batched_mult_forms()
         if self._mult_forms is None:
             self._mult_forms = torch.stack(
                 [v.mult_form() for v in self.vectors], dim=1)
         return self._mult_forms
 
+    def _batched_mult_forms(self):
+        f, V = self.factory, len(self.vectors)
+        C = self.vectors[0].num_blocks
+        if any(v.fmt != DENSE or v.num_blocks != C for v in self.vectors):
+            return None
+        rows = np.zeros((V, C * f.n), np.int64)
+        try:
+            for i, v in enumerate(self.vectors):
+                rows[i, : v.dim] = v.values[: v.dim]
+        except OverflowError:
+            return None
+        forms = f.plain_mult_forms(rows.reshape(V * C, f.n))
+        return forms.view(f.P, V, C, *forms.shape[2:])
+
+    def _stacked_unit_masks(self) -> torch.Tensor:
+        """[P, R, k, N] the unit masks of flat slots 0..R-1 that force the
+        rows of a row-major matvec, made at first use and kept."""
+        if self._unit_masks is None:
+            self._unit_masks = self.factory.unit_mask_forms(
+                range(len(self.vectors)))
+        return self._unit_masks
+
+    def prepare_mul(self, force_dense: bool = False) -> None:
+        """Make the plaintext forms a `mul` reads (a plain matrix's
+        multipliers, the forcing masks) now, not at the first call."""
+        if not self.is_encrypted:
+            self._stacked_mult_forms()
+        if force_dense and self.fmt == ROW_MAJOR:
+            self._stacked_unit_masks()
+
     def mul(self, v: HEVector, force_dense: bool = False) -> HEVector:
-        """Row-major plain matrix times encrypted dense vector -> sparse
-        vector of the per-row dot products."""
-        if self.fmt != ROW_MAJOR or self.is_encrypted or not v.is_encrypted:
-            raise NotImplementedError(
-                "only the row-major matvec of a plain matrix with an "
-                "encrypted vector is ported")
-        if force_dense:
-            raise NotImplementedError("the forced dense output is not ported")
+        """Row-major: the per-row dot products with a dense vector, a
+        sparse vector, or with `force_dense` one dense vector holding row
+        r's in flat slot r.  Column-major: sum_j col_j * v_j with a sparse
+        v, a dense vector."""
+        if not (self.is_encrypted or v.is_encrypted):
+            raise ValueError("plain x plain matvec belongs to the Raw backend")
+        if self.fmt == COLUMN_MAJOR:
+            return self._mul_column_major(v)
+        return self._mul_row_major(v, force_dense)
+
+    def _mul_column_major(self, v: HEVector) -> HEVector:
+        V = len(self.vectors)
+        if v.fmt != SPARSE or v.dim != V:
+            raise ValueError(
+                f"column-major matvec needs a sparse vector of dim {V}: "
+                f"{v.fmt}, {v.dim}")
+        f = self.factory
+        bfv0 = f.bfv[0]
+        q = bfv0.p.chain_q.q
+        col0 = self.vectors[0]
+        k, N = len(f.coeff_modulus), f.n
+        acc = None
+        for c0, c1 in _pieces(V, f.P * col0.num_blocks * 3 * k * N * 4):
+            if self.is_encrypted:
+                A = torch.stack([c.data for c in self.vectors[c0:c1]], dim=1)
+            if self.is_encrypted and v.is_encrypted:
+                B = v.data[:, c0:c1, None]                # [P, c, 1, 2, k, N]
+                prod = torch.stack([bfv.multiply(A[pi], B[pi])
+                                    for pi, bfv in enumerate(f.bfv)])
+                part = mod_sum(prod, q, dim=1)            # [P, C, 3, k, N]
+            elif self.is_encrypted:
+                # a sparse plain vector holds one constant a ciphertext: its
+                # residues multiply directly, no encoded plaintexts
+                w = _scalar_residue_table(f, v.values[c0:c1])   # [c, k, 1]
+                part = mod_sum(mul_const_mod(A, w[None, :, None, None], q),
+                               q, dim=1)
+            else:
+                W = self._stacked_mult_forms()[:, c0:c1, :, None]
+                # summed in the NTT domain, one inverse NTT at the end
+                part = mod_sum(bfv0.p.chain_q.mont_mul(
+                    bfv0.p.ntt_q.forward(v.data[:, c0:c1, None]), W), q, dim=1)
+            acc = part if acc is None else add_mod(acc, part, q)
+        if self.is_encrypted and v.is_encrypted:
+            acc = bfv0.relinearize(acc, f.keys)
+        elif not self.is_encrypted:
+            acc = bfv0.p.ntt_q.inverse(acc)
+        return HEVector(f, data=acc, dim=col0.dim, scale=col0.scale * v.scale,
+                        fmt=DENSE, is_signed=col0.is_signed)
+
+    def _mul_row_major(self, v: HEVector, force_dense: bool) -> HEVector:
+        R = len(self.vectors)
         row0 = self.vectors[0]
         if v.fmt != DENSE or v.dim != row0.dim:
             raise ValueError(
                 f"row-major matvec needs a dense vector of dim {row0.dim}: "
                 f"{v.fmt}, {v.dim}")
         f = self.factory
-        W = self._stacked_mult_forms()[:, :, :, None]     # [P, R, C, 1, k, N]
-        prod = f.bfv[0].mul_plain(v.data[:, None], W)     # [P, R, C, 2, k, N]
-        sums = _sum_slots_data(f, prod)                   # [P, R, 1, 2, k, N]
-        return HEVector(
-            f, data=sums[:, :, 0], dim=len(self.vectors),
-            scale=row0.scale * v.scale, fmt=SPARSE, is_signed=row0.is_signed)
+        bfv0 = f.bfv[0]
+        chain, ntt = bfv0.p.chain_q, bfv0.p.ntt_q
+        q = chain.q
+        k, N = len(f.coeff_modulus), f.n
+        masks = self._stacked_unit_masks() if force_dense else None
+        parts, acc = [], None
+        for r0, r1 in _pieces(R, f.P * v.num_blocks * 3 * k * N * 4):
+            if self.is_encrypted:
+                A = torch.stack([r.data for r in self.vectors[r0:r1]], dim=1)
+            if self.is_encrypted and v.is_encrypted:
+                prod = torch.stack([
+                    bfv.relinearize(bfv.multiply(A[pi], v.data[pi, None]), f.keys)
+                    for pi, bfv in enumerate(f.bfv)])     # [P, r, C, 2, k, N]
+            elif self.is_encrypted:
+                prod = bfv0.mul_plain(A, v.mult_form()[:, None, :, None])
+            else:
+                W = self._stacked_mult_forms()[:, r0:r1, :, None]
+                prod = bfv0.mul_plain(v.data[:, None], W)
+            sums = _sum_slots_data(f, prod)                # [P, r, 1, s, k, N]
+            if not force_dense:
+                parts.append(sums[:, :, 0])
+                continue
+            # row r's sum times the unit mask of slot r, the rows added in
+            # the NTT domain: one inverse NTT at the end
+            m = masks[:, r0:r1, None, None]                # [P, r, 1, 1, k, N]
+            part = mod_sum(chain.mont_mul(ntt.forward(sums), m), q, dim=1)
+            acc = part if acc is None else add_mod(acc, part, q)
+        scale = row0.scale * v.scale
+        if not force_dense:
+            data = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            return HEVector(f, data=data, dim=R, scale=scale, fmt=SPARSE,
+                            is_signed=row0.is_signed)
+        return HEVector(f, data=ntt.inverse(acc), dim=R, scale=scale,
+                        fmt=DENSE, is_signed=row0.is_signed)
 
     def elementwise_multiply(self, other: "HEMatrix") -> "HEMatrix":
         if self.fmt != other.fmt or len(self.vectors) != len(other.vectors):

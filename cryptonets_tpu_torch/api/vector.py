@@ -1,6 +1,7 @@
 """HEVector: the scale-tracked ciphertext vector (port of
-`cryptonets_tpu/api/vector.py`, the operations the ported networks use;
-`subtract` and plain-vector rotation are not ported).
+`cryptonets_tpu/api/vector.py`, the operations the ported networks use
+and the forced output column of a slot sum; `subtract` and plain-vector
+rotation are not ported).
 
 Layout: `data` is int32 [P, C, size, k, N] — P plain-CRT primes, C blocks.
   * dense:  C = ceil(dim/n) blocks; flat slot order (slots [0, n/2) =
@@ -152,23 +153,33 @@ class HEVector:
         return self._clone_meta(data=self._rot_rows(amount))
 
     # ----------------------------------------------------------- slot sums
-    def sum_all_slots(self, length: int | None = None) -> "HEVector":
+    def sum_all_slots(self, length: int | None = None,
+                      force_output_in_column: int | None = None) -> "HEVector":
         """Right-rotate-and-add tree: out[i] = sum_{j < length} in[i - j].
         A complete sum (length None or >= n/2) starts with a column swap
         and leaves the total in every slot: a sparse vector of dim 1.
-        Forcing the total into one column is not ported."""
+        `force_output_in_column` keeps the total in that flat slot alone
+        (a unit-mask multiply): a dense vector of the input's dim; it
+        needs a complete sum."""
         from .matrix import _sum_slots_data
 
         if self.fmt != DENSE or not self.is_encrypted:
             raise ValueError("sum_all_slots takes an encrypted dense vector")
         full = length is None or length >= self.factory.n // 2
+        if force_output_in_column is not None and not full:
+            raise ValueError("forcing the output column needs a complete sum")
         acc = _sum_slots_data(self.factory, self.data, length)
+        if force_output_in_column is not None:
+            mask = self.factory.unit_mask_form(force_output_in_column)
+            acc = self.factory.bfv[0].mul_plain(acc, mask[:, :, None])
+            return self._clone_meta(data=acc, fmt=DENSE)
         return self._clone_meta(data=acc, dim=1 if full else self.dim,
                                 fmt=SPARSE if full else DENSE)
 
-    def dot_product(self, other: "HEVector",
-                    length: int | None = None) -> "HEVector":
-        return self.pointwise_multiply(other).sum_all_slots(length)
+    def dot_product(self, other: "HEVector", length: int | None = None,
+                    force_output_in_column: int | None = None) -> "HEVector":
+        return self.pointwise_multiply(other).sum_all_slots(
+            length, force_output_in_column)
 
     # ------------------------------------------------------------ duplicate
     def duplicate(self, count: int) -> "HEVector":

@@ -2,10 +2,13 @@
 CryptoNets.cs`), port of `cryptonets_tpu/models/cryptonets_mnist.py`:
 8192 images per ciphertext batch through Conv(5 maps 5x5 s2) -> Square ->
 Dense(100) -> Square -> Dense(10), over the `cryptonets` preset (three
-~30-bit plain primes, digit key switching at dbc=16).
+~30-bit plain primes, digit key switching at dbc=16) or `cryptonets_bigt`
+(the reference's two ~39-bit primes: host encode, two-plane decrypt),
+under either NTT of the ciphertext chain.
 
 CLI: python -m cryptonets_tpu_torch.models.cryptonets_mnist [--batch 8192]
-     [--records N] [--data FILE] [--device cuda|cpu]
+     [--records N] [--data FILE] [--preset cryptonets|cryptonets_bigt]
+     [--ntt butterfly|matmul] [--device cuda|cpu]
 It runs on the card unless `--device cpu` is given.  At full width the
 encrypted batch holds gigabytes of ciphertext: run it on a GPU only.
 """
@@ -27,12 +30,14 @@ from .presets import make_factory
 
 def build(encrypt: bool = True, batch_size: int = 8192, records=None,
           file_name=None, seed: int = 0, preset: str = "cryptonets",
-          device=None, weights: dict | None = None, keys=None):
+          device=None, weights: dict | None = None, keys=None,
+          ntt_impl: str | None = None):
     """(head, factory, reader) of CryptoNets.  encrypt=False builds the
     Raw oracle.  `weights` defaults to the real `cryptonets.npz`; `keys`
-    imports a key set instead of keygen."""
+    imports a key set instead of keygen (made under the same
+    `ntt_impl`)."""
     factory = make_factory(
-        preset, encrypt, seed, device=device,
+        preset, encrypt, seed, device=device, ntt_impl=ntt_impl,
         **({"keys": keys} if encrypt and keys is not None else {}),
     )
     W = weights if weights is not None else load_cryptonets_weights()
@@ -69,14 +74,15 @@ def build(encrypt: bool = True, batch_size: int = 8192, records=None,
 
 
 def evaluate(encrypt=True, batch_size=8192, n_batches=1, records=None,
-             file_name=None, seed=0, device=None):
+             file_name=None, seed=0, device=None, preset="cryptonets",
+             ntt_impl=None):
     """Run `n_batches` batches and count the prediction errors against
     the records' labels."""
     if records is None and file_name is None:
         records = synthetic_mnist_records(batch_size * n_batches, seed=2)
     head, factory, reader = build(
         encrypt, batch_size, records=records, file_name=file_name, seed=seed,
-        device=device)
+        device=device, preset=preset, ntt_impl=ntt_impl)
     head.prepare_network()
     run = EncryptedForward(head) if encrypt else None
     errs = count = last = 0
@@ -111,6 +117,10 @@ def main():
     ap.add_argument("--records", type=int, default=None)
     ap.add_argument("--data", default=None)
     ap.add_argument("--no-encrypt", action="store_true")
+    ap.add_argument("--preset", default="cryptonets",
+                    choices=("cryptonets", "cryptonets_bigt"))
+    ap.add_argument("--ntt", default=None, choices=("butterfly", "matmul"),
+                    help="NTT of the ciphertext chain (default butterfly)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a GPU) or cpu")
     args = ap.parse_args()
@@ -120,6 +130,7 @@ def main():
     res = evaluate(
         encrypt=not args.no_encrypt, batch_size=args.batch,
         n_batches=n_batches, file_name=args.data, device=args.device,
+        preset=args.preset, ntt_impl=args.ntt,
     )
     if res["batch_times"]:
         print(f"batch size {args.batch}: {res['batch_times'][-1]:0.2f}s/batch, "

@@ -5,12 +5,15 @@ conv (83 maps, one exact contraction) -> Vectorize (83 pieces at stride
 dense 5488 x 16268 layer through BSGS (F = 2, chained babies) -> Square ->
 Dense(10) over the 5488 outputs (per-row dots), over the `cifar` preset
 (n = 16384, thirteen data limbs, one special prime, three ~30-bit plain
-primes).  The upstream weight blob (CifarWeight.csv) is missing: the
+primes).  Under `cifar_bigt` (the reference's two plain primes near
+2**40, encoded on the host) the conv-as-dense runs as 5488 per-row dots
+with a forced dense output instead of BSGS.  The upstream weight blob (CifarWeight.csv) is missing: the
 weights are the reference's seeded stand-ins unless two CSV files are
 given.
 
 CLI: python -m cryptonets_tpu_torch.models.lola_cifar [-e] [--records K]
-     [--data FILE] [--weights-csv W --bias-csv B] [--device cpu]
+     [--preset cifar|cifar_bigt] [--data FILE] [--weights-csv W
+     --bias-csv B] [--device cpu]
 It runs on the card unless `--device cpu` is given; run the encrypted
 network on a GPU only.
 """
@@ -55,18 +58,19 @@ def cifar_weights(weights_csv=None, bias_csv=None):
 
 def build(encrypt: bool = True, records=None, file_name=None, seed: int = 0,
           weights_csv=None, bias_csv=None, device=None, keys=None,
-          ntt_impl: str | None = None):
-    """(head, factory, reader) of LoLa-CIFAR.  The factory carries a
-    single-hop Galois key for -196 (14 x 14 windows a conv map), so the
-    83-piece Vectorize runs its uniform runs as Horner loops."""
+          ntt_impl: str | None = None, preset: str = "cifar"):
+    """(head, factory, reader) of LoLa-CIFAR over `preset` ("cifar" or
+    "cifar_bigt").  The factory carries a single-hop Galois key for -196
+    (14 x 14 windows a conv map), so the 83-piece Vectorize runs its
+    uniform runs as Horner loops."""
     factory = make_factory(
-        "cifar", encrypt, seed, device=device, ntt_impl=ntt_impl,
+        preset, encrypt, seed, device=device, ntt_impl=ntt_impl,
         rot_steps=(-196,),
         **({"keys": keys} if encrypt and keys is not None else {}),
     )
     w0, b0, w1, b1, w2, b2 = cifar_weights(weights_csv, bias_csv)
     reader = LLConvReader(
-        make_factory("cifar", False), file_name=file_name, sparse_format=False,
+        make_factory(preset, False), file_name=file_name, sparse_format=False,
         normalization_factor=1.0 / 256.0, scale=8.0, **GEOMETRY,
     )
     if records is not None:
@@ -93,14 +97,16 @@ def build(encrypt: bool = True, records=None, file_name=None, seed: int = 0,
 
 
 def evaluate(encrypt=True, n_records=1, records=None, file_name=None,
-             seed=0, device=None, weights_csv=None, bias_csv=None):
+             seed=0, device=None, weights_csv=None, bias_csv=None,
+             preset="cifar"):
     """Run records through the network; report the latency of each
     prediction and the errors against the reader's labels."""
     if records is None and file_name is None:
         records = synthetic_cifar_records(n_records, seed=4)
     head, factory, reader = build(
         encrypt, records=records, file_name=file_name, seed=seed,
-        weights_csv=weights_csv, bias_csv=bias_csv, device=device)
+        weights_csv=weights_csv, bias_csv=bias_csv, device=device,
+        preset=preset)
     head.prepare_network()
     run = EncryptedForward(head) if encrypt else None
     errs = 0
@@ -125,6 +131,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-e", "--encrypt", action="store_true")
     ap.add_argument("--records", type=int, default=1)
+    ap.add_argument("--preset", default="cifar", choices=("cifar", "cifar_bigt"))
     ap.add_argument("--data", default=None, help="dense CSV/TSV test file")
     ap.add_argument("--weights-csv", default=None)
     ap.add_argument("--bias-csv", default=None)
@@ -133,7 +140,8 @@ def main():
     args = ap.parse_args()
     evaluate(encrypt=args.encrypt, n_records=args.records,
              file_name=args.data, device=args.device,
-             weights_csv=args.weights_csv, bias_csv=args.bias_csv)
+             weights_csv=args.weights_csv, bias_csv=args.bias_csv,
+             preset=args.preset)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,9 @@ dbc=8) with the default power-of-two Galois keys.
 Square -> conv-as-dense(2608, BSGS with chained babies) -> Square ->
 Dense(10, per-row dots) over the `lola_large` preset (eleven data limbs,
 three special primes).  Seeded synthetic weights unless CSVs are given.
+Under `lola_large_bigt` (the reference's three plain primes just above
+2**31, encoded on the host) the conv-as-dense runs as 2608 per-row dots
+with a forced dense output instead of BSGS.
 
 `build_lola_dense` ("LoLaDense", `LoLaCryptonets.cs:118-201`), n = 16384:
 the server-side im2col variant: the dense image (one ciphertext) ->
@@ -36,7 +39,8 @@ under either NTT.
 
 CLI: python -m cryptonets_tpu_torch.models.lola_mnist
      -n LoLa|LoLaPacked|LoLaSmall|LoLaLarge|LoLaDense [-e]
-     [--ntt butterfly|matmul] [--records K] [--data FILE] [--device cpu]
+     [--ntt butterfly|matmul] [--preset lola_large|lola_large_bigt]
+     [--records K] [--data FILE] [--device cpu]
 It runs on the card unless `--device cpu` is given; run a full-width
 encrypted network on a GPU only.
 """
@@ -279,12 +283,13 @@ def lola_large_weights(weights_csv=None, bias_csv=None):
 def build_lola_large(encrypt: bool, records=None, file_name=None,
                      seed: int = 0, device=None, keys=None,
                      ntt_impl: str | None = None, weights_csv=None,
-                     bias_csv=None):
-    """(head, factory, reader) of LoLaLarge.  The factory carries a
-    single-hop Galois key for -144, so the 83-piece Vectorize runs its
-    uniform runs as Horner loops."""
+                     bias_csv=None, preset: str = "lola_large"):
+    """(head, factory, reader) of LoLaLarge over `preset` ("lola_large" or
+    "lola_large_bigt").  The factory carries a single-hop Galois key for
+    -144, so the 83-piece Vectorize runs its uniform runs as Horner
+    loops."""
     factory = make_factory(
-        "lola_large", encrypt, seed, device=device, ntt_impl=ntt_impl,
+        preset, encrypt, seed, device=device, ntt_impl=ntt_impl,
         rot_steps=(-144,),
         **({"keys": keys} if encrypt and keys is not None else {}),
     )
@@ -293,7 +298,7 @@ def build_lola_large(encrypt: bool, records=None, file_name=None,
                upper_padding=[0, 1, 1], lower_padding=[0, 1, 1],
                stride=[1000, 2, 2])
     reader = LLConvReader(
-        make_factory("lola_large", False), file_name=file_name,
+        make_factory(preset, False), file_name=file_name,
         normalization_factor=1.0, scale=16.0, **geo,
     )
     if records is not None:
@@ -328,14 +333,16 @@ BUILDERS = {
 
 
 def evaluate(build, encrypt=True, n_records=10, records=None,
-             file_name=None, seed=0, device=None, ntt_impl=None):
+             file_name=None, seed=0, device=None, ntt_impl=None, preset=None):
     """Run records through the network; report the latency of each
-    prediction and the errors against the reader's labels."""
+    prediction and the errors against the reader's labels.  `preset`,
+    when given, goes to a builder that takes one (LoLaLarge)."""
     if records is None and file_name is None:
         records = synthetic_mnist_records(n_records, seed=1)
     head, factory, reader = build(
         encrypt, records=records, file_name=file_name, seed=seed,
-        device=device, ntt_impl=ntt_impl)
+        device=device, ntt_impl=ntt_impl,
+        **({} if preset is None else {"preset": preset}))
     head.prepare_network()
     run = EncryptedForward(head) if encrypt else None
     errs = 0
@@ -368,12 +375,16 @@ def main():
     ap.add_argument("--data", default=None, help="TSV test file")
     ap.add_argument("--ntt", default=None, choices=("butterfly", "matmul"),
                     help="NTT of the ciphertext chain (default butterfly)")
+    ap.add_argument("--preset", default=None,
+                    choices=("lola_large", "lola_large_bigt"),
+                    help="LoLaLarge's preset (default lola_large)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a GPU) or cpu")
     args = ap.parse_args()
     res = evaluate(
         BUILDERS[args.network], encrypt=args.encrypt, n_records=args.records,
-        file_name=args.data, device=args.device, ntt_impl=args.ntt)
+        file_name=args.data, device=args.device, ntt_impl=args.ntt,
+        preset=args.preset)
     if res["count"]:
         print(f"done: {res['count']} records, steady-state latency "
               f"{res['steady_latency']:.3f}s")

@@ -1,6 +1,6 @@
 """Parameter presets of the port.
 
-The port's copy of five entries of `cryptonets_tpu/models/presets.py`.
+The port's copy of ten entries of `cryptonets_tpu/models/presets.py`.
 The reference truncates SEAL's CoeffModulus128(n) chain with
 SmallModulusCount; the chains here have 31-bit limbs, so a preset matches
 the TOTAL bit width of the truncated SEAL chain (`coeff_count_for`): the
@@ -31,11 +31,17 @@ same security and noise capacity over more limbs.
     primes.
   * `cryptonets_bigt` (`CryptoNets.cs:17`): the reference's two ~39-bit
     plain primes at n = 8192 over the full chain.
-The last two have plain primes of 2**31 and above: their factories
-encode on the host and decrypt through the two-plane form.  Data plus
+  * `lola_large_bigt` (`LoLaCryptonets.cs:341`): `lola_large`'s ring with
+    the reference's three plain primes just above 2**31.
+  * `cifar_bigt` (`LolaCifarCryptoNet.cs:35`): `cifar`'s ring with the
+    reference's two plain primes near 2**40.
+The last four have plain primes of 2**31 and above: their factories
+encode on the host and decrypt through the two-plane form, and their
+conv-as-dense layers take per-row dots with a forced dense output (BSGS
+needs the device encode).  Data plus
 special limbs stay within the ring degree's 128-bit budget (checked
 below).  A preset names no NTT: `make_factory` passes the caller's
-`ntt_impl` through.  `lola_large_bigt` and `cifar_bigt` are not ported.
+`ntt_impl` through.
 """
 
 from __future__ import annotations
@@ -93,6 +99,14 @@ CONFIGS = {
     ),
     "cryptonets_bigt": dict(
         plain_primes=(549764251649, 549764284417), n=8192,
+    ),
+    "lola_large_bigt": dict(
+        plain_primes=(2148728833, 2148794369, 2149810177), n=16384,
+        coeff_count=coeff_count_for(16384, 7), n_special=3,
+    ),
+    "cifar_bigt": dict(
+        plain_primes=(957181001729, 957181034497), n=16384,
+        coeff_count=coeff_count_for(16384, 8), n_special=1,
     ),
 }
 

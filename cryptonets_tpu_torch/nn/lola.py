@@ -323,14 +323,16 @@ class LLInterleavedDenseLayer(Layer):
 
 
 class LLDenseLayer(Layer):
-    """Fully connected layer over a dense input vector.  Encrypted it runs
-    either as per-row dot products (a row-major plain matrix, SumAllSlots
-    ladders, one output ciphertext per row: a sparse vector), or, with
-    force_dense_format, as the hoisted BSGS diagonal matvec (`api/bsgs.py`)
-    with the outputs packed into one dense vector.  `use_bsgs` None takes
-    BSGS from 128 outputs up, True forces it, False forces per-row dots;
-    `bsgs_g` is the baby count (None: `api/bsgs.py` `_choose_g`).  On the Raw backend it is a matrix
-    product."""
+    """Fully connected layer.  Encrypted, over a dense input it runs as
+    per-row dot products (a row-major plain matrix, SumAllSlots ladders,
+    one output ciphertext per row: a sparse vector; with
+    force_dense_format each row's sum masked into flat slot r of one dense
+    vector) or, with force_dense_format on a factory that encodes on the
+    device, as the BSGS diagonal matvec (`api/bsgs.py`); over a sparse
+    input as a column-major matvec (a dense vector).  `use_bsgs` None
+    takes BSGS from 128 outputs up, True forces it, False forces per-row
+    dots; `bsgs_g` is the baby count (None: `api/bsgs.py` `_choose_g`).
+    On the Raw backend it is a matrix product."""
 
     def __init__(self, source, weights, bias, weights_scale: float = 1.0,
                  input_format: str = "dense", force_dense_format: bool = False,
@@ -364,18 +366,12 @@ class LLDenseLayer(Layer):
         dense_out = self.force_dense_format or self.input_format != "dense"
         self.bias_vector = self.factory.get_plain_vector(
             self.bias, "dense" if dense_out else "sparse", bias_scale)
-        if not self.factory.is_encrypted:
-            self.weights_matrix = self.factory.get_plain_matrix(
-                wmat, "row" if self.input_format == "dense" else "col",
-                self.weights_scale)
-            return
-        if self.input_format != "dense":
-            raise NotImplementedError(
-                "the column-major dense layer (sparse input) is not ported")
+        fmt = "row" if self.input_format == "dense" else "col"
         want_bsgs = self.use_bsgs if self.use_bsgs is not None else maps >= 128
         # BSGS encodes its diagonals on the device: a factory that encodes
         # on the host (plain primes of 2**31 and above) takes per-row dots
-        if (self.force_dense_format and want_bsgs
+        if (self.factory.is_encrypted and fmt == "row"
+                and self.force_dense_format and want_bsgs
                 and maps <= self.factory.n and wmat.shape[1] <= self.factory.n
                 and getattr(self.factory, "_device_encode", False)):
             from ..api.bsgs import BsgsDenseForm
@@ -385,11 +381,11 @@ class LLDenseLayer(Layer):
             self.bsgs_form = BsgsDenseForm(
                 self.factory, w_int, maps, wmat.shape[1], g=self.bsgs_g)
             return
-        if self.force_dense_format:
-            raise NotImplementedError(
-                "forced dense output of the per-row dense layer is not ported")
         self.weights_matrix = self.factory.get_plain_matrix(
-            wmat, "row", self.weights_scale)
+            wmat, fmt, self.weights_scale)
+        if self.factory.is_encrypted:
+            # the multipliers and the forcing masks once a layer
+            self.weights_matrix.prepare_mul(self.force_dense_format)
 
     def apply(self, m):
         if m.column_count != 1:

@@ -5,8 +5,8 @@
 // cover moduli < 2^31; plain moduli however reach ~40 bits (LoLaDense's
 // 34359771137, CryptoNets' 549764251649), whose slot NTT needs
 // 64x64->128-bit products: exactly what this file provides through
-// unsigned __int128.  The same source as `cryptonets_tpu/runtime/
-// hostcrypto.cpp`.
+// unsigned __int128.  The NTTs are those of `cryptonets_tpu/runtime/
+// hostcrypto.cpp`; the `_rows` entry points run one over many rows.
 //
 // Built at first use by `hostcrypto.py` (c++ -O3 -shared -fPIC); a failed
 // build raises, nothing falls back to object integers.
@@ -65,6 +65,19 @@ void ntt_inverse_u64(uint64_t* x, const uint64_t* itw, uint64_t n_inv,
         half <<= 1;
     }
     for (long j = 0; j < n; ++j) x[j] = mulmod(x[j], n_inv, t);
+}
+
+// The same transforms over `rows` consecutive rows of x [rows][n]: one
+// call for a piece of rows (the binding runs pieces in threads).
+void ntt_forward_rows_u64(uint64_t* x, long rows, const uint64_t* tw,
+                          uint64_t t, int logn) {
+    for (long r = 0; r < rows; ++r) ntt_forward_u64(x + (r << logn), tw, t, logn);
+}
+
+void ntt_inverse_rows_u64(uint64_t* x, long rows, const uint64_t* itw,
+                          uint64_t n_inv, uint64_t t, int logn) {
+    for (long r = 0; r < rows; ++r)
+        ntt_inverse_u64(x + (r << logn), itw, n_inv, t, logn);
 }
 
 // Residue reduction helper: values[n] mod each of k moduli -> out[k][n]

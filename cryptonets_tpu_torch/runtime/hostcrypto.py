@@ -1,7 +1,9 @@
 """ctypes binding of the host runtime (`hostcrypto.cpp`): the exact
 negacyclic NTT over Z_t for plain moduli 2**31 <= t < 2**63, whose
 products need 128 bits.  It carries the slot encode and decode of a
-factory whose plain primes do not fit the device NTT.
+factory whose plain primes do not fit the device NTT.  A call over many
+rows splits them into contiguous pieces, one C call a piece, run in
+threads (ctypes releases the GIL during a foreign call).
 
 The library is compiled with `c++` at first use, from `hostcrypto.cpp`
 only, into `_build/` beside it, named by a hash of the compiler command
@@ -19,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +29,9 @@ import numpy as np
 SRC = Path(__file__).with_name("hostcrypto.cpp")
 BUILD_DIR = Path(__file__).with_name("_build")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+# Coefficients a thread takes at least: below it one thread runs all rows
+# (a row of 16384 takes 1-2 ms, so a piece of 16 rows takes 16-32 ms)
+THREAD_COEFFS = 1 << 18
 
 _lib = None
 
@@ -64,12 +70,14 @@ def get_lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         u64p = ctypes.POINTER(ctypes.c_uint64)
         u32p = ctypes.POINTER(ctypes.c_uint32)
-        lib.ntt_forward_u64.argtypes = [u64p, u64p, ctypes.c_uint64, ctypes.c_int]
-        lib.ntt_inverse_u64.argtypes = [
-            u64p, u64p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int]
+        lib.ntt_forward_rows_u64.argtypes = [
+            u64p, ctypes.c_long, u64p, ctypes.c_uint64, ctypes.c_int]
+        lib.ntt_inverse_rows_u64.argtypes = [
+            u64p, ctypes.c_long, u64p, ctypes.c_uint64, ctypes.c_uint64,
+            ctypes.c_int]
         lib.reduce_residues_u64.argtypes = [
             u64p, ctypes.c_long, u32p, ctypes.c_long, u32p]
-        for fn in (lib.ntt_forward_u64, lib.ntt_inverse_u64,
+        for fn in (lib.ntt_forward_rows_u64, lib.ntt_inverse_rows_u64,
                    lib.reduce_residues_u64):
             fn.restype = None
         _lib = lib
@@ -92,13 +100,28 @@ def _rows(x: np.ndarray, table: np.ndarray, t: int):
     return buf, buf.reshape(-1, n), n.bit_length() - 1, table
 
 
+def _over_pieces(call, rows: np.ndarray) -> None:
+    """call(pointer, count) over contiguous pieces of rows [R, n]: one
+    piece, or one a thread when the rows hold THREAD_COEFFS coefficients a
+    thread or more."""
+    R = rows.shape[0]
+    workers = min(os.cpu_count() or 1, rows.size // THREAD_COEFFS, R)
+    if workers <= 1:
+        call(_u64p(rows), R)
+        return
+    cuts = np.linspace(0, R, workers + 1).astype(int)
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(lambda ab: call(_u64p(rows[ab[0]:ab[1]]), ab[1] - ab[0]),
+                      zip(cuts[:-1], cuts[1:])))
+
+
 def ntt_forward(x: np.ndarray, tw: np.ndarray, t: int) -> np.ndarray:
     """Forward negacyclic NTT mod t (t < 2**63) of every row of x [..., n]
     (values in [0, t)): standard order in, bit-reversed out, uint64."""
     lib = get_lib()
     buf, rows, logn, tw = _rows(x, tw, t)
-    for r in rows:
-        lib.ntt_forward_u64(_u64p(r), _u64p(tw), t, logn)
+    _over_pieces(lambda ptr, count: lib.ntt_forward_rows_u64(
+        ptr, count, _u64p(tw), t, logn), rows)
     return buf
 
 
@@ -107,6 +130,6 @@ def ntt_inverse(x: np.ndarray, itw: np.ndarray, n_inv: int, t: int) -> np.ndarra
     bit-reversed order in, standard out, uint64."""
     lib = get_lib()
     buf, rows, logn, itw = _rows(x, itw, t)
-    for r in rows:
-        lib.ntt_inverse_u64(_u64p(r), _u64p(itw), n_inv, t, logn)
+    _over_pieces(lambda ptr, count: lib.ntt_inverse_rows_u64(
+        ptr, count, _u64p(itw), n_inv, t, logn), rows)
     return buf

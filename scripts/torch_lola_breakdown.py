@@ -3,7 +3,7 @@
     python3 scripts/torch_lola_breakdown.py
         [--network LoLa|LoLaPacked|LoLaLarge|LoLaDense|CIFAR|CryptoNets|
                    LoLaSmall|Caltech]
-        [--ntt butterfly|matmul]
+        [--ntt butterfly|matmul] [--preset NAME]
         [--records 5] [--seed 11] [--batch 8192]
 
 Builds the full-width network on the card (LoLa: `build_lola_bsgs`, one
@@ -17,8 +17,9 @@ the two-plane device decrypt, then the host join and C++ decode, each
 timed as its own stage; CIFAR: `lola_cifar.build`, n = 16384, seeded
 stand-in weights and synthetic CIFAR records of seed 4; Caltech: `caltech101.build`, n = 4096, one feature vector per
 record, seeded synthetic parameters and records of seed 6) under the
-NTT `--ntt` names (the script refuses `--network CryptoNets --ntt
-matmul`: that builder takes the butterfly only) and pulls records
+NTT `--ntt` names and, for LoLaLarge, CIFAR and CryptoNets, the preset
+`--preset` names (`lola_large_bigt`, `cifar_bigt`, `cryptonets_bigt`:
+the reference's plain primes of 2**31 and above) and pulls records
 through the port's pipeline with a device synchronise after each stage: the reader and the
 slot buffers (both on the host), upload + encode + encrypt, each layer,
 and decrypt + decode.  Prints the median seconds and the peak device
@@ -29,7 +30,8 @@ the launches of the hand-written kernels, the device time of the
 butterfly NTT kernels, of the four-step NTT kernels and of the
 contraction, and the kernels that take
 the most device time.  Writes the same JSON to
-chiprun_out/torch_<network>[_matmul]_breakdown.json.  Fails without CUDA.
+chiprun_out/torch_<network>[_<preset>][_matmul]_breakdown.json.  Fails
+without CUDA.
 """
 
 from __future__ import annotations
@@ -122,11 +124,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=11)
     ap.add_argument("--batch", type=int, default=8192,
                     help="images per CryptoNets batch")
+    ap.add_argument("--preset", default=None,
+                    help="the preset of LoLaLarge, CIFAR or CryptoNets "
+                         "(default: the builder's own)")
     args = ap.parse_args()
-    if args.network == "CryptoNets" and args.ntt != "butterfly":
-        # cryptonets_mnist.build takes no ntt_impl: the run would measure
-        # the butterfly NTT under the other name
-        ap.error("CryptoNets runs under the butterfly NTT only")
+    if args.preset is not None and args.network not in (
+            "LoLaLarge", "CIFAR", "CryptoNets"):
+        ap.error("--preset goes with LoLaLarge, CIFAR or CryptoNets")
     if not torch.cuda.is_available():
         print("torch_lola_breakdown: CUDA is not available", file=sys.stderr)
         return 1
@@ -144,6 +148,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
+    preset = {} if args.preset is None else {"preset": args.preset}
     per_record = args.batch if args.network == "CryptoNets" else 1
     count = (args.records + 2) * per_record
     if args.network == "Caltech":
@@ -153,15 +158,16 @@ def main() -> int:
     elif args.network == "CIFAR":
         records = synthetic_cifar_records(count, seed=4)
         head, fac, _ = lola_cifar.build(True, records=records, device=dev,
-                                        ntt_impl=args.ntt)
+                                        ntt_impl=args.ntt, **preset)
     else:
         records = synthetic_mnist_records(count, seed=args.seed)
     if args.network == "CryptoNets":
         head, fac, _ = cryptonets_mnist.build(True, args.batch, records=records,
-                                              device=dev)
+                                              device=dev, ntt_impl=args.ntt,
+                                              **preset)
     elif args.network not in ("Caltech", "CIFAR"):
         head, fac, _ = BUILDERS[args.network](True, records=records, device=dev,
-                                              ntt_impl=args.ntt)
+                                              ntt_impl=args.ntt, **preset)
     head.prepare_network()
     fwd = EncryptedForward(head)
     staged_record(fwd, sync)  # warm-up: lazy forms and tables
@@ -193,6 +199,7 @@ def main() -> int:
     result = {
         "card": torch.cuda.get_device_name(0),
         "network": args.network,
+        "preset": args.preset,
         "ntt_impl": fac.ntt_impl,
         "images_per_record": per_record,
         "records": args.records,
@@ -227,7 +234,8 @@ def main() -> int:
         print(f"{k:32s} {1e3 * v:10.3f} ms   peak {peaks.get(k, 0.0):6.2f} GiB")
     print(json.dumps(result))
     os.makedirs("chiprun_out", exist_ok=True)
-    suffix = "_matmul" if fac.ntt_impl == "matmul" else ""
+    suffix = (f"_{args.preset}" if args.preset else "") + (
+        "_matmul" if fac.ntt_impl == "matmul" else "")
     name = f"torch_{args.network.lower()}{suffix}_breakdown.json"
     with open(os.path.join("chiprun_out", name), "w") as fh:
         json.dump(result, fh, indent=1)

@@ -78,11 +78,15 @@ def test_encoder_big_t_roundtrip_and_equal_reference():
         np.testing.assert_array_equal(te.index_map, je.index_map)
 
 
-def test_host_ntt_equals_object_twin():
+@pytest.mark.parametrize("thread_coeffs", [None, N])
+def test_host_ntt_equals_object_twin(thread_coeffs, monkeypatch):
     """The C++ 128-bit NTT equals the exact object-int NTT on the same
-    input, forward and inverse, one row and a batch of rows."""
+    input, forward and inverse, one row and a batch of rows; the batch in
+    one C call, or (`thread_coeffs` = N) a row a thread."""
     from cryptonets_tpu_torch.runtime import hostcrypto
 
+    if thread_coeffs is not None:
+        monkeypatch.setattr(hostcrypto, "THREAD_COEFFS", thread_coeffs)
     t = BIG_TS[1]
     enc = BatchEncoder(N, t)
     pf, pi = _host_tables(N, t)[:2]          # exact object-int tables
@@ -302,7 +306,8 @@ def test_bsgs_refuses_a_factory_that_encodes_on_the_host(big_fac):
     """The diagonals of BSGS are encoded on the device as one residue for
     every limb: a big-t factory must be refused (reference
     `api/bsgs.py:91-95`), and a force-dense LLDenseLayer on it must not
-    take BSGS (reference `nn/lola.py:484`)."""
+    take BSGS (reference `nn/lola.py:484`): it takes per-row dots with
+    the forced dense output."""
     from cryptonets_tpu_torch.api.bsgs import BsgsDenseForm
     from cryptonets_tpu_torch.nn.layers import EncryptLayer
     from cryptonets_tpu_torch.nn.lola import LLDenseLayer
@@ -319,6 +324,6 @@ def test_bsgs_refuses_a_factory_that_encodes_on_the_host(big_fac):
                          input_format="dense", force_dense_format=True,
                          use_bsgs=True)
     dense.factory = big_fac
-    with pytest.raises(NotImplementedError, match="forced dense output"):
-        dense.prepare()
-    assert dense.bsgs_form is None
+    dense.prepare()
+    assert dense.bsgs_form is None and dense.weights_matrix.fmt == "row"
+    assert dense.weights_matrix._unit_masks.shape == (2, 4, len(COEFF), N)

@@ -324,11 +324,11 @@ def test_cryptonets_preset_and_model():
     ref = dict(JCONFIGS["cryptonets"])
     ref.pop("ntt_impl")
     assert CONFIGS["cryptonets"] == {**ref, "dbc": 16, "ks_alpha": 0}
-    # the reference's big-t preset is ported (its factory encodes on the
-    # host: tests/test_torch_bigt.py); a preset still unported raises
+    # the reference's big-t presets are ported (their factories encode on
+    # the host: tests/test_torch_bigt.py); LoLaLarge's Raw factory builds
     assert CONFIGS["cryptonets_bigt"] == JCONFIGS["cryptonets_bigt"]
-    with pytest.raises(NotImplementedError):
-        make_factory("lola_large_bigt", device="cpu")
+    assert CONFIGS["lola_large_bigt"] == JCONFIGS["lola_large_bigt"]
+    assert make_factory("lola_large_bigt", False).n == 16384
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmodel.build(True, 4, records=[])

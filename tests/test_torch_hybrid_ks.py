@@ -191,9 +191,14 @@ def test_row_major_matvec_bit_equal(pair, cts):
     np.testing.assert_array_equal(to.decrypt(), rv.decrypt())
     assert list(to.decrypt_full_precision()) == list(rv.decrypt_full_precision())
     assert to.noise_budget() > 0
-    with pytest.raises(NotImplementedError, match="forced dense"):
-        tm.mul(tv, force_dense=True)
-    with pytest.raises(NotImplementedError, match="row-major"):
+    # the forced dense output (row r's sum in flat slot r) is ported:
+    # bit-equal under either NTT; a column-major matrix takes a sparse
+    # vector only
+    jo, to = jm.mul(jv, True), tm.mul(tv, force_dense=True)
+    np.testing.assert_array_equal(_np(to.data), np.asarray(jo.data))
+    assert (to.fmt, to.dim) == (jo.fmt, jo.dim) == ("dense", 6)
+    np.testing.assert_array_equal(to.decrypt(), W @ a)
+    with pytest.raises(ValueError, match="sparse vector"):
         tf.get_plain_matrix(W.T, "col", 2.0).mul(tv)
 
 

@@ -219,8 +219,10 @@ def test_presets_and_network_table_equal_reference():
                                   n_records=1)
         assert res["count"] == 1
     assert lola_cifar.evaluate(encrypt=False, n_records=1)["count"] == 1
-    with pytest.raises(NotImplementedError, match="not ported"):
-        presets.make_factory("cifar_bigt", False)
+    # the verbatim big-t preset of CIFAR is ported: equal to the
+    # reference's, its Raw factory builds
+    assert presets.CONFIGS["cifar_bigt"] == jp.CONFIGS["cifar_bigt"]
+    assert presets.make_factory("cifar_bigt", False).n == 16384
     # the Raw path of the evaluation harness (full width is cheap in Raw)
     res = lola_mnist.evaluate(lola_mnist.build_lola_small, encrypt=False,
                               n_records=2)
