@@ -60,23 +60,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      limbs and three special primes, seeded synthetic weights), one
      warm-up and one timed record; each record against the Raw oracle,
      the launches held to K1, K2 and K4 without K5, a positive final
-     budget, keygen and prepare seconds, Galois keys, peak memory; every
-     NTT launch shape of their warm-up records is recorded and K1/K2 are
-     then held bit-equal to their twins and timed at each;
+     budget, keygen and prepare seconds, Galois keys, peak memory;
   8. `cifar`: LoLa-CIFAR (n = 16384, thirteen data limbs and one special
      prime, seeded stand-in weights; K4 at [83, 192], the 5488 x 16268
      conv-as-dense through BSGS with F = 2), one warm-up and one timed
      record, and `lola_dense`: LoLaDense (n = 16384, plain primes near
      2**35: host encode, two-plane decrypt; real weights), one warm-up
-     and two timed records; the same checks as the paths of 7, their
-     warm-up records' NTT launch shapes among those of 7;
+     and two timed records; the same checks as the paths of 7;
   9. `cifar_bigt` and `lola_large_bigt`: CIFAR and LoLaLarge under the
      reference's own plain primes (two near 2**40; three just above
      2**31), whose factories encode on the host, so the conv-as-dense
      runs as per-row dot products with the forced dense output (5488 and
      2608 SumAllSlots ladders at n = 16384): one record each, the same
-     checks as the paths of 7, the budget beside the reference's, the
-     record's NTT launch shapes among those of 7.
+     checks as the paths of 7, every layer's output against the Raw
+     oracle's, the budget beside the reference's;
+ 10. launch shapes: every path records the shape of every kernel launch
+     of its first record (batch), and after the paths a fresh process
+     (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5 and K4
+     (on the path's own weights) bit-equal to their plain versions at
+     each, with edge rows, and times each beside its bound.
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -87,6 +89,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -151,22 +155,18 @@ def event_ms(fn, launches: int = 50, repeats: int = 5, warmup: int = 3) -> float
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, launches: int = 50, attempts: int = 3,
-              required: bool = True) -> float | None:
+def device_ms(fn, kernel: str, launches: int = 50, attempts: int = 3) -> float:
     """Device time of one launch of `kernel` (a substring of its name):
     torch.profiler's self device time over `launches` calls, divided by
     the count of launches it saw.  The profiler now and then returns a
     window without the kernel's device records: such a window is taken
-    again, up to `attempts` times, a second apart; then the run fails, or
-    where not `required` the time is None (not measured)."""
+    again, up to `attempts` times, then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     seen = []
-    for attempt in range(attempts):
-        if attempt:
-            time.sleep(1.0)
+    for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
@@ -180,12 +180,8 @@ def device_ms(fn, kernel: str, launches: int = 50, attempts: int = 3,
         if count:
             return sum(e.self_device_time_total for e in hits) / count / 1e3
         seen = [e.key[:60] for e in events]
-    msg = (f"the profiler recorded no device time for {kernel} in {attempts} "
-           f"windows; device events seen: {seen}")
-    if required:
-        raise SystemExit(msg)
-    log(f"{msg}: device time not measured")
-    return None
+    raise SystemExit(f"the profiler recorded no device time for {kernel} "
+                     f"in {attempts} windows; device events seen: {seen}")
 
 
 # --------------------------------------------------------------- kernels
@@ -311,11 +307,10 @@ def ntt_bound(rows: int, n: int, L: int, inverse: bool) -> dict:
 
 def ntt_shape_case(shape, tab, gen, err: dict, names=("ntt_forward",
                                                       "ntt_inverse"),
-                   launches: int = 50, device_required: bool = True) -> tuple:
+                   launches: int = 50) -> tuple:
     """K1/K2 at one launch shape: random residues and two edge rows (every
     residue q - 1, every residue 0) bit-equal to the twins, round trip
-    exact; then each of `names` timed (events and profiler device time,
-    None where the profiler gave nothing and not `device_required`)
+    exact; then each of `names` timed (events and profiler device time)
     beside its bound.  Raises the largest errors into `err`; returns (x,
     NTT(x), {name: entry})."""
     from cryptonets_tpu_torch.kernels import ntt as K
@@ -349,14 +344,12 @@ def ntt_shape_case(shape, tab, gen, err: dict, names=("ntt_forward",
         name: dict(shape=list(shape),
                    ms=event_ms(calls[name], launches=launches),
                    device_ms=device_ms(calls[name], f"{name}_kernel",
-                                       launches=launches,
-                                       required=device_required),
+                                       launches=launches),
                    **ntt_bound(rows, n, L, name == "ntt_inverse"))
         for name in names}
     line = ", ".join(
-        f"{name[4:]} {e['ms']:.4f} / "
-        + ("not measured" if e["device_ms"] is None else f"{e['device_ms']:.4f}")
-        + f" / {e['bound_ms']:.4f} ms by {e['bound_by']}"
+        f"{name[4:]} {e['ms']:.4f} / {e['device_ms']:.4f} / "
+        f"{e['bound_ms']:.4f} ms by {e['bound_by']}"
         for name, e in entries.items())
     log(f"kernel shape {list(shape)}: bit-equal to twin, edge rows too; per "
         f"launch, events over back-to-back calls / profiler device time / "
@@ -445,14 +438,76 @@ def contract_design_ms(P: int, positions: int, wc) -> dict:
                 design_mma_ms=1e3 * t_mma, design_fold_ms=1e3 * t_fold)
 
 
+def contract_case(where: str, W, qs, shape, gen, instances: dict) -> dict:
+    """K4 at one launch: weights W [M, O] (integers of any size) on
+    residues of `shape` [P, O, C, s, k, n] over the moduli `qs`, with an
+    input row of q - 1, bit-equal to the plain version from raw and from
+    prepared weights (the preparation timed apart); timed (events,
+    profiler device time, the plain version) beside the bound and the
+    kernel's own plan.  `instances` gathers what the compiler made of each
+    kernel instance."""
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+
+    dev = gen.device
+    M, O = len(W), len(W[0])
+    q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
+    x = _residues(shape, qs, gen, dev)
+    x[:, 0] = (q_col - 1).to(torch.int32)   # an input row of q - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wc = MM.prepare_contract(W, qs, dev)
+    torch.cuda.synchronize()
+    prepare_ms = 1e3 * (time.perf_counter() - t0)
+    y = MM.exact_mod_contract(wc, x, qs, q_col)
+    y_raw = MM.exact_mod_contract(W, x, qs, q_col)
+    torch.cuda.synchronize()
+    y_ref = MM.exact_mod_contract_plain(W, x, qs, q_col)
+    torch.cuda.synchronize()
+    err = int((y.long() - y_ref.long()).abs().max())
+    if (err or not torch.equal(y, y_raw) or y.shape != y_ref.shape
+            or y.dtype != y_ref.dtype):
+        raise SystemExit(f"mod_contract disagrees with its plain version "
+                         f"at [{M}, {O}] on {list(shape)} ({where}): {err}")
+    big = M * O > 10000
+    call = lambda: MM.exact_mod_contract(wc, x, qs, q_col)  # noqa: E731
+    ms = event_ms(call, launches=10 if big else 50, repeats=5)
+    dev_ms = device_ms(call, "mod_contract_kernel", launches=10 if big else 50)
+    plain = event_ms(lambda: MM.exact_mod_contract_plain(W, x, qs, q_col),
+                     launches=1, repeats=1 if big else 3, warmup=0)
+    # one read of x, one write of the result, the weights once
+    nbytes = 4 * (x.numel() + y.numel()) + 4 * M * O * len(qs)
+    bound = modmat_bound(y.numel() * O, nbytes)
+    bound.update(contract_design_ms(shape[0], x[0, 0].numel(), wc))
+    name = f"mod_contract_kernel<{wc.nw}, {MM.row_bytes(wc.kc)}>"
+    if name not in instances:
+        instances[name] = MM.kernel_info(wc.nw, wc.kc)
+        log(f"{name}: {instances[name]}")
+    log(f"mod_contract [{M}, {O}] on {list(shape)} ({where}): bit-equal "
+        f"to its plain version, raw and prepared weights; weights "
+        f"prepared once in {prepare_ms:.3f} ms; per launch, events over "
+        f"back-to-back calls {ms:.4f} ms, profiler device time "
+        f"{dev_ms:.4f} ms, plain version {plain:.2f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bytes "
+        f"{bound['bytes_bound_ms']:.4f} ms; the function's operations on "
+        f"the integer pipe {bound['int32_ops_ms']:.4f} ms, on the int8 "
+        f"tensor cores {bound['int8_ops_ms']:.4f} ms; the kernel's plan: "
+        f"plane pairs on the tensor cores {bound['design_mma_ms']:.4f} "
+        f"ms, folds on the integer pipe {bound['design_fold_ms']:.4f} ms)")
+    return dict(where=where, weights=[M, O], shape=list(shape), ms=ms,
+                device_ms=dev_ms, plain_ms=plain, prepare_ms=prepare_ms,
+                max_abs_err=err, instance=name,
+                tiling=dict(nw=wc.nw, mt=wc.mt, kc=wc.kc, chunks=wc.chunks),
+                **bound)
+
+
 def contract_phase(dev) -> dict:
     """K4 bit-equal to its plain version on the card at the shapes the
     networks give it, with weights that include negatives and magnitudes
     above 2**31 (and, at LoLa's shape, above 2**63) and an input row of
     q - 1; the weights prepared once (timed apart), the kernel timed on
-    them."""
+    them.  Every shape a path launches it at is checked after the paths
+    (`launch_shape_phase`)."""
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
-    from cryptonets_tpu_torch.kernels import modmatmul as MM
 
     gen = torch.Generator(device=dev).manual_seed(7)
     rng = np.random.default_rng(7)
@@ -466,64 +521,13 @@ def contract_phase(dev) -> dict:
              ("CryptoNets Dense(100)", 100, 845, 3, 7, 8192)]
     by_shape, instances = [], {}
     for where, M, O, P, k, n in cases:
-        qs = default_coeff_modulus_128(n)[:k]
-        q_col = torch.tensor(qs, dtype=torch.int64, device=dev).view(-1, 1)
-        shape = (P, O, 1, 2, k, n)
-        x = _residues(shape, qs, gen, dev)
-        x[:, 0] = (q_col - 1).to(torch.int32)   # an input row of q - 1
         W = rng.integers(-(1 << 62), 1 << 62, size=(M, O))
         W[0, 0], W[-1, -1] = -1, (1 << 31) + 1
         if M * O <= 1000:   # Python-int weights: magnitudes past 2**63
             W = W.astype(object)
             W[0, 1], W[1, 0] = (1 << 80) + 12345, -(1 << 70) - 7
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wc = MM.prepare_contract(W, qs, dev)
-        torch.cuda.synchronize()
-        prepare_ms = 1e3 * (time.perf_counter() - t0)
-        y = MM.exact_mod_contract(wc, x, qs, q_col)
-        y_raw = MM.exact_mod_contract(W, x, qs, q_col)
-        torch.cuda.synchronize()
-        y_ref = MM.exact_mod_contract_plain(W, x, qs, q_col)
-        torch.cuda.synchronize()
-        err = int((y.long() - y_ref.long()).abs().max())
-        if (err or not torch.equal(y, y_raw) or y.shape != y_ref.shape
-                or y.dtype != y_ref.dtype):
-            raise SystemExit(f"mod_contract disagrees with its plain version "
-                             f"at [{M}, {O}] on {list(shape)}: {err}")
-        big = M * O > 10000
-        call = lambda: MM.exact_mod_contract(wc, x, qs, q_col)  # noqa: E731
-        ms = event_ms(call, launches=10 if big else 50, repeats=5)
-        dev_ms = device_ms(call, "mod_contract_kernel",
-                           launches=10 if big else 50)
-        plain = event_ms(lambda: MM.exact_mod_contract_plain(W, x, qs, q_col),
-                         launches=1, repeats=1 if big else 3, warmup=0)
-        # one read of x, one write of the result, the weights once
-        nbytes = 4 * (x.numel() + y.numel()) + 4 * M * O * len(qs)
-        bound = modmat_bound(y.numel() * O, nbytes)
-        bound.update(contract_design_ms(P, x[0, 0].numel(), wc))
-        name = f"mod_contract_kernel<{wc.nw}, {MM.row_bytes(wc.kc)}>"
-        if name not in instances:
-            instances[name] = MM.kernel_info(wc.nw, wc.kc)
-            log(f"{name}: {instances[name]}")
-        by_shape.append(dict(
-            where=where, weights=[M, O], shape=list(shape), ms=ms,
-            device_ms=dev_ms, plain_ms=plain, prepare_ms=prepare_ms,
-            max_abs_err=err, instance=name,
-            tiling=dict(nw=wc.nw, mt=wc.mt, kc=wc.kc, chunks=wc.chunks),
-            **bound))
-        log(f"mod_contract [{M}, {O}] on {list(shape)} ({where}): bit-equal "
-            f"to its plain version, raw and prepared weights; weights "
-            f"prepared once in {prepare_ms:.3f} ms; per launch, events over "
-            f"back-to-back calls {ms:.4f} ms, profiler device time "
-            f"{dev_ms:.4f} ms, plain version {plain:.2f} ms, bound "
-            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (bytes "
-            f"{bound['bytes_bound_ms']:.4f} ms; the function's operations on "
-            f"the integer pipe {bound['int32_ops_ms']:.4f} ms, on the int8 "
-            f"tensor cores {bound['int8_ops_ms']:.4f} ms; the kernel's plan: "
-            f"plane pairs on the tensor cores {bound['design_mma_ms']:.4f} "
-            f"ms, folds on the integer pipe {bound['design_fold_ms']:.4f} ms)")
-        del x, y, y_raw, y_ref
+        by_shape.append(contract_case(where, W, default_coeff_modulus_128(n)[:k],
+                                      (P, O, 1, 2, k, n), gen, instances))
     main = by_shape[-1]   # Dense(100): the largest call of the main paths
     return dict(
         name="mod_contract", route="cuda",
@@ -536,6 +540,56 @@ def contract_phase(dev) -> dict:
         # no PyTorch call computes an integer matrix product mod q on CUDA
         library_ms=None, shape=main["shape"], weights=main["weights"],
         by_shape=by_shape, instances=instances)
+
+
+def mmntt_shape_case(shape, mods, gen, err: dict, where: str | None = None,
+                     launches: int = 20) -> tuple:
+    """K5 forward and inverse at one shape over the moduli `mods`: random
+    residues with a row of q - 1 bit-equal to the plain versions, round
+    trip exact; with `where`, both timed (profiler device time, events)
+    beside the kernel's own plan.  Raises the largest errors into `err`;
+    returns (x, NTT(x), the tables, the timed entry or None)."""
+    from cryptonets_tpu_torch.crypto.ntt import ntt_context_for
+    from cryptonets_tpu_torch.kernels import matmul_ntt as M
+
+    names = MATMUL_KERNELS
+    n = shape[-1]
+    tab = ntt_context_for("matmul", n, mods).tables(gen.device)
+    x = _residues(shape, mods, gen, gen.device)
+    x.view(-1, shape[-2], n)[0] = tab.q.view(-1, 1) - 1   # every residue q - 1
+    y = M.matmul_ntt_forward(x, tab)
+    y_ref = M.matmul_ntt_forward_plain(x, tab)
+    z = M.matmul_ntt_inverse(y, tab)
+    z_ref = M.matmul_ntt_inverse_plain(y, tab)
+    torch.cuda.synchronize()
+    e_f = int((y.long() - y_ref.long()).abs().max())
+    e_i = int((z.long() - z_ref.long()).abs().max())
+    if e_f or e_i or not torch.equal(z, x):
+        raise SystemExit(
+            f"four-step NTT kernel disagrees with its plain version at "
+            f"{shape}: forward {e_f}, inverse {e_i}, round trip "
+            f"{torch.equal(z, x)}")
+    err[names[0]] = max(err[names[0]], e_f)
+    err[names[1]] = max(err[names[1]], e_i)
+    if where is None:
+        log(f"four-step NTT {list(shape)}: forward and inverse bit-equal "
+            f"to their plain versions, round trip exact")
+        return x, y, tab, None
+    calls = {names[0]: lambda: M.matmul_ntt_forward(x, tab),
+             names[1]: lambda: M.matmul_ntt_inverse(y, tab)}
+    dev_ms = [device_ms(calls[name], "matmul_ntt_kernel", launches=launches)
+              for name in names]
+    ev_ms = [event_ms(calls[name], launches=launches, repeats=3)
+             for name in names]
+    design = mmntt_design_ms(x.numel() // n, n)
+    log(f"four-step NTT {list(shape)} ({where}): bit-equal to its plain "
+        f"version, round trip exact; forward / inverse: profiler device "
+        f"time {dev_ms[0]:.4f} / {dev_ms[1]:.4f} ms, events {ev_ms[0]:.4f} "
+        f"/ {ev_ms[1]:.4f} ms; the kernel's plan {design['design_ops_ms']:.4f} "
+        f"ms (plane pairs {design['design_mma_ms']:.4f}, integer work "
+        f"{design['design_int_ms']:.4f})")
+    return x, y, tab, dict(where=where, shape=list(shape), device_ms=dev_ms,
+                           ms=ev_ms, **design)
 
 
 def mmntt_phase(dev) -> list[dict]:
@@ -577,43 +631,12 @@ def mmntt_phase(dev) -> list[dict]:
     timing, by_shape = {}, []
     for shape, mods in cases:
         n = shape[-1]
-        tab = ntt_context_for("matmul", n, mods).tables(dev)
-        x = _residues(shape, mods, gen, dev)
-        x.view(-1, shape[-2], n)[0] = tab.q.view(-1, 1) - 1   # every residue q - 1
-        y = M.matmul_ntt_forward(x, tab)
-        y_ref = M.matmul_ntt_forward_plain(x, tab)
-        z = M.matmul_ntt_inverse(y, tab)
-        z_ref = M.matmul_ntt_inverse_plain(y, tab)
-        torch.cuda.synchronize()
-        e_f = int((y.long() - y_ref.long()).abs().max())
-        e_i = int((z.long() - z_ref.long()).abs().max())
-        if e_f or e_i or not torch.equal(z, x):
-            raise SystemExit(
-                f"four-step NTT kernel disagrees with its plain version at "
-                f"{shape}: forward {e_f}, inverse {e_i}, round trip "
-                f"{torch.equal(z, x)}")
-        err[names[0]] = max(err[names[0]], e_f)
-        err[names[1]] = max(err[names[1]], e_i)
+        x, y, tab, entry = mmntt_shape_case(shape, mods, gen, err,
+                                            record_shapes.get(shape))
+        if entry is not None:
+            by_shape.append(entry)
         calls = {names[0]: lambda: M.matmul_ntt_forward(x, tab),
                  names[1]: lambda: M.matmul_ntt_inverse(y, tab)}
-        if shape in record_shapes:
-            dev_ms = [device_ms(calls[name], "matmul_ntt_kernel", launches=20)
-                      for name in names]
-            ev_ms = [event_ms(calls[name], launches=20, repeats=3)
-                     for name in names]
-            design = mmntt_design_ms(x.numel() // n, n)
-            by_shape.append(dict(where=record_shapes[shape], shape=list(shape),
-                                 device_ms=dev_ms, ms=ev_ms, **design))
-            log(f"four-step NTT {list(shape)} ({record_shapes[shape]}): "
-                f"bit-equal to its plain version, round trip exact; forward "
-                f"/ inverse: profiler device time {dev_ms[0]:.4f} / "
-                f"{dev_ms[1]:.4f} ms, events {ev_ms[0]:.4f} / {ev_ms[1]:.4f} "
-                f"ms; the kernel's plan {design['design_ops_ms']:.4f} ms "
-                f"(plane pairs {design['design_mma_ms']:.4f}, integer work "
-                f"{design['design_int_ms']:.4f})")
-        else:
-            log(f"four-step NTT {list(shape)}: forward and inverse bit-equal "
-                f"to their plain versions, round trip exact")
         if shape != cases[0][0]:
             continue
         plains = {names[0]: lambda: M.matmul_ntt_forward_plain(x, tab),
@@ -783,30 +806,47 @@ def check_launches(where: str, launched: dict, expect, absent=()) -> None:
 
 
 class LaunchShapes:
-    """Within `with`, records the shape and tables of every K1/K2 launch:
-    a path's own NTT launch shapes, read off its run for the kernel check
-    that follows the paths."""
+    """Within `with`, records every kernel launch by shape: K1/K2 and K5
+    with their tables, K4 with its weights and moduli.  A path's own
+    launch shapes, read off its run for the kernel check that follows the
+    paths (`launch_shape_phase`)."""
 
     def __init__(self):
-        self.seen = {}      # (shape, id(tables)) -> (tables, {kernel names})
+        self.ntt = {}        # (shape, id(tables)) -> (tables, {kernel names})
+        self.mmntt = {}      # the same for K5
+        self.contract = {}   # (M, O, shape, moduli) -> weights
 
     def __enter__(self):
+        from cryptonets_tpu_torch.kernels import matmul_ntt as M
+        from cryptonets_tpu_torch.kernels import modmatmul as MM
         from cryptonets_tpu_torch.kernels import ntt as K
 
-        self._orig = orig = K._launch
+        self._orig = orig = (K._launch, M._launch, MM._launch)
 
-        def launch(name, x, tab, *tables):
-            entry = self.seen.setdefault((tuple(x.shape), id(tab)), (tab, set()))
-            entry[1].add(name)
-            return orig(name, x, tab, *tables)
+        def tables_launch(seen, launch):
+            def wrapped(name, x, tab, *tables):
+                entry = seen.setdefault((tuple(x.shape), id(tab)), (tab, set()))
+                entry[1].add(name)
+                return launch(name, x, tab, *tables)
+            return wrapped
 
-        K._launch = launch
+        def contract_launch(w, x, q_list):
+            key = MM._check(w, x, q_list) + (tuple(x.shape),
+                                             tuple(int(q) for q in q_list))
+            self.contract.setdefault(key, w)
+            return orig[2](w, x, q_list)
+
+        K._launch = tables_launch(self.ntt, orig[0])
+        M._launch = tables_launch(self.mmntt, orig[1])
+        MM._launch = contract_launch
         return self
 
     def __exit__(self, *exc):
+        from cryptonets_tpu_torch.kernels import matmul_ntt as M
+        from cryptonets_tpu_torch.kernels import modmatmul as MM
         from cryptonets_tpu_torch.kernels import ntt as K
 
-        K._launch = self._orig
+        K._launch, M._launch, MM._launch = self._orig
 
 
 # the single-image paths: (title, builder, timed records after one
@@ -859,15 +899,11 @@ EXHAUSTS_IN_LAST_LAYER = ("cifar_bigt",)
 def raw_layer_outputs(build, record) -> list:
     """The Raw oracle's output of every layer above the EncryptLayer for
     one record."""
-    from cryptonets_tpu_torch.nn.forward import split_at_encrypt
+    from cryptonets_tpu_torch.nn.forward import raw_layer_outputs as outputs
 
     head_r, _, _ = build(False, records=[(record[0], record[1].copy())])
     head_r.prepare_network()
-    enc, layers = split_at_encrypt(head_r)
-    outs = [enc.apply(enc.source.get_next())]
-    for layer in layers:
-        outs.append(layer.apply(outs[-1]))
-    return outs[1:]
+    return outputs(head_r)[1:]
 
 
 def layer_gate(title: str, which: str, names, outs, raws) -> list:
@@ -875,17 +911,17 @@ def layer_gate(title: str, which: str, names, outs, raws) -> list:
     1e-9, with its budget (least over its first two vectors).  A layer
     with budget left must agree; only a path of EXHAUSTS_IN_LAST_LAYER may
     end at 0 bits, and only in its last layer."""
+    from cryptonets_tpu_torch.nn.forward import layer_agreement
+
     rows = []
     for li, (name, m, r) in enumerate(zip(names, outs, raws)):
-        budget = min(v.noise_budget() for v in m.vectors[:2])
-        enc, want = m.decrypt(), np.asarray(r.decrypt(), dtype=float)
-        same = enc.shape == want.shape and bool(
-            np.allclose(enc, want, rtol=1e-9, atol=0))
-        rows.append(dict(layer=name, budget=budget, equal=same))
+        row = dict(layer=name, **layer_agreement(m, r))
+        rows.append(row)
         last = li == len(outs) - 1
-        if not same and (budget > 0 or not (last and which in EXHAUSTS_IN_LAST_LAYER)):
+        if not row["equal"] and (row["budget"] > 0 or not (
+                last and which in EXHAUSTS_IN_LAST_LAYER)):
             raise SystemExit(f"{title}: layer {li} ({name}) disagrees with the "
-                             f"Raw oracle with {budget} bits of budget")
+                             f"Raw oracle with {row['budget']} bits of budget")
     log(f"{title} by layer (budget bits, equal to the Raw oracle): "
         + ", ".join(f"{r['layer']} {r['budget']} {r['equal']}" for r in rows))
     return rows
@@ -990,32 +1026,108 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
                 galois_keys=galois, peak_gib=max(peaks), by_layer=by_layer)
 
 
-def record_shape_phase(recorded: dict) -> tuple[dict, dict]:
-    """K1/K2 held bit-equal to their twins and timed beside the bound at
-    every NTT launch shape recorded on the paths' warm-up records (each
-    (shape, moduli) once, in the first path that launched it).  Returns
-    ({kernel name: [entries with `where`]}, {kernel name: max error})."""
-    names = ("ntt_forward", "ntt_inverse")
+def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
+    """Every kernel held to its plain version and timed beside its bound
+    at every launch shape recorded on the paths (each (shape, moduli)
+    once, in the first path that launched it; K4 on the path's own
+    weights), in a fresh process (`--launch-shapes`): after the paths'
+    hundreds of thousands of launches the profiler's windows came back
+    empty in this one.  Returns ({kernel name: [entries with `where`]},
+    {kernel name: max error})."""
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+
+    cases, done = [], set()
+    for where, rec in recorded.items():
+        for kind, seen in (("ntt", rec.ntt), ("mmntt", rec.mmntt)):
+            for (shape, _), (tab, names) in seen.items():
+                mods = tuple(int(q) for q in tab.q.view(-1).tolist())
+                if (kind, shape, mods) not in done:
+                    done.add((kind, shape, mods))
+                    cases.append(dict(kind=kind, where=where, shape=shape,
+                                      mods=mods, names=sorted(names)))
+        for (M, O, shape, mods), w in rec.contract.items():
+            if ("contract", shape, mods, M) not in done:
+                done.add(("contract", shape, mods, M))
+                reduced = (w.reduced.cpu().numpy()
+                           if isinstance(w, MM.ContractWeights)
+                           else MM.reduce_weights(w, mods))
+                cases.append(dict(kind="contract", where=where, shape=shape,
+                                  mods=mods, reduced=reduced))
+    paths = ", ".join(recorded)
+    recorded.clear()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--launch-shapes"], input=pickle.dumps(cases),
+                          stdout=subprocess.PIPE, timeout=900, check=False)
+    lines = proc.stdout.decode().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        raise SystemExit(f"the launch-shape check failed ({proc.returncode}): "
+                         + (lines[-1] if lines else ""))
+    out = json.loads(lines[-1])
+    counts = {kind: sum(c["kind"] == kind for c in cases)
+              for kind in ("ntt", "mmntt", "contract")}
+    log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4) bit-equal "
+        f"to the plain versions, edge rows too, each timed with the "
+        f"profiler's device time")
+    return out["shapes"], out["err"]
+
+
+def _crt_weights(reduced: np.ndarray, mods) -> np.ndarray:
+    """Integers [M, O] whose residues mod each of `mods` are `reduced`
+    [M, O, k]: the weights a path's prepared contraction was made from,
+    up to a multiple of the moduli's product."""
+    Q = 1
+    for q in mods:
+        Q *= q
+    W = np.zeros(reduced.shape[:2], dtype=object)
+    for l, q in enumerate(mods):
+        c = (Q // q) * pow(Q // q, -1, q)
+        W = W + reduced[..., l].astype(object) * c
+    return W % Q
+
+
+def launch_shapes_main() -> int:
+    """`--launch-shapes`: the cases `launch_shape_phase` pickles to stdin,
+    each checked and timed; the last line of stdout is the JSON result."""
+    from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
+
+    cases = pickle.loads(sys.stdin.buffer.read())
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",)
     err = dict.fromkeys(names, 0)
-    out = {name: [] for name in names}
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    done = set()
-    for where, shapes in recorded.items():
-        for (shape, _), (tab, launched) in sorted(
-                shapes.seen.items(), key=lambda kv: (kv[0][0][-1], kv[0][0])):
-            mods = tuple(tab.q.view(-1).tolist())
-            if (shape, mods) in done:
-                continue
-            done.add((shape, mods))
-            # bit-equal at every shape; the device time is supplementary
+    shapes = {name: [] for name in names}
+    instances = {}
+    keep = ("ms", "device_ms", "bound_ms", "bound_by")  # the rest is in the log
+    for c in sorted(cases, key=lambda c: (c["kind"], c["shape"][-1], c["shape"])):
+        shape, mods, where = c["shape"], c["mods"], c["where"]
+        if c["kind"] == "ntt":
+            tab = get_ntt_context(shape[-1], mods).tables(dev)
             _, _, entries = ntt_shape_case(shape, tab, gen, err,
-                                           names=sorted(launched), launches=20,
-                                           device_required=False)
+                                           names=c["names"], launches=20)
             for name, e in entries.items():
-                out[name].append(dict(where=where, limbs=len(mods), **e))
-    log(f"record shapes: {len(done)} NTT launch shapes of "
-        f"{', '.join(recorded)} bit-equal to the twins, edge rows too")
-    return out, err
+                shapes[name].append(dict(where=where, shape=e["shape"],
+                                         limbs=len(mods),
+                                         **{k: e[k] for k in keep}))
+        elif c["kind"] == "mmntt":
+            _, _, _, e = mmntt_shape_case(shape, mods, gen, err, where)
+            for i, name in enumerate(MATMUL_KERNELS):
+                shapes[name].append(dict(where=where, shape=e["shape"],
+                                         device_ms=e["device_ms"][i],
+                                         ms=e["ms"][i],
+                                         design_ops_ms=e["design_ops_ms"]))
+        else:
+            e = contract_case(where, _crt_weights(c["reduced"], mods), mods,
+                              shape, gen, instances)
+            err["mod_contract"] = max(err["mod_contract"], e["max_abs_err"])
+            shapes["mod_contract"].append(dict(
+                where=where, weights=e["weights"], shape=e["shape"],
+                plain_ms=e["plain_ms"], instance=e["instance"],
+                **{k: e[k] for k in keep}))
+    print(json.dumps({"shapes": shapes, "err": err}), flush=True)
+    return 0
 
 
 _CRYPTONETS_DATA: dict = {}
@@ -1045,13 +1157,15 @@ def cryptonets_data(batch: int) -> tuple:
 
 
 def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
-                     ntt_impl: str = "butterfly", same_as=None) -> dict:
+                     ntt_impl: str = "butterfly", same_as=None,
+                     shapes: LaunchShapes | None = None) -> dict:
     """Full-width CryptoNets on the card under `preset` and `ntt_impl`: one
     warm-up batch whose logits are held against the Raw oracle, one timed
     batch whose predictions must all equal the oracle's.  Under the
     four-step NTT K1/K2 may run on the plain primes (the slot encode and
     decode over Z_t) and on no ciphertext chain; `same_as`, another run's
-    result, must have the same warm-up logits."""
+    result, must have the same warm-up logits; `shapes` records the
+    warm-up batch's launch shapes."""
     from cryptonets_tpu_torch.models import cryptonets_mnist
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
@@ -1084,9 +1198,11 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
         before = kernel_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
-        shapes = LaunchShapes() if ntt_impl == "matmul" else None
+        rec = shapes if i == 0 else None
+        if rec is None and ntt_impl == "matmul":
+            rec = LaunchShapes()
         t0 = time.perf_counter()
-        with shapes or contextlib.nullcontext():
+        with rec or contextlib.nullcontext():
             out = fwd()
         enc = np.asarray(out.decrypt(), dtype=float)
         lat = time.perf_counter() - t0
@@ -1095,7 +1211,7 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
         check_launches(f"{title} batch {i}", per_batch, *expect)
         if ntt_impl == "matmul":
             chains = {tuple(tab.q.view(-1).tolist())
-                      for tab, _ in shapes.seen.values()}
+                      for tab, _ in rec.ntt.values()}
             if any(not set(c) <= set(fac.plain_primes) for c in chains):
                 raise SystemExit(f"{title} batch {i}: the butterfly NTT ran "
                                  f"on a ciphertext chain: {chains}")
@@ -1136,11 +1252,12 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
                 logits=logits, peak_gib=peak_gib)
 
 
-def slice_c_phase(dev, which: str) -> dict:
+def slice_c_phase(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     """Full-width LoLaSmall or Caltech-101 on the card, once under the
     butterfly NTT and once under the four-step NTT: every record's logits
     held against the Raw oracle, the launch counts held to the kernels
-    each run must and must not use, the two runs' decoded logits equal."""
+    each run must and must not use, the two runs' decoded logits equal;
+    `shapes` records each run's first record's launch shapes."""
     from cryptonets_tpu_torch.data.preprocess import (
         synthetic_feature_records, synthetic_mnist_records)
     from cryptonets_tpu_torch.models import caltech101
@@ -1184,7 +1301,8 @@ def slice_c_phase(dev, which: str) -> dict:
             before = kernel_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fwd().get_column(0)
+            with (shapes if i == 0 and shapes else contextlib.nullcontext()):
+                out = fwd().get_column(0)
             enc = out.decrypt()
             lat = time.perf_counter() - t0
             if enc.shape != (n_out,) or not np.allclose(
@@ -1226,6 +1344,10 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + "; the result lines need all of them")
+    ap.add_argument("--launch-shapes", action="store_true",
+                    help="check and time the kernels at the launch shapes "
+                         "a run of the paths pickles to stdin (the run "
+                         "starts this itself)")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -1233,6 +1355,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.launch_shapes:
+        return launch_shapes_main()
     import cryptonets_tpu_torch  # noqa: F401  (fails outside the checkout)
     from cryptonets_tpu_torch.kernels import build as B
     from cryptonets_tpu_torch.kernels import matmul_ntt as M
@@ -1269,45 +1393,44 @@ def main() -> int:
         t0 = time.perf_counter()
         bigt_phase(dev)
         log(f"phase bigt: {time.perf_counter() - t0:.1f} s")
-    paths = {}
-    cryptonets_runs = (
-        ("lola", lola_phase), ("cryptonets", cryptonets_phase),
-        ("cryptonets_matmul", lambda d: cryptonets_phase(
-            d, ntt_impl="matmul", same_as=paths.get("cryptonets"))),
-        ("cryptonets_bigt", lambda d: cryptonets_phase(
-            d, preset="cryptonets_bigt", same_as=paths.get("cryptonets"))))
-    for phase, run in cryptonets_runs:
-        if phase in phases:
-            t0 = time.perf_counter()
-            paths[phase] = run(dev)
-            torch.cuda.empty_cache()
-            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
-    for phase in ("lola_small", "caltech"):
-        if phase in phases:
-            t0 = time.perf_counter()
-            for impl, run in slice_c_phase(dev, phase).items():
-                paths[f"{phase}_{impl}"] = run
-            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
-    recorded = {}
-    for phase in ("lola_packed", "lola_large", "cifar", "lola_dense",
-                  "cifar_bigt", "lola_large_bigt"):
-        if phase in phases:
-            t0 = time.perf_counter()
-            recorded[phase] = LaunchShapes()
-            paths[phase] = lola_phase(dev, phase, recorded[phase])
-            torch.cuda.empty_cache()
-            if phase == "cifar_bigt" and "cifar" in paths:
-                log(f"final noise budget: cifar_bigt {paths[phase]['budget']} "
-                    f"bits, cifar {paths['cifar']['budget']} bits (this run)")
-            log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    # every path records its first record's (batch's) kernel launch shapes
+    paths, recorded = {}, {}
+    runs = (
+        ("lola", lambda d, r: lola_phase(d, "lola", r)),
+        ("cryptonets", lambda d, r: cryptonets_phase(d, shapes=r)),
+        ("cryptonets_matmul", lambda d, r: cryptonets_phase(
+            d, ntt_impl="matmul", same_as=paths.get("cryptonets"), shapes=r)),
+        ("cryptonets_bigt", lambda d, r: cryptonets_phase(
+            d, preset="cryptonets_bigt", same_as=paths.get("cryptonets"),
+            shapes=r)),
+        ("lola_small", lambda d, r: slice_c_phase(d, "lola_small", r)),
+        ("caltech", lambda d, r: slice_c_phase(d, "caltech", r)))
+    runs += tuple((phase, lambda d, r, p=phase: lola_phase(d, p, r))
+                  for phase in ("lola_packed", "lola_large", "cifar",
+                                "lola_dense", "cifar_bigt", "lola_large_bigt"))
+    for phase, run in runs:
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        recorded[phase] = LaunchShapes()
+        result = run(dev, recorded[phase])
+        if phase in ("lola_small", "caltech"):
+            for impl, r in result.items():
+                paths[f"{phase}_{impl}"] = r
+        else:
+            paths[phase] = result
+        torch.cuda.empty_cache()
+        if phase == "cifar_bigt" and "cifar" in paths:
+            log(f"final noise budget: cifar_bigt {paths[phase]['budget']} "
+                f"bits, cifar {paths['cifar']['budget']} bits (this run)")
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     if recorded:
         t0 = time.perf_counter()
-        by_name, err = record_shape_phase(recorded)
+        by_name, err = launch_shape_phase(recorded)
         for k in kernels:
-            if k["name"] in by_name:
-                k["record_shapes"] = by_name[k["name"]]
-                k["max_abs_err"] = max(k["max_abs_err"], err[k["name"]])
-        log(f"phase record shapes: {time.perf_counter() - t0:.1f} s")
+            k["launch_shapes"] = by_name[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], err[k["name"]])
+        log(f"phase launch shapes: {time.perf_counter() - t0:.1f} s")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s, build included")
     if set(phases) != set(PHASES):
         log(f"phases {phases} passed; run every phase for the result lines")

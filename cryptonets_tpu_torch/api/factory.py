@@ -325,57 +325,53 @@ class CrtBfvFactory:
         return perms, k0s, k1s
 
     # --------------------------------------------- prepared plaintext forms
-    def encode_slots_to_residues(self, slots, prime_idx: int) -> np.ndarray:
-        """Slot values (ints mod t) -> coefficient residues [k, N] uint32
-        (host); for t >= 2**31 through the C++ NTT."""
-        coeffs = self.encoders[prime_idx].encode(slots)
-        return self.params[prime_idx].plain_to_residues(coeffs)
-
-    def _plain_residues(self, int_values, dim: int) -> torch.Tensor:
-        """Slot values -> coefficient residues [P, C, k, N] on the device."""
-        n = self.n
-        C = max(1, -(-dim // n))
-        vals = np.zeros(C * n, dtype=object)
+    def _slot_rows(self, int_values, dim: int) -> np.ndarray:
+        """Slot values -> [C, n] rows of ints, C = ceil(dim / n), zero-padded."""
+        C = max(1, -(-dim // self.n))
+        vals = np.zeros(C * self.n, dtype=object)
         vv = np.asarray(int_values, dtype=object)
         vals[: len(vv)] = vv
-        res = np.stack([
-            np.stack([
-                self.encode_slots_to_residues(
-                    vals[b * n : (b + 1) * n] % self.plain_primes[pi], pi)
-                for b in range(C)
-            ])
-            for pi in range(self.P)
-        ])
-        return torch.from_numpy(res.view(np.int32)).to(self.device)
+        return vals.reshape(C, self.n)
 
-    def plain_mult_form(self, int_values, dim: int) -> torch.Tensor:
-        """Slot values -> NTT + Montgomery plaintext multiplier [P, C, k, N]."""
-        return self.bfv[0].prepare_plain_mult(self._plain_residues(int_values, dim))
+    def _plain_residue_rows(self, rows, pi: int) -> torch.Tensor:
+        """Slot rows [R, n] (integers of any size, signed ok) -> coefficient
+        residues [R, k, N] int32 of plain prime `pi` on the device: the
+        slot encode on the host (exact mod t; the C++ NTT, in threads, for
+        t >= 2**31), each limb's residue on the device."""
+        # coefficients in [0, t) < 2**63: exact as int64
+        c = torch.from_numpy(self.encoders[pi].encode(rows).astype(np.int64))
+        return (c.to(self.device)[:, None, :] % self.bfv[0].p.chain_q.q).to(torch.int32)
 
     def plain_mult_forms(self, slot_rows) -> torch.Tensor:
-        """Slot values [R, n] (int64, signed) -> NTT + Montgomery plaintext
-        multipliers [P, R, k, N], row r equal to `plain_mult_form` of row
-        r.  Pieces of ENCODE_CHUNK rows: the slot encode on the host (the
-        C++ NTT, in threads, for t >= 2**31), each limb's residue and the
-        NTT on the device."""
-        rows = np.asarray(slot_rows, dtype=np.int64)
+        """Slot values [R, n] (integers of any size, signed ok) -> NTT +
+        Montgomery plaintext multipliers [P, R, k, N], in pieces of
+        ENCODE_CHUNK rows."""
+        rows = np.asarray(slot_rows)
         R = rows.shape[0]
         bfv0 = self.bfv[0]
-        q = bfv0.p.chain_q.q
         out = torch.empty((self.P, R, len(self.coeff_modulus), self.n),
                           dtype=torch.int32, device=self.device)
         for r0 in range(0, R, ENCODE_CHUNK):
             piece = rows[r0 : r0 + ENCODE_CHUNK]
-            for pi, enc in enumerate(self.encoders):
-                # coefficients in [0, t) < 2**62: exact as int64
-                c = torch.from_numpy(enc.encode(piece).astype(np.int64))
-                res = (c.to(self.device)[:, None, :] % q).to(torch.int32)
-                out[pi, r0 : r0 + len(piece)] = bfv0.prepare_plain_mult(res)
+            for pi in range(self.P):
+                out[pi, r0 : r0 + len(piece)] = bfv0.prepare_plain_mult(
+                    self._plain_residue_rows(piece, pi))
         return out
+
+    def plain_mult_form(self, int_values, dim: int) -> torch.Tensor:
+        """Slot values -> NTT + Montgomery plaintext multiplier [P, C, k, N]."""
+        return self.plain_mult_forms(self._slot_rows(int_values, dim))
+
+    def plain_add_forms(self, slot_rows) -> torch.Tensor:
+        """Slot values [R, n] -> coefficient residues [P, R, k, N] for
+        add_plain."""
+        rows = np.asarray(slot_rows)
+        return torch.stack([self._plain_residue_rows(rows, pi)
+                            for pi in range(self.P)])
 
     def plain_add_form(self, int_values, dim: int) -> torch.Tensor:
         """Slot values -> coefficient residues [P, C, k, N] for add_plain."""
-        return self._plain_residues(int_values, dim)
+        return self.plain_add_forms(self._slot_rows(int_values, dim))
 
     def add_plain_data(self, data, form) -> torch.Tensor:
         """ct data [P, ...] + plain residues [P, ...]: per-prime Delta."""

@@ -138,28 +138,16 @@ class HEMatrix:
 
     def _stacked_mult_forms(self) -> torch.Tensor:
         """[P, V, C, k, N] plaintext multipliers of a plain matrix, made
-        at first use and kept: dense vectors whose values fit int64 in one
-        batched encode (`plain_mult_forms`), else vector by vector."""
+        at first use (one batched encode) and kept."""
         if self._mult_forms is None:
-            self._mult_forms = self._batched_mult_forms()
-        if self._mult_forms is None:
-            self._mult_forms = torch.stack(
-                [v.mult_form() for v in self.vectors], dim=1)
+            f, V = self.factory, len(self.vectors)
+            C = self.vectors[0].num_blocks
+            if any(v.num_blocks != C for v in self.vectors):
+                raise ValueError("the vectors of a matrix need one block count")
+            forms = f.plain_mult_forms(
+                np.concatenate([v._slot_values() for v in self.vectors]))
+            self._mult_forms = forms.view(f.P, V, C, *forms.shape[2:])
         return self._mult_forms
-
-    def _batched_mult_forms(self):
-        f, V = self.factory, len(self.vectors)
-        C = self.vectors[0].num_blocks
-        if any(v.fmt != DENSE or v.num_blocks != C for v in self.vectors):
-            return None
-        rows = np.zeros((V, C * f.n), np.int64)
-        try:
-            for i, v in enumerate(self.vectors):
-                rows[i, : v.dim] = v.values[: v.dim]
-        except OverflowError:
-            return None
-        forms = f.plain_mult_forms(rows.reshape(V * C, f.n))
-        return forms.view(f.P, V, C, *forms.shape[2:])
 
     def _stacked_unit_masks(self) -> torch.Tensor:
         """[P, R, k, N] the unit masks of flat slots 0..R-1 that force the

@@ -75,19 +75,13 @@ class HEVector:
     def mult_form(self):
         """NTT + Montgomery plaintext multiplier [P, C, k, N], cached."""
         if self._mult_form is None:
-            sv = self._slot_values()
-            self._mult_form = torch.cat([
-                self.factory.plain_mult_form(b, self.factory.n) for b in sv
-            ], dim=1)
+            self._mult_form = self.factory.plain_mult_forms(self._slot_values())
         return self._mult_form
 
     def add_form(self):
         """Coefficient residues [P, C, k, N] for add_plain, cached."""
         if self._add_form is None:
-            sv = self._slot_values()
-            self._add_form = torch.cat([
-                self.factory.plain_add_form(b, self.factory.n) for b in sv
-            ], dim=1)
+            self._add_form = self.factory.plain_add_forms(self._slot_values())
         return self._add_form
 
     # ------------------------------------------------------------ add

@@ -110,9 +110,11 @@ class BatchEncoder:
         """values [..., <= n] (ints mod t) -> index-mapped uint64 [..., n]."""
         v = np.asarray(values)
         if v.dtype == object:
-            v = (v % self.t).astype(np.uint64)
-        else:
-            v = (v.astype(np.int64) % self.t).astype(np.uint64)
+            try:   # ints that fit int64 convert without a Python call each
+                v = v.astype(np.int64)
+            except OverflowError:   # the others reduce as Python ints
+                v = (v % self.t).astype(np.int64)
+        v = (v.astype(np.int64) % self.t).astype(np.uint64)
         buf = np.zeros(v.shape[:-1] + (self.n,), np.uint64)
         buf[..., self.index_map[: v.shape[-1]]] = v
         return buf

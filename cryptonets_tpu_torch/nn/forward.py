@@ -92,3 +92,30 @@ class EncryptedForward:
         for v, s in zip(out.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
             v._dec_slots = s
         return out
+
+
+def raw_layer_outputs(head_raw: Layer) -> list:
+    """The Raw oracle's input to the first layer above the EncryptLayer
+    and every such layer's output, for the next record of a prepared Raw
+    network."""
+    enc, layers = split_at_encrypt(head_raw)
+    outs = [enc.apply(enc.source.get_next())]
+    for layer in layers:
+        outs.append(layer.apply(outs[-1]))
+    return outs
+
+
+def layer_agreement(m: HEMatrix, raw, sample: int = 2) -> dict:
+    """An encrypted layer output against the Raw oracle's output of the
+    same layer: the least noise budget over its first `sample` vectors
+    (and the plain primes), the largest difference of the decryption from
+    the Raw values relative to the largest Raw value, and whether the two
+    agree at rtol 1e-9."""
+    enc = m.decrypt()
+    want = np.asarray(raw.decrypt(), dtype=float)
+    same_shape = enc.shape == want.shape
+    rel = (float(np.max(np.abs(enc - want)) / max(np.max(np.abs(want)), 1e-300))
+           if same_shape else float("inf"))
+    return dict(budget=min(v.noise_budget() for v in m.vectors[:sample]),
+                max_rel_diff=rel, vectors=len(m.vectors),
+                equal=same_shape and bool(np.allclose(enc, want, rtol=1e-9, atol=0)))

@@ -25,7 +25,6 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -51,7 +50,9 @@ def main() -> int:
                                                       synthetic_mnist_records)
     from cryptonets_tpu_torch.models import lola_cifar
     from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
-    from cryptonets_tpu_torch.nn.forward import EncryptedForward, split_at_encrypt
+    from cryptonets_tpu_torch.nn.forward import (EncryptedForward,
+                                                 layer_agreement,
+                                                 raw_layer_outputs)
 
     kw = {} if args.preset is None else {"preset": args.preset}
     if args.network == "CIFAR":
@@ -61,7 +62,7 @@ def main() -> int:
     copy = lambda: [(lb, f.copy()) for lb, f in records]  # noqa: E731
     head_r, _, _ = build(False, records=copy(), **kw)
     head_r.prepare_network()
-    renc, rlayers = split_at_encrypt(head_r)
+    raws = raw_layer_outputs(head_r)
     dev = torch.device("cuda", 0)
     head, fac, _ = build(True, records=copy(), device=dev, ntt_impl=args.ntt, **kw)
     t0 = time.perf_counter()
@@ -69,31 +70,25 @@ def main() -> int:
     prepare_s = time.perf_counter() - t0
 
     fwd = EncryptedForward(head)
-    raw = fwd.reader.get_next()
-    r = renc.apply(renc.source.get_next())
-    ints, (V, C, dim, scale) = fwd.slot_ints(raw)
+    ints, (V, C, dim, scale) = fwd.slot_ints(fwd.reader.get_next())
     data = fac._encrypt_slotsets(ints).reshape(fac.P, V, C, 2, -1, fac.n)
     m = HEMatrix(fac, [HEVector(fac, data=data[:, i], dim=dim, scale=scale)
                        for i in range(V)], "col")
-    rows = [("input", 0.0, m, r)]
-    for layer, rlayer in zip(fwd.layers, rlayers):
+    rows = [("input", 0.0, m)]
+    for layer in fwd.layers:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = layer.apply(m)
         torch.cuda.synchronize()
-        rows.append((type(layer).__name__, time.perf_counter() - t0, m,
-                     rlayer.apply(rows[-1][3])))
+        rows.append((type(layer).__name__, time.perf_counter() - t0, m))
     out = []
-    for name, seconds, m, r in rows:
-        budget = min(v.noise_budget() for v in m.vectors[: args.sample])
-        enc, want = m.decrypt(), np.asarray(r.decrypt(), dtype=float)
-        want = want.reshape(enc.shape)
-        rel = float(np.max(np.abs(enc - want)) / max(np.max(np.abs(want)), 1e-300))
-        out.append(dict(layer=name, seconds=seconds, budget_bits=budget,
-                        max_rel_diff=rel, vectors=len(m.vectors)))
-        print(f"{name:24s} {seconds:9.3f} s  budget {budget:4d} bits  max "
-              f"relative difference from Raw {rel:.3e}  ({len(m.vectors)} "
-              f"vectors)", flush=True)
+    for (name, seconds, m), r in zip(rows, raws):
+        a = layer_agreement(m, r, args.sample)
+        out.append(dict(layer=name, seconds=seconds, budget_bits=a["budget"],
+                        max_rel_diff=a["max_rel_diff"], vectors=a["vectors"]))
+        print(f"{name:24s} {seconds:9.3f} s  budget {a['budget']:4d} bits  max "
+              f"relative difference from Raw {a['max_rel_diff']:.3e}  "
+              f"({a['vectors']} vectors)", flush=True)
     result = dict(card=torch.cuda.get_device_name(0), network=args.network,
                   preset=args.preset, ntt_impl=fac.ntt_impl,
                   plain_primes=list(fac.plain_primes), limbs=len(fac.coeff_modulus),

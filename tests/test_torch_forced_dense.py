@@ -174,6 +174,35 @@ def test_forced_slot_sum_and_dot_product(pairs, ring):
         _same(ta.dot_product(to), ja.dot_product(jo), "dot_product, sparse")
 
 
+@pytest.mark.parametrize("ring", sorted(RINGS))
+def test_forced_dot_budget_steps_equal_reference(pairs, ring):
+    """The noise budget after each step of a per-row dot with the forced
+    dense output (`scripts/torch_mask_noise.py`'s steps: times a plain
+    row, the slot-sum ladder, the unit mask, five rows as one forced
+    matvec), each package measuring its own ciphertexts: equal step by
+    step.  Each plaintext multiply costs log2(t * sqrt(n / 12)) bits
+    within 5, the growth under a polynomial uniform mod t."""
+    from cryptonets_tpu.api.tracker import CryptoTracker
+
+    jf, tf = pairs(ring)
+    x = RNG.integers(0, 256, 200).astype(float)
+    w = RNG.integers(-1024, 1025, size=(5, 200)).astype(float)
+    ja = jf.get_encrypted_vector(x, "dense", 1.0)
+    budgets = {}
+    for pkg, f, a in (("ref", jf, ja), ("port", tf, _port_vec(tf, ja))):
+        prod = a.pointwise_multiply(f.get_plain_vector(w[0], "dense", 1.0))
+        steps = [a, prod, prod.sum_all_slots(),
+                 prod.sum_all_slots(force_output_in_column=7),
+                 f.get_plain_matrix(w, "row", 1.0).mul(a, True)]
+        budgets[pkg] = [CryptoTracker.test_vector_budget(v, warn=False)
+                        if pkg == "ref" else v.noise_budget() for v in steps]
+    assert budgets["port"] == budgets["ref"]
+    b = budgets["port"]
+    predicted = np.log2(max(RINGS[ring][0]) * np.sqrt(N / 12))
+    for cost in (b[0] - b[1], b[2] - b[3]):      # the row, the unit mask
+        assert abs(cost - predicted) <= 5, (b, predicted)
+
+
 # ---------------------------------------------------------------- matvec
 R, D = 5, 12          # rows (columns) and their dim
 
