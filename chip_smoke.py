@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--phases build,ntt,mmntt,contract,bigt,lola,
                            cryptonets,cryptonets_matmul,cryptonets_bigt,
                            lola_small,caltech,lola_packed,lola_large,cifar,
-                           lola_dense,cifar_bigt,lola_large_bigt]
+                           lola_dense,cifar_bigt,lola_large_bigt,serve,
+                           basic,op_budgets]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -74,7 +75,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      2608 SumAllSlots ladders at n = 16384): one record each, the same
      checks as the paths of 7, every layer's output against the Raw
      oracle's, the budget beside the reference's;
- 10. launch shapes: every path records the shape of every kernel launch
+ 10. `serve`: LoLa at full width and depth through the client/server
+     split and files (`api/serial.py`): the client writes a public-only
+     and a full key file and the encrypted input of one record, the server
+     evaluates on a factory loaded from the public-only file and writes
+     the output, the client decrypts it; the logits against the Raw
+     oracle, the output ciphertexts bit-equal to the client's own run, the
+     server's decrypt refused, K1, K2 and K4 launched; file sizes, save
+     and load seconds, the server's record seconds, the final budget;
+ 11. `basic`: the Basic Example under the `default` preset (n = 4096,
+     three limbs, five plain primes), its results exact;
+ 12. `op_budgets`: `utils/budget.py` on every preset, each entry above 0
+     bits and within 3 bits of the reference's row (`REFERENCE_OP_BUDGETS`,
+     printed by the JAX package's `utils/budget.py` on today's presets);
+ 13. launch shapes: every path records the shape of every kernel launch
      of its first record (batch), and after the paths a fresh process
      (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5 and K4
      (on the path's own weights) bit-equal to their plain versions at
@@ -111,7 +125,7 @@ TIMED_RECORDS = 2
 PHASES = ("build", "ntt", "mmntt", "contract", "bigt", "lola", "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
-          "lola_large_bigt")
+          "lola_large_bigt", "serve", "basic", "op_budgets")
 # final budgets the reference records (docs/PARITY.md:175; :155 gives no
 # budget for `cryptonets_bigt`, only its plain moduli's 78.6-bit capacity)
 REFERENCE_BUDGETS = {"cifar_bigt": "none recorded: the JAX package never ran "
@@ -408,12 +422,15 @@ def kernel_phase(dev) -> list[dict]:
             timing = {name: dict(shapes[name][-1], plain_ms=plain[name])
                       for name in names}
     keep = ("shape", "ms", "device_ms", "bound_ms", "bound_by")
+    host_ms = launcher_host_ms(dev)
+    log(f"K3, the launcher of K1/K2 (kernels/ntt.py _launch): {1e3 * host_ms:.1f} "
+        f"us of host time a call (no device work of its own)")
     return [
         dict(
             name=name, route="cuda",
             source="cryptonets_tpu_torch/kernels/ntt.cu",
             replaces=replaces, max_abs_err=err[name], library_ms=None,
-            **timing[name],
+            launcher_host_ms=host_ms, **timing[name],
             shapes=[{k: c[k] for k in keep} for c in shapes[name]],
             instances={k: v for k, v in instances.items() if k.startswith(name)},
         )
@@ -1339,6 +1356,235 @@ def slice_c_phase(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     return runs
 
 
+def _sync_s() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def serve_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """LoLa (`build_lola_bsgs`, full width and depth) through the
+    client/server split, through files.  The client builds the network on
+    the card, writes a public-only and a full key file and the encrypted
+    input matrix of one record.  The server loads a factory from the
+    public-only file, sets it on its network's EncryptLayer before
+    `prepare_network`, loads the matrix, runs the layers and writes the
+    output matrix, which the client loads and decrypts.  Gates: the logits
+    equal the Raw oracle's at rtol 1e-9; the output ciphertexts equal, bit
+    for bit, the client's own run of the layers on the same loaded input;
+    the server's decrypt raises; K1, K2 and K4 launch.  `launches` counts
+    the whole phase, `per_record` the server's steady record."""
+    import tempfile
+
+    from cryptonets_tpu_torch.api import serial
+    from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
+    from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
+    from cryptonets_tpu_torch.nn.forward import EncryptedForward
+
+    records = synthetic_mnist_records(1, seed=11)
+    copy = lambda: [(lb, f.copy()) for lb, f in records]  # noqa: E731
+    head_r, _, _ = build_lola_bsgs(False, records=copy())
+    head_r.prepare_network()
+    raw_logits = head_r.get_next().get_column(0).decrypt()
+    reset_kernel_counts()
+    out, tmp = {}, tempfile.TemporaryDirectory()
+    files = {k: os.path.join(tmp.name, f"{k}.npz") for k in
+             ("public", "full", "input", "output")}
+
+    # the client: keygen, the key files, the encrypted input
+    t0 = _sync_s()
+    head_c, fac_c, _ = build_lola_bsgs(True, records=copy(), device=dev)
+    out["client_keygen_s"] = _sync_s() - t0
+    head_c.prepare_network()
+    for name, secret in (("public", False), ("full", True)):
+        t0 = _sync_s()
+        serial.save_keys(fac_c, files[name], include_secret=secret)
+        out[f"save_{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_mb"] = os.path.getsize(files[name]) / 1e6
+    fwd_c = EncryptedForward(head_c)
+    m_in = fwd_c.encrypt_layer.apply(fwd_c.reader.get_next())
+    t0 = _sync_s()
+    with open(files["input"], "wb") as fh:
+        serial.save_matrix(m_in, fh)
+    out["save_input_s"] = time.perf_counter() - t0
+    out["input_mb"] = os.path.getsize(files["input"]) / 1e6
+
+    # the server: the public-only factory, the network, the record
+    t0 = time.perf_counter()
+    fac_s = serial.load_factory(files["public"], device=dev)
+    out["load_public_s"] = _sync_s() - t0
+    head_s, _, _ = build_lola_bsgs(False)
+    fwd_s = EncryptedForward(head_s)
+    fwd_s.encrypt_layer.factory = fac_s
+    t0 = time.perf_counter()
+    head_s.prepare_network()
+    out["server_prepare_s"] = _sync_s() - t0
+    t0 = time.perf_counter()
+    with open(files["input"], "rb") as fh:
+        m_s = serial.load_matrix(fac_s, fh)
+    out["load_input_s"] = _sync_s() - t0
+    # the first record builds what the layers keep (stacked keys, the
+    # contraction's weights); the second is the steady one
+    for key in ("server_first_record_s", "server_record_s"):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        with shapes or contextlib.nullcontext():
+            res_s = fwd_s.run_encrypted(m_s)
+        out[key] = _sync_s() - t0
+    per_record = {k: v - before[k] for k, v in kernel_counts().items()}
+    t0 = time.perf_counter()
+    with open(files["output"], "wb") as fh:
+        serial.save_matrix(res_s, fh)
+    out["save_output_s"] = time.perf_counter() - t0
+    out["output_mb"] = os.path.getsize(files["output"]) / 1e6
+    try:
+        res_s.decrypt()
+    except RuntimeError as e:
+        log(f"serve: the server's decrypt raises: {e}")
+    else:
+        raise SystemExit("serve: the server factory decrypted without a secret key")
+    launched = kernel_counts()
+
+    # the client: the output, and its own run of the layers on the input
+    t0 = time.perf_counter()
+    with open(files["output"], "rb") as fh:
+        res_c = serial.load_matrix(fac_c, fh)
+    out["load_output_s"] = _sync_s() - t0
+    enc = res_c.get_column(0).decrypt()
+    if enc.shape != raw_logits.shape or not np.allclose(enc, raw_logits,
+                                                        rtol=1e-9, atol=0):
+        raise SystemExit(f"serve: the client's logits {enc[:10]} disagree "
+                         f"with the Raw oracle {raw_logits[:10]}")
+    with open(files["input"], "rb") as fh:
+        same = fwd_c.run_encrypted(serial.load_matrix(fac_c, fh))
+    if not all(torch.equal(a.data, b.data)
+               for a, b in zip(same.vectors, res_c.vectors)):
+        raise SystemExit("serve: the server's output ciphertexts differ from "
+                         "the client's own run on the same input")
+    check_launches("serve", launched, BUTTERFLY_KERNELS + ("mod_contract",),
+                   MATMUL_KERNELS)
+    out.update(budget=res_c.get_column(0).noise_budget(), launches=launched,
+               per_record=per_record, galois_keys=len(fac_s.keys.galois))
+    tmp.cleanup()
+    log(f"serve (LoLa through files, the server public-only): logits equal "
+        f"the Raw oracle, the output ciphertexts equal the client's own run "
+        f"bit for bit; key files public {out['public_mb']:.1f} MB, full "
+        f"{out['full_mb']:.1f} MB, {out['galois_keys']} Galois keys; save "
+        f"public {out['save_public_s']:.3f} s, full {out['save_full_s']:.3f} s; "
+        f"load public {out['load_public_s']:.3f} s; input {out['input_mb']:.1f} MB "
+        f"saved {out['save_input_s']:.3f} s, loaded {out['load_input_s']:.3f} s; "
+        f"output {out['output_mb']:.2f} MB saved {out['save_output_s']:.3f} s, "
+        f"loaded {out['load_output_s']:.3f} s; server prepare "
+        f"{out['server_prepare_s']:.3f} s, first record "
+        f"{out['server_first_record_s']:.4f} s, second {out['server_record_s']:.4f} s; "
+        f"client keygen {out['client_keygen_s']:.3f} s; final noise budget "
+        f"{out['budget']} bits; kernel launches {launched}, on the steady "
+        f"record {per_record}")
+    return out
+
+
+def basic_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """The Basic Example under the `default` preset (n = 4096, three
+    limbs, five plain primes): norm^2 = 385, sum = 55 and the elementwise
+    product v * v[::-1], exactly; keygen and compute seconds."""
+    from cryptonets_tpu_torch.models import basic_example
+
+    reset_kernel_counts()
+    with shapes or contextlib.nullcontext():
+        res = basic_example.run(verbose=False, device=dev)
+    v = np.arange(1.0, 11.0)
+    if (res["norm_squared"] != 385 or res["sum"] != 55
+            or not np.array_equal(res["elementwise"], v * v[::-1])):
+        raise SystemExit(f"basic: wrong results {res}")
+    launched = kernel_counts()
+    check_launches("basic", launched, BUTTERFLY_KERNELS,
+                   MATMUL_KERNELS + ("mod_contract",))
+    log(f"basic example (default preset): norm^2 385, sum 55, elementwise "
+        f"{res['elementwise'].tolist()} exactly; keygen "
+        f"{res['keygen_seconds']:.3f} s, compute {res['compute_seconds']:.3f} "
+        f"s; kernel launches {launched}")
+    return dict(launches=launched, keygen_s=res["keygen_seconds"],
+                compute_s=res["compute_seconds"])
+
+
+# the reference's per-operation budgets on today's presets: fresh, enc x
+# enc dot, plain dot, slot sum, plain mult, enc mult, rotate, as
+# `python -m cryptonets_tpu.utils.budget <preset> --cpu` prints them (the
+# JAX package on the CPU, seed 0; encryption randomness differs between
+# the packages, so rows agree in bits, not ciphertexts).  The table in
+# `docs/PARITY.md:137-146` predates later preset changes (LoLa's 8-bit
+# digits, the small-t CIFAR and LoLaLarge) and is not used here.
+REFERENCE_OP_BUDGETS = {
+    "default": (56, 17, 17, 39, 29, 28, 48),
+    "lola": (176, 134, 133, 166, 146, 145, 175),
+    "cryptonets": (156, 102, 102, 148, 115, 114, 155),
+    "lola_small": (113, 68, 67, 109, 80, 80, 113),
+    "caltech": (49, 5, 5, 35, 17, 16, 43),
+    "lola_large": (280, 226, 224, 275, 238, 237, 280),
+    "cifar": (342, 287, 286, 338, 300, 300, 342),
+    "lola_dense": (301, 243, 239, 296, 253, 253, 301),
+    "cryptonets_bigt": (138, 77, 75, 134, 88, 87, 138),
+    "lola_large_bigt": (278, 224, 221, 274, 235, 234, 278),
+    "cifar_bigt": (323, 258, 257, 319, 271, 270, 323),
+}
+
+
+def op_budgets_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """`utils.budget.op_budgets` on the card for every preset of the
+    port, each row beside the reference's (`REFERENCE_OP_BUDGETS`): every
+    entry above 0 bits and within 3 bits of the reference's."""
+    from cryptonets_tpu_torch.models.presets import CONFIGS, make_factory
+    from cryptonets_tpu_torch.utils.budget import op_budgets
+
+    if set(REFERENCE_OP_BUDGETS) != set(CONFIGS):
+        raise SystemExit("op_budgets: the reference's rows and the port's "
+                         "presets differ")
+    reset_kernel_counts()
+    rows, bad = {}, []
+    for name in CONFIGS:
+        t0 = time.perf_counter()
+        with shapes or contextlib.nullcontext():
+            fac = make_factory(name, True, seed=0, device=dev)
+            row = op_budgets(fac)
+        del fac
+        torch.cuda.empty_cache()
+        ref = REFERENCE_OP_BUDGETS[name]
+        rows[name] = dict(row, reference=ref, seconds=time.perf_counter() - t0)
+        if min(row.values()) <= 0 or any(abs(b - r) > 3 for b, r in
+                                         zip(row.values(), ref)):
+            bad.append(name)
+        log(f"op budgets {name}: " + ", ".join(f"{k} {v}" for k, v in row.items())
+            + f"; the reference {ref} ({rows[name]['seconds']:.2f} s)")
+    launched = kernel_counts()
+    check_launches("op_budgets", launched, BUTTERFLY_KERNELS, MATMUL_KERNELS)
+    log(f"op budgets: {len(rows)} presets, kernel launches {launched}")
+    if bad:
+        raise SystemExit(f"op_budgets: {bad} at 0 bits or more than 3 bits "
+                         f"from the reference's row")
+    return dict(launches=launched, rows=rows)
+
+
+def launcher_host_ms(dev, calls: int = 400) -> float:
+    """K3, the launcher of K1/K2 (`kernels/ntt.py` `_launch`): host
+    seconds a call, from the host clock over `calls` back-to-back
+    forward NTTs of one row at n = 4096 (device work far shorter than the
+    host's, so the queue never fills and the host sets the rate)."""
+    from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
+    from cryptonets_tpu_torch.kernels import ntt as K
+
+    mods = (40961,)
+    tab = get_ntt_context(4096, mods).tables(dev)
+    x = torch.zeros((1, 1, 4096), dtype=torch.int32, device=dev)
+    for _ in range(10):
+        K.ntt_forward(x, tab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        K.ntt_forward(x, tab)
+    host = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return 1e3 * host
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1408,6 +1654,8 @@ def main() -> int:
     runs += tuple((phase, lambda d, r, p=phase: lola_phase(d, p, r))
                   for phase in ("lola_packed", "lola_large", "cifar",
                                 "lola_dense", "cifar_bigt", "lola_large_bigt"))
+    runs += (("serve", serve_phase), ("basic", basic_phase),
+             ("op_budgets", op_budgets_phase))
     for phase, run in runs:
         if phase not in phases:
             continue
@@ -1438,12 +1686,13 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         # launches on each main path, counted from zero at its start, and
-        # per record (per batch of 8192 for CryptoNets) on its timed part
+        # per record (per batch of 8192 for CryptoNets) on its timed part,
+        # for the paths that serve records (not `basic` or `op_budgets`)
         k["launches_by_path"] = {p: r["launches"][name] for p, r in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_record"] = {
             p: (r.get("per_record") or r["per_batch"])[name]
-            for p, r in paths.items()}
+            for p, r in paths.items() if "per_record" in r or "per_batch" in r}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

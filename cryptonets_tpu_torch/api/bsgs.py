@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..crypto.modular import add_mod, mod_sum
+from ..utils.opcount import OPS
 
 BABY_CHUNK = 16  # babies gathered per step (bounds the int64 temporaries)
 
@@ -209,9 +210,13 @@ def bsgs_matvec(form: BsgsDenseForm, data):
 
     u = data[:, 0]                                        # [P, 2, k, N]
     if F == 2:
+        OPS.count("rotation", 1)
         ub = torch.stack([u, bfv0.rotate_columns(u, keys)], dim=1)
     else:
         ub = u[:, None]
+    # g - 1 baby rotations either way (the reference's scanned chain for
+    # g > 8 runs and counts g, the last one discarded)
+    OPS.count("rotation", F * (g - 1))
     if hoist_eligible(fac, g):
         bab_hat = _hoisted_babies_hat(fac, ub, g)         # [P, g, F, 2, k, N]
     else:
@@ -228,11 +233,16 @@ def bsgs_matvec(form: BsgsDenseForm, data):
     if len(form.active) > max(4, G // 4):
         # dense support: every giant step, zero chunks included, from a
         # zero accumulator (G key switches, the first of a zero ciphertext)
+        OPS.count("plain_multiplication", g * F * G)
+        OPS.count("rotation", G)
         z = torch.zeros_like(u)
         for a in reversed(range(G)):
             z = add_mod(bfv0.rotate_rows(z, g, keys), chunk_acc(a), q)
         return z[:, None]
     # sparse support: Horner over the non-zero giant chunks, last first
+    # (counted as the reference counts it: a rotation a chunk)
+    OPS.count("plain_multiplication", g * F * len(form.active))
+    OPS.count("rotation", len(form.active))
     z, prev = None, None
     for a in reversed(form.active):
         acc = chunk_acc(a)

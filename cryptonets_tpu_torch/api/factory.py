@@ -93,6 +93,9 @@ class CrtBfvFactory:
             keys.to(self.device) if keys is not None
             else self.bfv[0].keygen(seed=seed, rot_steps=rot_steps)
         )
+        # False for a factory loaded from a public-only key file
+        # (`api/serial.py`): it encrypts and evaluates, never decrypts
+        self.has_secret_key = True
         self.encoders = [BatchEncoder(n, t) for t in self.plain_primes]
         self.plain_crt = CRT(list(self.plain_primes))
         self._gen = torch.Generator(device=self.device)
@@ -110,6 +113,24 @@ class CrtBfvFactory:
         self._slot_of_position = np.argsort(self.encoders[0].index_map)
         self._stack_cache: dict = {}
         self._mask_cache: dict = {}
+
+    @property
+    def slot_count(self) -> int:
+        return self.n
+
+    @property
+    def block_size(self) -> int:
+        return self.n
+
+    def fresh_key(self) -> torch.Generator:
+        """A new generator on the factory's device, seeded from the
+        factory's own stream: the counterpart of the reference's
+        `jax.random.split` of its key (`api/factory.py:371-373`)."""
+        seed = int(torch.randint(0, 2**62, (1,), generator=self._gen,
+                                 device=self.device))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
 
     # ------------------------------------------------- encrypt / decrypt
     def encode_bufs(self, slotsets_int: np.ndarray) -> np.ndarray:
@@ -222,7 +243,12 @@ class CrtBfvFactory:
         """[P, C, size, k, N] -> slot values mod t_p [P, C, N] on the host:
         the device decrypt and decode (t < 2**31), the two-plane device
         decrypt with the host join and C++ decode (2**31 <= t < 2**62),
-        else the exact host decrypt."""
+        else the exact host decrypt.  Every decrypt of the port passes
+        here: a factory without the secret key raises."""
+        if not self.has_secret_key:
+            raise RuntimeError(
+                "this factory was loaded without a secret key; "
+                "decryption is disabled (ref AtomicSealBfvVector.cs:121-128)")
         if self._device_decode:
             return self._decrypt_decode_all(data).cpu().numpy().astype(np.int64)
         if self._device_decode_big:
@@ -280,6 +306,20 @@ class CrtBfvFactory:
             acc = term if acc is None else acc + term
         acc = acc % M
         return np.where(acc > M >> 1, acc - M, acc)
+
+    # --------------------------------------------------- CRT string codec
+    def get_value_from_string(self, s: str) -> int:
+        """Comma-joined per-prime residues -> CRT value in [0, prod t)
+        (ref GetValueFromString, `IFactory.cs:395-403`)."""
+        crt = self.plain_crt
+        acc = sum(punct * inv * int(r) for r, punct, inv in zip(
+            s.split(","), crt.punctured, crt.inv_punctured))
+        return acc % crt.product
+
+    def get_string_from_value(self, value: int) -> str:
+        """CRT value -> comma-joined per-prime residues (ref
+        GetStringFromValue, `IFactory.cs:405-408`)."""
+        return ",".join(str(int(value) % t) for t in self.plain_primes)
 
     def join_decoded_blocks(self, slots_all: np.ndarray, dim: int):
         """Decoded slot residues [P, C, N] -> centered big-int values [dim]."""
@@ -373,10 +413,12 @@ class CrtBfvFactory:
         """Slot values -> coefficient residues [P, C, k, N] for add_plain."""
         return self.plain_add_forms(self._slot_rows(int_values, dim))
 
-    def add_plain_data(self, data, form) -> torch.Tensor:
-        """ct data [P, ...] + plain residues [P, ...]: per-prime Delta."""
+    def add_plain_data(self, data, form, sub: bool = False) -> torch.Tensor:
+        """ct data [P, ...] +/- plain residues [P, ...]: per-prime Delta."""
         return torch.stack([
-            self.bfv[pi].add_plain(data[pi], form[pi]) for pi in range(self.P)
+            (self.bfv[pi].sub_plain if sub else self.bfv[pi].add_plain)(
+                data[pi], form[pi])
+            for pi in range(self.P)
         ])
 
     def flat_mask_form(self, lo: int, hi: int) -> torch.Tensor:

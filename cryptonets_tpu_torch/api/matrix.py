@@ -1,5 +1,5 @@
 """HEMatrix: a list of uniform HEVectors, columns or rows (port of
-`cryptonets_tpu/api/matrix.py`; `add` and `set_column` are not ported).
+`cryptonets_tpu/api/matrix.py`).
 
 `mul` takes every branch of the reference:
   * row-major by a dense vector (an encrypted or a plain matrix by an
@@ -14,7 +14,9 @@
     an encrypted vector).
 The rows (columns) run in pieces of about DOT_CHUNK_BYTES of products,
 whose sums add up piece by piece: a modular sum is exact in any order, so
-the result is bit-equal to the reference's one stack of every row."""
+the result is bit-equal to the reference's one stack of every row.
+Operations count themselves in `utils.opcount.OPS` as the reference's
+one stack does: once a matvec, not once a piece."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ..crypto.modular import add_mod, mod_sum, mul_const_mod
+from ..utils.opcount import OPS
 from .vector import DENSE, SPARSE, HEVector
 
 # Columns per piece of the batched ciphertext multiply.  The BEHZ multiply
@@ -57,19 +60,23 @@ def _pieces(count: int, item_bytes: int):
     return [(i, min(i + step, count)) for i in range(0, count, step)]
 
 
-def _sum_slots_data(factory, d, length=None):
+def _sum_slots_data(factory, d, length=None, count: bool = True):
     """Batched SumAllSlots on ciphertext data [..., C, 2, k, N] ->
     [..., 1, 2, k, N]: the blocks are added, a column swap folds the two
     rows (a complete sum), then log2 right-rotate-and-add steps run as one
     ladder (`BFV.rotate_accumulate_scan`) when every step has its Galois
     key, else step by step.  out[i] = sum_{j < length} in[i - j]; the
-    complete sum leaves the total in every slot."""
+    complete sum leaves the total in every slot.  `count` False leaves
+    the operation counts to the caller (a later piece of one matvec)."""
+    ops = OPS.count if count else (lambda name, n=1: None)
     bfv0 = factory.bfv[0]
     q = bfv0.p.chain_q.q
     row = factory.n // 2
     if d.shape[-4] > 1:
+        ops("add_many", 1)
         d = mod_sum(d, q, dim=-4).unsqueeze(-4)
     if length is None or length >= row:
+        ops("rotation", 1)
         d = add_mod(d, bfv0.rotate_columns(d, factory.keys), q)
         length = row
     g_list, steps = [], 1
@@ -78,10 +85,12 @@ def _sum_slots_data(factory, d, length=None):
         steps *= 2
     if g_list and d.shape[-3] == 2 and all(
             g in factory.keys.galois for g in g_list):
+        ops("rotation", len(g_list))
         return bfv0.rotate_accumulate_scan(
             d, factory.stacked_galois(tuple(g_list)))
     acc, steps = d, 1
     while steps < length:
+        ops("rotation", 1)
         acc = add_mod(acc, bfv0.rotate_rows(acc, -steps, factory.keys), q)
         steps *= 2
     return acc
@@ -131,6 +140,12 @@ class HEMatrix:
         if self.fmt != ROW_MAJOR:
             raise ValueError("get_row needs a row-major matrix")
         return self.vectors[i]
+
+    def set_column(self, i: int, v: HEVector):
+        if self.fmt != COLUMN_MAJOR:
+            raise ValueError("set_column needs a column-major matrix")
+        self.vectors[i] = v
+        self._mult_forms = None
 
     def _stacked_data(self) -> torch.Tensor:
         """[P, V, C, s, k, N] — vector index as its own axis."""
@@ -187,6 +202,11 @@ class HEMatrix:
         q = bfv0.p.chain_q.q
         col0 = self.vectors[0]
         k, N = len(f.coeff_modulus), f.n
+        if self.is_encrypted and v.is_encrypted:
+            OPS.count("multiplication", V)
+            OPS.count("relinearization", 1)
+        else:
+            OPS.count("plain_multiplication", V)
         acc = None
         for c0, c1 in _pieces(V, f.P * col0.num_blocks * 3 * k * N * 4):
             if self.is_encrypted:
@@ -228,6 +248,11 @@ class HEMatrix:
         q = chain.q
         k, N = len(f.coeff_modulus), f.n
         masks = self._stacked_unit_masks() if force_dense else None
+        if self.is_encrypted and v.is_encrypted:
+            OPS.count("multiplication", R)
+            OPS.count("relinearization", R)
+        else:
+            OPS.count("plain_multiplication", R)
         parts, acc = [], None
         for r0, r1 in _pieces(R, f.P * v.num_blocks * 3 * k * N * 4):
             if self.is_encrypted:
@@ -241,7 +266,7 @@ class HEMatrix:
             else:
                 W = self._stacked_mult_forms()[:, r0:r1, :, None]
                 prod = bfv0.mul_plain(v.data[:, None], W)
-            sums = _sum_slots_data(f, prod)                # [P, r, 1, s, k, N]
+            sums = _sum_slots_data(f, prod, count=r0 == 0)  # [P, r, 1, s, k, N]
             if not force_dense:
                 parts.append(sums[:, :, 0])
                 continue
@@ -255,8 +280,15 @@ class HEMatrix:
             data = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
             return HEVector(f, data=data, dim=R, scale=scale, fmt=SPARSE,
                             is_signed=row0.is_signed)
+        OPS.count("plain_multiplication", R)      # the unit masks
         return HEVector(f, data=ntt.inverse(acc), dim=R, scale=scale,
                         fmt=DENSE, is_signed=row0.is_signed)
+
+    def add(self, other: "HEMatrix") -> "HEMatrix":
+        if self.fmt != other.fmt or len(self.vectors) != len(other.vectors):
+            raise ValueError("matrix shapes do not match")
+        return HEMatrix(self.factory, [
+            a.add(b) for a, b in zip(self.vectors, other.vectors)], self.fmt)
 
     def elementwise_multiply(self, other: "HEMatrix") -> "HEMatrix":
         if self.fmt != other.fmt or len(self.vectors) != len(other.vectors):
@@ -273,6 +305,8 @@ class HEMatrix:
         # batched ct x ct multiply + relinearisation over pieces of
         # MULT_CHUNK columns, written into one output tensor
         f = self.factory
+        OPS.count("multiplication", V)
+        OPS.count("relinearization", V)
         d0 = self.vectors[0].data                       # [P, C, 2, k, N]
         out = torch.empty((f.P, V) + tuple(d0.shape[1:]), dtype=d0.dtype,
                           device=d0.device)

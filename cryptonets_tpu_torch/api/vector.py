@@ -1,7 +1,6 @@
 """HEVector: the scale-tracked ciphertext vector (port of
-`cryptonets_tpu/api/vector.py`, the operations the ported networks use
-and the forced output column of a slot sum; `subtract` and plain-vector
-rotation are not ported).
+`cryptonets_tpu/api/vector.py`).  Every operation counts itself in
+`utils.opcount.OPS` with the reference's names and counts.
 
 Layout: `data` is int32 [P, C, size, k, N] — P plain-CRT primes, C blocks.
   * dense:  C = ceil(dim/n) blocks; flat slot order (slots [0, n/2) =
@@ -18,6 +17,7 @@ import torch
 
 from ..crypto.modular import add_mod, sub_mod
 from ..crypto.noise import invariant_noise_budget
+from ..utils.opcount import OPS
 
 DENSE = "dense"
 SPARSE = "sparse"
@@ -42,6 +42,10 @@ class HEVector:
     @property
     def is_encrypted(self) -> bool:
         return self.data is not None
+
+    @property
+    def block_size(self) -> int:
+        return self.factory.block_size
 
     @property
     def num_blocks(self) -> int:
@@ -84,23 +88,49 @@ class HEVector:
             self._add_form = self.factory.plain_add_forms(self._slot_values())
         return self._add_form
 
-    # ------------------------------------------------------------ add
+    # ------------------------------------------------------------ add / sub
+    def _binary_scale_check(self, other):
+        if self.scale != 0 and other.scale != 0 and self.scale != other.scale:
+            raise ValueError(f"Scales do not match: {self.scale} vs {other.scale}")
+
     def add(self, other: "HEVector") -> "HEVector":
         if self.scale == 0:
             return other
         if other.scale == 0:
             return self
-        if self.scale != other.scale:
-            raise ValueError(f"Scales do not match: {self.scale} vs {other.scale}")
+        self._binary_scale_check(other)
         if self.is_encrypted and other.is_encrypted:
+            OPS.count("addition", self.data.shape[1])
             return self._clone_meta(
                 data=self.factory.bfv[0].add(self.data, other.data))
         if self.is_encrypted:
+            OPS.count("plain_addition", self.data.shape[1])
             return self._clone_meta(
                 data=self.factory.add_plain_data(self.data, other.add_form()))
         if other.is_encrypted:
             return other.add(self)
         return self._clone_meta(values=self.values + other.values)
+
+    def subtract(self, other: "HEVector") -> "HEVector":
+        """self - other over the four operand pairs; an operand of scale
+        0 is zero.  A plain minus an encrypted vector is the negated
+        ciphertext plus the plain vector."""
+        if other.scale == 0:
+            return self
+        if self.is_encrypted and other.is_encrypted:
+            self._binary_scale_check(other)
+            OPS.count("subtraction", self.data.shape[1])
+            return self._clone_meta(
+                data=self.factory.bfv[0].sub(self.data, other.data))
+        if self.is_encrypted:
+            self._binary_scale_check(other)
+            OPS.count("plain_subtraction", self.data.shape[1])
+            return self._clone_meta(data=self.factory.add_plain_data(
+                self.data, other.add_form(), sub=True))
+        if other.is_encrypted:
+            neg = other._clone_meta(data=other.factory.bfv[0].neg(other.data))
+            return neg.add(self)
+        return self._clone_meta(values=self.values - other.values)
 
     # --------------------------------------------------- pointwise multiply
     def pointwise_multiply(self, other: "HEVector") -> "HEVector":
@@ -115,11 +145,14 @@ class HEVector:
             a, b = b, a
         fac = self.factory
         if a.is_encrypted and b.is_encrypted:
+            OPS.count("multiplication", a.data.shape[1])
+            OPS.count("relinearization", a.data.shape[1])
             out = torch.stack([
                 bfv.relinearize(bfv.multiply(a.data[pi], b.data[pi]), fac.keys)
                 for pi, bfv in enumerate(fac.bfv)
             ])
         elif a.is_encrypted:
+            OPS.count("plain_multiplication", a.data.shape[1])
             out = fac.bfv[0].mul_plain(a.data, b.mult_form()[:, :, None])
         elif b.is_encrypted:
             return b.pointwise_multiply(a)
@@ -135,15 +168,23 @@ class HEVector:
     # ------------------------------------------------------------- rotations
     def _rot_rows(self, steps: int):
         """Row-rotate the data LEFT by steps (SEAL RotateRows convention)."""
+        OPS.count("rotation", self.data.shape[1])
         return self.factory.bfv[0].rotate_rows(self.data, steps, self.factory.keys)
 
     def _col_swap_data(self, data):
+        OPS.count("rotation", data.shape[1])
         return self.factory.bfv[0].rotate_columns(data, self.factory.keys)
 
     def rotate(self, amount: int) -> "HEVector":
-        """RotateRows(amount): each (n/2)-row of every block rotates left."""
+        """RotateRows(amount): each (n/2)-row of every block rotates left;
+        a plain vector's slot values move the same way."""
         if not self.is_encrypted:
-            raise NotImplementedError("plain-vector rotation is not ported")
+            row = self.factory.n // 2
+            out = np.stack([
+                np.concatenate([np.roll(b[:row], -amount),
+                                np.roll(b[row:], -amount)])
+                for b in self._slot_values()])
+            return self._clone_meta(values=out.reshape(-1)[: self.dim])
         return self._clone_meta(data=self._rot_rows(amount))
 
     # ----------------------------------------------------------- slot sums
@@ -164,6 +205,7 @@ class HEVector:
             raise ValueError("forcing the output column needs a complete sum")
         acc = _sum_slots_data(self.factory, self.data, length)
         if force_output_in_column is not None:
+            OPS.count("plain_multiplication", acc.shape[1])
             mask = self.factory.unit_mask_form(force_output_in_column)
             acc = self.factory.bfv[0].mul_plain(acc, mask[:, :, None])
             return self._clone_meta(data=acc, fmt=DENSE)
@@ -201,6 +243,7 @@ class HEVector:
                     rotator = self._col_swap_data(base)
                 src = rotator
                 amt -= n // 2
+            OPS.count("rotation", 1)
             res = add_mod(res, p.bfv[0].rotate_rows(src, -amt, p.keys), q)
         return self._clone_meta(data=res, dim=stride * count)
 
@@ -275,10 +318,12 @@ class HEVector:
         def rot_right(data, amt):
             if amt % row == 0:
                 return data
+            OPS.count("rotation", 1)
             return bfv0.rotate_rows(data, -amt, p.keys)
 
         def prefix_masked(data, ups):
             """data * mask(flat slots [0, ups)): the wrapped-around part."""
+            OPS.count("plain_multiplication", 1)
             return bfv0.mul_plain(data, p.flat_mask_form(0, ups)[:, :, None])
 
         scanned = set()
@@ -307,10 +352,12 @@ class HEVector:
                 if j - k + 1 >= 8:
                     half, b, base_amt = classes[k]
                     z = vecs[j].data
+                    OPS.count("rotation", j - k)
                     for i in range(j - 1, k - 1, -1):
                         z = add_mod(bfv0.rotate_rows(z, -shift, p.keys),
                                     vecs[i].data, q)
                     if base_amt % row:
+                        OPS.count("rotation", 1)
                         z = bfv0.rotate_rows(z, -base_amt, p.keys)
                     acc(lower if half == "lower" else upper, b, z)
                     scanned.update(range(k, j + 1))
@@ -336,6 +383,7 @@ class HEVector:
                     acc(upper, start_b, z)
                 else:
                     zm = prefix_masked(z, in_block + absh - n)
+                    OPS.count("subtraction", 1)
                     acc(upper, start_b, sub_mod(z, zm, q))
                     acc(lower, end_b, zm)
             else:
@@ -343,6 +391,7 @@ class HEVector:
                 ups = in_block + absh - row
                 if ups > 0:
                     zm = prefix_masked(z, ups)
+                    OPS.count("subtraction", 1)
                     acc(upper, start_b, zm)
                     acc(lower, start_b, sub_mod(z, zm, q))
                 else:

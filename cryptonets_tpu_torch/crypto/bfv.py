@@ -618,15 +618,45 @@ class BFV:
         return ((2 * p.t * w + Q) // (2 * Q)) % p.t
 
     # ------------------------------------------------------- add / plain ops
+    @staticmethod
+    def _match_size(a, b):
+        """Pad the smaller ciphertext with zero polynomials to the size
+        of the larger (size-2 + size-3)."""
+        sa, sb = a.shape[-3], b.shape[-3]
+        if sa == sb:
+            return a, b
+
+        def pad(x, size):
+            shape = x.shape[:-3] + (size - x.shape[-3],) + x.shape[-2:]
+            return torch.cat([x, x.new_zeros(shape)], dim=-3)
+
+        return (pad(a, sb), b) if sa < sb else (a, pad(b, sa))
+
     def add(self, a, b):
+        a, b = self._match_size(a, b)
         return add_mod(a, b, self.p.chain_q.q)
+
+    def sub(self, a, b):
+        a, b = self._match_size(a, b)
+        return sub_mod(a, b, self.p.chain_q.q)
+
+    def neg(self, a):
+        return neg_mod(a, self.p.chain_q.q)
+
+    def _plain_on_c0(self, a, pt_residues, op):
+        """a with c0 replaced by op(c0, Delta * pt)."""
+        q = self.p.chain_q.q
+        dm = mul_const_mod(pt_residues, self.p.delta_col, q)
+        c0 = op(a[..., 0, :, :], dm, q)
+        return torch.cat([c0.unsqueeze(-3), a[..., 1:, :, :]], dim=-3)
 
     def add_plain(self, a, pt_residues):
         """a + Delta * pt on the c0 polynomial."""
-        q = self.p.chain_q.q
-        dm = mul_const_mod(pt_residues, self.p.delta_col, q)
-        c0 = add_mod(a[..., 0, :, :], dm, q)
-        return torch.cat([c0.unsqueeze(-3), a[..., 1:, :, :]], dim=-3)
+        return self._plain_on_c0(a, pt_residues, add_mod)
+
+    def sub_plain(self, a, pt_residues):
+        """a - Delta * pt on the c0 polynomial."""
+        return self._plain_on_c0(a, pt_residues, sub_mod)
 
     def prepare_plain_mult(self, pt_residues):
         """Plaintext poly -> NTT + Montgomery domain [..., k, N]."""
@@ -704,6 +734,9 @@ class BFV:
             cq.reduce(alpha),
         )
         return sub_mod(conv_q, mul_const_mod(alpha_res, p.B_mod_q, cq.q), cq.q)
+
+    def square(self, a):
+        return self.multiply(a, a)
 
     # ----------------------------------------------------------- key switch
     def _digit(self, poly, d: int):

@@ -16,3 +16,11 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def synchronize(factory) -> None:
+    """Wait for the work queued on `factory`'s device when it is a CUDA
+    device, so that a host clock read next measures work, not launches."""
+    device = getattr(factory, "device", None)
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -75,14 +75,17 @@ def build(encrypt: bool = True, batch_size: int = 8192, records=None,
 
 def evaluate(encrypt=True, batch_size=8192, n_batches=1, records=None,
              file_name=None, seed=0, device=None, preset="cryptonets",
-             ntt_impl=None):
+             ntt_impl=None, verbose=False):
     """Run `n_batches` batches and count the prediction errors against
-    the records' labels."""
+    the records' labels; `verbose` prints each layer's report
+    (`Layer.forward`)."""
     if records is None and file_name is None:
         records = synthetic_mnist_records(batch_size * n_batches, seed=2)
     head, factory, reader = build(
         encrypt, batch_size, records=records, file_name=file_name, seed=seed,
         device=device, preset=preset, ntt_impl=ntt_impl)
+    if verbose:
+        head.set_verbose(True)
     head.prepare_network()
     run = EncryptedForward(head) if encrypt else None
     errs = count = last = 0
@@ -114,6 +117,7 @@ def evaluate(encrypt=True, batch_size=8192, n_batches=1, records=None,
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--records", type=int, default=None)
     ap.add_argument("--data", default=None)
     ap.add_argument("--no-encrypt", action="store_true")
@@ -130,7 +134,7 @@ def main():
     res = evaluate(
         encrypt=not args.no_encrypt, batch_size=args.batch,
         n_batches=n_batches, file_name=args.data, device=args.device,
-        preset=args.preset, ntt_impl=args.ntt,
+        preset=args.preset, ntt_impl=args.ntt, verbose=args.verbose,
     )
     if res["batch_times"]:
         print(f"batch size {args.batch}: {res['batch_times'][-1]:0.2f}s/batch, "

@@ -98,15 +98,18 @@ def build(encrypt: bool = True, records=None, file_name=None, seed: int = 0,
 
 def evaluate(encrypt=True, n_records=1, records=None, file_name=None,
              seed=0, device=None, weights_csv=None, bias_csv=None,
-             preset="cifar"):
+             preset="cifar", verbose=False):
     """Run records through the network; report the latency of each
-    prediction and the errors against the reader's labels."""
+    prediction and the errors against the reader's labels; `verbose`
+    prints each layer's report (`Layer.forward`)."""
     if records is None and file_name is None:
         records = synthetic_cifar_records(n_records, seed=4)
     head, factory, reader = build(
         encrypt, records=records, file_name=file_name, seed=seed,
         weights_csv=weights_csv, bias_csv=bias_csv, device=device,
         preset=preset)
+    if verbose:
+        head.set_verbose(True)
     head.prepare_network()
     run = EncryptedForward(head) if encrypt else None
     errs = 0
@@ -130,6 +133,7 @@ def evaluate(encrypt=True, n_records=1, records=None, file_name=None,
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-e", "--encrypt", action="store_true")
+    ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--records", type=int, default=1)
     ap.add_argument("--preset", default="cifar", choices=("cifar", "cifar_bigt"))
     ap.add_argument("--data", default=None, help="dense CSV/TSV test file")
@@ -141,7 +145,7 @@ def main():
     evaluate(encrypt=args.encrypt, n_records=args.records,
              file_name=args.data, device=args.device,
              weights_csv=args.weights_csv, bias_csv=args.bias_csv,
-             preset=args.preset)
+             preset=args.preset, verbose=args.verbose)
 
 
 if __name__ == "__main__":

@@ -333,16 +333,20 @@ BUILDERS = {
 
 
 def evaluate(build, encrypt=True, n_records=10, records=None,
-             file_name=None, seed=0, device=None, ntt_impl=None, preset=None):
+             file_name=None, seed=0, device=None, ntt_impl=None, preset=None,
+             verbose=False):
     """Run records through the network; report the latency of each
     prediction and the errors against the reader's labels.  `preset`,
-    when given, goes to a builder that takes one (LoLaLarge)."""
+    when given, goes to a builder that takes one (LoLaLarge); `verbose`
+    prints each layer's report (`Layer.forward`)."""
     if records is None and file_name is None:
         records = synthetic_mnist_records(n_records, seed=1)
     head, factory, reader = build(
         encrypt, records=records, file_name=file_name, seed=seed,
         device=device, ntt_impl=ntt_impl,
         **({} if preset is None else {"preset": preset}))
+    if verbose:
+        head.set_verbose(True)
     head.prepare_network()
     run = EncryptedForward(head) if encrypt else None
     errs = 0
@@ -371,6 +375,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-n", "--network", required=True, choices=BUILDERS)
     ap.add_argument("-e", "--encrypt", action="store_true")
+    ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--records", type=int, default=10)
     ap.add_argument("--data", default=None, help="TSV test file")
     ap.add_argument("--ntt", default=None, choices=("butterfly", "matmul"),
@@ -384,7 +389,7 @@ def main():
     res = evaluate(
         BUILDERS[args.network], encrypt=args.encrypt, n_records=args.records,
         file_name=args.data, device=args.device, ntt_impl=args.ntt,
-        preset=args.preset)
+        preset=args.preset, verbose=args.verbose)
     if res["count"]:
         print(f"done: {res['count']} records, steady-state latency "
               f"{res['steady_latency']:.3f}s")

@@ -1,10 +1,13 @@
 """Parameter presets of the port.
 
-The port's copy of ten entries of `cryptonets_tpu/models/presets.py`.
+The port's copy of the eleven entries of `cryptonets_tpu/models/presets.py`.
 The reference truncates SEAL's CoeffModulus128(n) chain with
 SmallModulusCount; the chains here have 31-bit limbs, so a preset matches
 the TOTAL bit width of the truncated SEAL chain (`coeff_count_for`): the
 same security and noise capacity over more limbs.
+  * `default` (`IFactory.cs:244-253`): the reference's default factory,
+    n = 4096 over the default three-limb chain, five plain primes; the
+    Basic Example's ring.
   * `lola`: the full seven-limb chain at n = 8192 (217 of the 218 bits
     that 128-bit security allows), the reference's plain primes
     (`LoLaCryptonets.cs:208`) and digit key switching at dbc=8: the
@@ -71,6 +74,9 @@ def coeff_count_for(n: int, small_modulus_count: int | None = None) -> int:
 
 
 CONFIGS = {
+    "default": dict(
+        plain_primes=(40961, 65537, 114689, 147457, 188417), n=4096,
+    ),
     "lola": dict(
         plain_primes=(557057, 638977, 737281, 786433), n=8192, dbc=8,
     ),
@@ -125,8 +131,6 @@ def make_factory(name: str, encrypt: bool = True, seed: int = 0,
     `ntt_impl` None means the factory's default ("butterfly")."""
     from ..api.factory import CrtBfvFactory, RawFactory
 
-    if name not in CONFIGS:
-        raise NotImplementedError(f"preset {name!r} is not ported")
     cfg = dict(CONFIGS[name])
     cfg.update(overrides)
     if not encrypt:

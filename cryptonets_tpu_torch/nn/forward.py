@@ -54,9 +54,10 @@ class EncryptedForward:
         return p
 
     def run_encrypted(self, m: HEMatrix) -> HEMatrix:
-        """The layers above the EncryptLayer on an encrypted matrix."""
+        """The layers above the EncryptLayer on an encrypted matrix (each
+        with its report in verbose mode, `Layer.forward`)."""
         for layer in self.layers:
-            m = layer.apply(m)
+            m = layer.forward(m)
         return m
 
     def slot_ints(self, raw):

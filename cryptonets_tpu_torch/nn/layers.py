@@ -1,6 +1,7 @@
 """Core layers (ref `NeuralNetworks/`), port of `cryptonets_tpu/nn/
 layers.py`: EncryptLayer, SquareActivation, PoolLayer (the CryptoNets
-conv / dense / mean-pool over SIMD-batched columns) and TimingLayer."""
+conv / dense / mean-pool over SIMD-batched columns), TimingLayer and
+DebugLayer."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from ..kernels.modmatmul import ContractCache
+from ..utils.opcount import OPS
 from .convolution import ConvolutionEngine
 from .network import Layer
 
@@ -151,6 +153,7 @@ class PoolLayer(Layer):
         maps, corners = e.maps, len(e.corners)
         Vin = len(m.vectors)
         W = self._weight_matrix()
+        OPS.count("plain_multiplication", maps * len(e.offsets))
         Xh = p0.ntt_q.forward(m._stacked_data())        # [P, Vin, C, 2, k, N]
 
         def gather(locs):
@@ -192,6 +195,7 @@ class PoolLayer(Layer):
         rowcount = col0.dim
         bias_scale = self.source.get_output_scale() * self.weights_scale
         out = out.reshape(out.shape[0], maps, corners, *out.shape[2:])
+        OPS.count("plain_addition", maps)
         out = f.add_plain_data(
             out, self._bias_form(rowcount, bias_scale)[:, :, None])
         return f.get_matrix([
@@ -268,4 +272,18 @@ class TimingLayer(Layer):
                 TimingLayer.total_time_ms[c] = (
                     TimingLayer.total_time_ms.get(c, 0.0) + ms)
                 TimingLayer.n[c] = TimingLayer.n.get(c, 0) + 1
+        return m
+
+
+class DebugLayer(Layer):
+    """Pass-through tap that calls `callback` on the flowing matrix (ref
+    `CaltechTests.cs` DebugLayer)."""
+
+    def __init__(self, source=None, callback=None):
+        super().__init__(source)
+        self.callback = callback
+
+    def apply(self, m):
+        if self.callback is not None:
+            self.callback(m)
         return m

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..kernels.modmatmul import ContractCache
+from ..utils.opcount import OPS
 from .convolution import ConvolutionEngine
 from .network import Layer
 
@@ -18,7 +19,9 @@ class LLPoolLayer(Layer):
     """LoLa conv over a single-image patch matrix (column i = i-th
     kernel-offset vector across windows): per map, sum_i w_i * col_i plus
     a dense bias.  Encrypted, all maps run as one exact modular
-    contraction; on the Raw backend as per-map matrix products."""
+    contraction; on the Raw backend as per-map matrix products.  Without
+    weights it is a mean pool: the columns added, the scale multiplied by
+    their count."""
 
     def __init__(self, source, input_shape, kernel_shape, stride=None,
                  padding=None, upper_padding=None, lower_padding=None,
@@ -29,9 +32,7 @@ class LLPoolLayer(Layer):
             input_shape, kernel_shape, stride, padding,
             upper_padding, lower_padding, map_count,
         )
-        if weights is None:
-            raise NotImplementedError("the mean-pool LLPoolLayer is not ported")
-        self.weights = np.asarray(weights, float)
+        self.weights = None if weights is None else np.asarray(weights, float)
         self.bias = None if bias is None else np.asarray(bias, float)
         self.weights_scale = float(weights_scale)
         self.hot_indices = hot_indices
@@ -41,10 +42,13 @@ class LLPoolLayer(Layer):
         self._contract = ContractCache()
 
     def get_output_scale(self):
+        if self.weights is None:
+            return len(self.engine.offsets) * self.source.get_output_scale()
         return self.weights_scale * self.source.get_output_scale()
 
     def output_dimension(self):
-        return len(self.engine.corners) * self.engine.maps
+        count = len(self.engine.corners)
+        return count if self.weights is None else count * self.engine.maps
 
     def prepare(self):
         if self.layer_prepared:
@@ -53,6 +57,8 @@ class LLPoolLayer(Layer):
         self.kernel_size = int(np.prod(e.kernel_shape))
         if self.bias is None:
             self.kernel_size += 1  # embedded-bias weight layout
+        if self.weights is None:
+            return
         self.weight_windows = []
         for m in range(e.maps):
             w = []
@@ -84,6 +90,12 @@ class LLPoolLayer(Layer):
         ])
 
     def apply(self, m):
+        if self.weights is None:  # mean pool: sum the offset columns
+            agg = m.get_column(0)
+            for i in range(1, m.column_count):
+                agg = agg.add(m.get_column(i))
+            agg.register_scale(agg.scale * m.column_count)
+            return self.factory.get_matrix([agg], "col")
         if not m.is_encrypted:
             cols = [
                 m.mul(self.weight_windows[k]).add(self.bias_vectors[k])
@@ -96,6 +108,7 @@ class LLPoolLayer(Layer):
         f = self.factory
         x = m._stacked_data()
         wc = self._contract.get(f, x.device, self._weight_ints)
+        OPS.count("plain_multiplication", wc.M * wc.O)
         out = exact_mod_contract(
             wc, x, f.coeff_modulus, f.bfv[0].p.chain_q.q
         )                                                 # [P, maps, C, s, k, N]
@@ -210,11 +223,13 @@ class LLPackedDenseLayer(Layer):
 
         f = self.factory
         W = self.weights_matrix._stacked_mult_forms()      # [P, R, C, k, N]
+        OPS.count("plain_multiplication", W.shape[1])
         prod = f.bfv[0].mul_plain(vector.data[:, None], W[:, :, :, None])
         sums = _sum_slots_data(f, prod, length=self.packing_shift)
         if self._bias_forms is None:
             self._bias_forms = torch.stack(
                 [v.add_form() for v in self.bias_matrix.vectors], dim=1)
+        OPS.count("plain_addition", W.shape[1])
         out = f.add_plain_data(sums, self._bias_forms)     # [P, R, 1, 2, k, N]
         out_scale = vector.scale * self.weights_matrix.scale
         dim = self.packing_count * self.packing_shift
@@ -253,6 +268,7 @@ class LLInterleaveLayer(Layer):
             f = self.factory
             stacked = m._stacked_data()                    # [P, V, C, 2, k, N]
             mf = self.mask.mult_form()                     # [P, C, k, N]
+            OPS.count("plain_multiplication", m.column_count)
             cleaned = f.bfv[0].mul_plain(stacked, mf[:, None, :, None])
             clean = [
                 HEVector(f, data=cleaned[:, i], dim=col0.dim,

@@ -1,9 +1,21 @@
 """Layer-graph contract: singly-linked pull pipeline (ref INetwork/
-BaseLayer); port of `cryptonets_tpu/nn/network.py` without the verbose
-per-layer probes.  Networks are linked lists of layers; data is pulled
-from the reader at the tail via get_next()."""
+BaseLayer, `NeuralNetworks/INetwork.cs`, `BaseLayer.cs`); port of
+`cryptonets_tpu/nn/network.py`.
+
+Networks are linked lists of layers; data is pulled from the reader at the
+tail via get_next().  Verbose mode prints each layer's preparation time,
+and for each application its time and width, the noise budget of output
+column 0 and the operation counts, as `BaseLayer.cs:31-42` does.  On a
+CUDA factory the time is taken after `torch.cuda.synchronize()`, so it
+measures the layer's work and not its launches.
+"""
 
 from __future__ import annotations
+
+import time
+
+from ..device import synchronize
+from ..utils.opcount import OPS
 
 
 class Layer:
@@ -11,6 +23,7 @@ class Layer:
         self.source = source
         self._factory = factory
         self.layer_prepared = False
+        self.verbose = False
 
     @property
     def factory(self):
@@ -21,6 +34,9 @@ class Layer:
     @factory.setter
     def factory(self, f):
         self._factory = f
+
+    def get_source(self):
+        return self.source
 
     def output_dimension(self) -> int:
         return self.source.output_dimension()
@@ -34,11 +50,35 @@ class Layer:
     def prepare_network(self):
         if self.source is not None:
             self.source.prepare_network()
+        t0 = time.time()
         self.prepare()
         self.layer_prepared = True
+        if self.verbose:
+            synchronize(self.factory)
+            print(f"Prepare {type(self).__name__} computed in "
+                  f"{time.time() - t0:.3f} seconds")
 
     def apply(self, m):
         raise NotImplementedError
+
+    def forward(self, m):
+        """apply(m); in verbose mode with the layer's time and width, the
+        budget of output column 0 and the operation counts printed."""
+        if not self.verbose:
+            return self.apply(m)
+        from ..api.tracker import test_budget
+
+        OPS.reset()
+        synchronize(self.factory)
+        t0 = time.time()
+        res = self.apply(m)
+        synchronize(self.factory)
+        dims = getattr(m, "row_count", "?"), getattr(m, "column_count", "?")
+        print(f"Layer {type(self).__name__} computed in "
+              f"{time.time() - t0:.3f} seconds; layer width {dims}")
+        test_budget(res, self.factory)
+        OPS.print()
+        return res
 
     def get_next(self):
         if not self.layer_prepared:
@@ -47,10 +87,22 @@ class Layer:
         m = self.source.get_next()
         if m is None:
             return None
-        return self.apply(m)
+        return self.forward(m)
+
+    def set_verbose(self, flag: bool = True):
+        """Set verbose on this layer and all its sources (ref
+        `CryptoNets.cs:81-82`)."""
+        layer = self
+        while layer is not None:
+            layer.verbose = flag
+            layer = layer.source
+        return self
 
 
 class InputLayer(Layer):
     """Input layers additionally expose per-record labels."""
 
     labels: list
+
+    def get_source(self):
+        return None
