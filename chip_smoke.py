@@ -4,7 +4,8 @@
                            cryptonets,cryptonets_matmul,cryptonets_bigt,
                            lola_small,caltech,lola_packed,lola_large,cifar,
                            lola_dense,cifar_bigt,lola_large_bigt,serve,
-                           basic,op_budgets]
+                           basic,op_budgets,parallel,pipeline,bigt62,
+                           featurize]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -88,11 +89,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
  12. `op_budgets`: `utils/budget.py` on every preset, each entry above 0
      bits and within 3 bits of the reference's row (`REFERENCE_OP_BUDGETS`,
      printed by the JAX package's `utils/budget.py` on today's presets);
- 13. launch shapes: every path records the shape of every kernel launch
+ 13. `parallel`: the `parallel/` package at full width, LoLaSmall at
+     n = 8192 on the 6-data + 1-special chain: `dryrun_production` on a
+     one-rank NCCL group (mesh {batch: 1, limb: 1}), then over two ranks
+     started with the spawn method on this one card under gloo, asked for
+     by name (NCCL refuses one card twice), each rank encrypting and
+     evaluating only its own records; every record exact against the Raw
+     oracle, the verdicts gathered on rank 0, records per second of each
+     over its group's window (a barrier before the timed forward, one
+     after every rank's has synchronised);
+ 14. `pipeline`: `PipelineForward` over LoLa at full width, one stage and
+     three stages on a CUDA stream each; every streamed record against the
+     Raw oracle, the three-stage outputs equal to the one-stage ones,
+     records per second of each;
+ 15. `bigt62`: a plain prime between 2**62 and 2**63 at n = 8192: host
+     encode, encrypt and evaluate on the card, exact host decrypt of
+     add_plain, a plaintext product and a ciphertext product with
+     relinearisation, each exact with budget left, the budgets beside the
+     reference's;
+ 16. `featurize`: the seeded AlexNet featurizer on the card for four
+     synthetic images against the CPU run of the same parameters;
+ 17. launch shapes: every path records the shape of every kernel launch
      of its first record (batch), and after the paths a fresh process
      (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5 and K4
      (on the path's own weights) bit-equal to their plain versions at
-     each, with edge rows, and times each beside its bound.
+     each, with edge rows, and times each beside its bound (the two-rank
+     `parallel` run's rank 0 sends its shapes back to this process).
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -125,7 +147,8 @@ TIMED_RECORDS = 2
 PHASES = ("build", "ntt", "mmntt", "contract", "bigt", "lola", "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
-          "lola_large_bigt", "serve", "basic", "op_budgets")
+          "lola_large_bigt", "serve", "basic", "op_budgets", "parallel",
+          "pipeline", "bigt62", "featurize")
 # final budgets the reference records (docs/PARITY.md:175; :155 gives no
 # budget for `cryptonets_bigt`, only its plain moduli's 78.6-bit capacity)
 REFERENCE_BUDGETS = {"cifar_bigt": "none recorded: the JAX package never ran "
@@ -1043,33 +1066,43 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
                 galois_keys=galois, peak_gib=max(peaks), by_layer=by_layer)
 
 
+def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
+    """The launch shapes a path recorded as picklable cases of the fresh
+    process's check: K1/K2 and K5 by shape and moduli, K4 with the
+    path's weights reduced mod each modulus."""
+    from cryptonets_tpu_torch.kernels import modmatmul as MM
+
+    cases = []
+    for kind, seen in (("ntt", rec.ntt), ("mmntt", rec.mmntt)):
+        for (shape, _), (tab, names) in seen.items():
+            cases.append(dict(kind=kind, where=where, shape=shape,
+                              mods=tuple(int(q) for q in tab.q.view(-1).tolist()),
+                              names=sorted(names)))
+    for (M, O, shape, mods), w in rec.contract.items():
+        reduced = (w.reduced.cpu().numpy() if isinstance(w, MM.ContractWeights)
+                   else MM.reduce_weights(w, mods))
+        cases.append(dict(kind="contract", where=where, shape=shape, mods=mods,
+                          reduced=reduced))
+    return cases
+
+
 def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     """Every kernel held to its plain version and timed beside its bound
     at every launch shape recorded on the paths (each (shape, moduli)
     once, in the first path that launched it; K4 on the path's own
     weights), in a fresh process (`--launch-shapes`): after the paths'
     hundreds of thousands of launches the profiler's windows came back
-    empty in this one.  Returns ({kernel name: [entries with `where`]},
-    {kernel name: max error})."""
-    from cryptonets_tpu_torch.kernels import modmatmul as MM
-
+    empty in this one.  `recorded` maps a path to its LaunchShapes, or to
+    the cases (`shape_cases`) a rank process sent back.  Returns ({kernel
+    name: [entries with `where`]}, {kernel name: max error})."""
     cases, done = [], set()
     for where, rec in recorded.items():
-        for kind, seen in (("ntt", rec.ntt), ("mmntt", rec.mmntt)):
-            for (shape, _), (tab, names) in seen.items():
-                mods = tuple(int(q) for q in tab.q.view(-1).tolist())
-                if (kind, shape, mods) not in done:
-                    done.add((kind, shape, mods))
-                    cases.append(dict(kind=kind, where=where, shape=shape,
-                                      mods=mods, names=sorted(names)))
-        for (M, O, shape, mods), w in rec.contract.items():
-            if ("contract", shape, mods, M) not in done:
-                done.add(("contract", shape, mods, M))
-                reduced = (w.reduced.cpu().numpy()
-                           if isinstance(w, MM.ContractWeights)
-                           else MM.reduce_weights(w, mods))
-                cases.append(dict(kind="contract", where=where, shape=shape,
-                                  mods=mods, reduced=reduced))
+        for c in (rec if isinstance(rec, list) else shape_cases(where, rec)):
+            key = (c["kind"], c["shape"], c["mods"]) + (
+                (c["reduced"].shape[0],) if c["kind"] == "contract" else ())
+            if key not in done:
+                done.add(key)
+                cases.append(c)
     paths = ", ".join(recorded)
     recorded.clear()
     torch.cuda.empty_cache()
@@ -1563,6 +1596,274 @@ def op_budgets_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     return dict(launches=launched, rows=rows)
 
 
+# ------------------------------------------------------- slice G1 and F2
+PARALLEL_RECORDS = 16    # records of each rank, timed after one warm-up record
+
+
+def parallel_rank(per_rank: int) -> dict:
+    """One rank of the `parallel` phase's two-rank run (started by
+    `distributed.run_ranks` under gloo, both ranks on card 0):
+    `dryrun.production_rank`, LoLaSmall at n = 8192 over {batch: 2,
+    limb: 1}, this rank encrypting and evaluating only its own records,
+    each exact against the Raw oracle; its launch counts from zero, rank
+    0's launch shapes, and every rank's verdict gathered on rank 0."""
+    import torch.distributed as dist
+
+    from cryptonets_tpu_torch.parallel import dryrun
+
+    rank = dist.get_rank()
+    reset_kernel_counts()
+    shapes = LaunchShapes() if rank == 0 else None
+    with shapes or contextlib.nullcontext():
+        verdict = dryrun.production_rank(per_rank, device="cuda")
+    launched = kernel_counts()
+    check_launches(f"parallel rank {rank}", launched,
+                   BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+    verdict.update(rank=rank, exact=True, launches=launched,
+                   device=torch.cuda.get_device_name(torch.cuda.current_device()))
+    gathered = [None] * dist.get_world_size() if rank == 0 else None
+    dist.gather_object(verdict, gathered, dst=0)
+    return dict(verdicts=gathered,
+                cases=shape_cases("parallel", shapes) if shapes else [])
+
+
+def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """`parallel/` at full width: (a) `dryrun_production` (LoLaSmall at
+    n = 8192 on the 6-data + 1-special chain) on a one-rank NCCL group in
+    this process, mesh {batch: 1, limb: 1}; (b) the same over two ranks
+    started with the spawn method, both on this card, under gloo, asked
+    for by name (NCCL refuses one card twice; gloo's collectives run on
+    host tensors), each rank encrypting and evaluating only its own
+    records.  Every record's decoded logits exact against the Raw oracle
+    (each rank checks its own; a failing rank fails the run), the
+    verdicts gathered on rank 0, the launches held to K1, K2 and K4;
+    records per second of each run: all its timed records over the
+    group's window (host clock, from a barrier of every rank before the
+    forward to one after every rank's forward has synchronised, after one
+    warm-up record a rank)."""
+    import torch.distributed as dist
+
+    from cryptonets_tpu_torch.parallel import dryrun, make_mesh
+    from cryptonets_tpu_torch.parallel.distributed import (free_port,
+                                                           init_multihost,
+                                                           run_ranks)
+
+    out = {}
+    reset_kernel_counts()
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        with shapes or contextlib.nullcontext():
+            res = dryrun.dryrun_production(mesh, n_records=PARALLEL_RECORDS,
+                                           device=dev)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    launched = kernel_counts()
+    check_launches("parallel (one rank)", launched,
+                   BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+    out["one_rank"] = dict(mesh=res["mesh"], backend=backend,
+                           records=PARALLEL_RECORDS, window_s=res["window_s"],
+                           records_per_s=PARALLEL_RECORDS / res["window_s"])
+    log(f"parallel (a): dryrun_production on one rank ({backend}), mesh "
+        f"{res['mesh']}, LoLaSmall n = 8192, {res['n_limbs']} data limbs + 1 "
+        f"special: {PARALLEL_RECORDS} records exact against the Raw oracle, "
+        f"{out['one_rank']['records_per_s']:.2f} records/s "
+        f"(window {res['window_s']:.4f} s); kernel launches {launched}")
+
+    n_ranks = 2
+    log(f"parallel (b): {n_ranks} ranks on one card, backend gloo asked for "
+        f"by name (NCCL refuses one card twice; gloo's collectives run on "
+        f"host tensors)")
+    t0 = time.perf_counter()
+    ranks = run_ranks(parallel_rank, n_ranks, PARALLEL_RECORDS, backend="gloo")
+    wall = time.perf_counter() - t0
+    verdicts = ranks[0]["verdicts"]
+    if len(verdicts) != n_ranks or not all(v["exact"] for v in verdicts):
+        raise SystemExit(f"parallel (b): verdicts {verdicts}")
+    window = max(v["window_s"] for v in verdicts)
+    total = n_ranks * PARALLEL_RECORDS
+    for name in launched:
+        launched[name] += sum(v["launches"][name] for v in verdicts)
+    out["ranks"] = dict(n_ranks=n_ranks, backend="gloo", records=total,
+                        mesh=verdicts[0]["mesh"], wall_s=wall, window_s=window,
+                        forward_s=[v["forward_s"] for v in verdicts],
+                        records_per_s=total / window)
+    log(f"parallel (b): mesh {verdicts[0]['mesh']}, ranks' records "
+        f"{[v['records'] for v in verdicts]} on {verdicts[0]['device']}, every "
+        f"record exact against the Raw oracle (gathered on rank 0); "
+        f"{out['ranks']['records_per_s']:.2f} records/s over {n_ranks} ranks "
+        f"(window {window:.4f} s; the ranks' own forwards "
+        f"{[round(v['forward_s'], 4) for v in verdicts]} s; the ranks' "
+        f"processes {wall:.1f} s with start-up, keygen and prepare); "
+        f"launches per rank {[v['launches'] for v in verdicts]}")
+    out.update(launches=launched, cases=ranks[0]["cases"])
+    return out
+
+
+PIPELINE_STAGES = 3
+PIPELINE_RECORDS = 4     # streamed after one record that fills the stages
+
+
+def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """`PipelineForward` over LoLa (`build_lola_bsgs`, full width and
+    depth) on this card: one stage, then PIPELINE_STAGES stages on a CUDA
+    stream each; one record streamed to fill the stages, then
+    PIPELINE_RECORDS records back to back.  Every record's decoded logits
+    against the Raw oracle (rtol 1e-9), the S-stage run's decoded outputs
+    equal to the one-stage run's, the launches held to K1, K2 and K4;
+    records per second of the streamed records (host clock, all stages
+    synchronised)."""
+    from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
+    from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
+    from cryptonets_tpu_torch.parallel import PipelineForward
+
+    records = synthetic_mnist_records(1 + PIPELINE_RECORDS, seed=11)
+    copy = lambda: [(lb, f.copy()) for lb, f in records]  # noqa: E731
+    head_r, _, _ = build_lola_bsgs(False, records=copy())
+    head_r.prepare_network()
+    raws = [head_r.get_next().get_column(0).decrypt() for _ in records]
+    reset_kernel_counts()
+    head, fac, reader = build_lola_bsgs(True, device=dev)
+    head.prepare_network()
+    out, decoded = {}, {}
+    for S in (1, PIPELINE_STAGES):
+        reader.set_source_records(copy())
+        pipe = PipelineForward(head, n_stages=S, devices=[dev] * S)
+        before = kernel_counts()
+        with shapes or contextlib.nullcontext():
+            first = pipe.run_stream(1)
+        t0 = time.perf_counter()
+        outs = first + pipe.run_stream(PIPELINE_RECORDS)
+        dt = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in kernel_counts().items()}
+        check_launches(f"pipeline {S} stages", launched,
+                       BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+        decoded[S] = [o.get_column(0).decrypt() for o in outs]
+        for i, (enc, raw) in enumerate(zip(decoded[S], raws)):
+            if enc.shape != raw.shape or not np.allclose(enc, raw, rtol=1e-9, atol=0):
+                raise SystemExit(f"pipeline {S} stages record {i}: {enc[:10]} "
+                                 f"disagree with the Raw oracle {raw[:10]}")
+        out[f"stages_{S}"] = dict(
+            layers=[len(g) for g in pipe.groups], records=PIPELINE_RECORDS,
+            seconds=dt, records_per_s=PIPELINE_RECORDS / dt, launches=launched,
+            budget=outs[-1].get_column(0).noise_budget())
+        log(f"pipeline, LoLa in {S} stage(s) of {out[f'stages_{S}']['layers']} "
+            f"layers on {S} stream(s) of one card: {1 + PIPELINE_RECORDS} "
+            f"records match the Raw oracle; {PIPELINE_RECORDS} streamed in "
+            f"{dt:.3f} s = {PIPELINE_RECORDS / dt:.2f} records/s; final budget "
+            f"{out[f'stages_{S}']['budget']} bits; kernel launches {launched}")
+    if not all(np.array_equal(a, b) for a, b in
+               zip(decoded[1], decoded[PIPELINE_STAGES])):
+        raise SystemExit("pipeline: the staged run's decoded outputs differ "
+                         "from the one-stage run's")
+    log(f"pipeline: the {PIPELINE_STAGES}-stage run's decoded outputs equal the "
+        f"one-stage run's")
+    out["launches"] = kernel_counts()
+    return out
+
+
+# the reference's per-operation budgets on `bigt62`'s ring (n = 8192, the
+# default 7-limb chain, digit switching at dbc = 16, t = ntt_primes(8192,
+# 63, 1)[0]), as the JAX package's `utils/budget.py` `op_budgets` returns
+# them on JAX's CPU platform for its `CrtBfvFactory(plain_primes=
+# ntt_primes(8192, 63, 1), n=8192, seed=0)`:
+# (fresh, enc x enc dot, plain dot, slot sum, plain mult, enc mult, rotate)
+REFERENCE_BIGT62_BUDGETS = (91, 5, 4, 87, 17, 16, 91)
+
+
+def bigt62_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """A plain prime between 2**62 and 2**63 (t = 1 mod 2n, from the
+    port's `crypto/primes.py`) at n = 8192 over the default 7-limb chain:
+    the factory encodes on the host, encrypts and evaluates on the card
+    and decrypts exactly on the host.  Encrypt, add_plain, a plaintext
+    product, a ciphertext product with relinearisation and decrypt, each
+    result exact and with budget left; the per-operation budgets beside
+    the reference's row on the same ring."""
+    from cryptonets_tpu_torch.api.factory import CrtBfvFactory
+    from cryptonets_tpu_torch.crypto.primes import ntt_primes
+    from cryptonets_tpu_torch.utils.budget import op_budgets
+
+    n = 8192
+    t = ntt_primes(n, 63, 1)[0]
+    if not (1 << 62) < t < (1 << 63):
+        raise SystemExit(f"bigt62: t = {t} is not between 2**62 and 2**63")
+    reset_kernel_counts()
+    with shapes or contextlib.nullcontext():
+        t0 = _sync_s()
+        fac = CrtBfvFactory(plain_primes=(t,), n=n, seed=0, device=dev)
+        keygen_s = _sync_s() - t0
+        if fac._device_encode or fac._device_decode or fac._device_decode_big:
+            raise SystemExit("bigt62: the factory takes a device encode or decode")
+        rng = np.random.default_rng(62)
+        a = rng.integers(-(1 << 30), 1 << 30, 64)
+        b = rng.integers(-(1 << 30), 1 << 30, 64)
+        ai, bi = a.astype(object), b.astype(object)
+        t0 = _sync_s()
+        va = fac.get_encrypted_vector(a.astype(float), "dense", 1.0)
+        vb = fac.get_encrypted_vector(b.astype(float), "dense", 1.0)
+        encrypt_s = _sync_s() - t0
+        if va.data.device.type != "cuda":
+            raise SystemExit("bigt62: the ciphertexts left the card")
+        pb = fac.get_plain_vector(b.astype(float), "dense", 1.0)
+        results = {
+            "encrypt": (va, ai),
+            "add_plain": (va.add(pb), ai + bi),
+            "mul_plain": (va.pointwise_multiply(pb), ai * bi),
+            "multiply_relinearize": (va.pointwise_multiply(vb), ai * bi),
+        }
+        row = op_budgets(fac)
+    launched = kernel_counts()
+    check_launches("bigt62", launched, BUTTERFLY_KERNELS,
+                   MATMUL_KERNELS + ("mod_contract",))
+    budgets = {}
+    for name, (vec, want) in results.items():
+        t0 = time.perf_counter()
+        got = vec.decrypt_full_precision()
+        dec_s = time.perf_counter() - t0
+        budgets[name] = vec.noise_budget()
+        if not np.array_equal(got, want) or budgets[name] <= 0:
+            raise SystemExit(f"bigt62 {name}: {got[:4]} against {want[:4]}, "
+                             f"{budgets[name]} bits")
+        log(f"bigt62 {name}: exact, budget {budgets[name]} bits "
+            f"(host decrypt {dec_s:.3f} s)")
+    log(f"bigt62 (n = {n}, {len(fac.coeff_modulus)} limbs, t = {t}, "
+        f"{t.bit_length()} bits): keygen {keygen_s:.3f} s, two encryptions "
+        f"{encrypt_s:.3f} s; op budgets "
+        + ", ".join(f"{k} {v}" for k, v in row.items())
+        + f"; the reference {REFERENCE_BIGT62_BUDGETS}; kernel launches {launched}")
+    return dict(launches=launched, t=t, budgets=budgets, op_budgets=row,
+                reference=REFERENCE_BIGT62_BUDGETS, keygen_s=keygen_s)
+
+
+def featurize_phase(dev) -> dict:
+    """The seeded AlexNet featurizer (`data/alexnet.py`) on the card for
+    four synthetic 227x227 images, against the CPU run of the same
+    parameters: rtol 1e-4, and 1e-4 of the largest feature for the values
+    near 0 that the ReLUs leave (the card runs float32 without TF32).
+    No PIL on this path."""
+    from cryptonets_tpu_torch.data.alexnet import AlexNetFeaturizer
+
+    images = np.random.default_rng(227).integers(0, 256, (4, 227, 227, 3),
+                                                 dtype=np.uint8)
+    cpu = AlexNetFeaturizer(seed=0, device="cpu")(images)
+    card = AlexNetFeaturizer(seed=0, device=dev)
+    card(images)
+    t0 = _sync_s()
+    got = card(images)
+    ms = 1e3 * (_sync_s() - t0)
+    scale = float(np.abs(cpu).max())
+    err = float(np.abs(got - cpu).max())
+    if got.shape != (4, 4096) or not np.allclose(got, cpu, rtol=1e-4,
+                                                 atol=1e-4 * scale):
+        raise SystemExit(f"featurize: the card's features differ from the CPU's "
+                         f"by up to {err:.3e} (largest feature {scale:.3e})")
+    log(f"featurize: AlexNet fc7 features of 4 images on the card equal the "
+        f"CPU's (max abs difference {err:.3e}, largest feature {scale:.3e}); "
+        f"{ms:.2f} ms for the batch on the card")
+    return dict(ms=ms, max_abs_err=err, largest=scale)
+
+
 def launcher_host_ms(dev, calls: int = 400) -> float:
     """K3, the launcher of K1/K2 (`kernels/ntt.py` `_launch`): host
     seconds a call, from the host clock over `calls` back-to-back
@@ -1655,7 +1956,8 @@ def main() -> int:
                   for phase in ("lola_packed", "lola_large", "cifar",
                                 "lola_dense", "cifar_bigt", "lola_large_bigt"))
     runs += (("serve", serve_phase), ("basic", basic_phase),
-             ("op_budgets", op_budgets_phase))
+             ("op_budgets", op_budgets_phase), ("parallel", parallel_phase),
+             ("pipeline", pipeline_phase), ("bigt62", bigt62_phase))
     for phase, run in runs:
         if phase not in phases:
             continue
@@ -1667,11 +1969,17 @@ def main() -> int:
                 paths[f"{phase}_{impl}"] = r
         else:
             paths[phase] = result
+        if "cases" in result:      # the launch shapes a rank process sent back
+            recorded[f"{phase} (rank 0)"] = result.pop("cases")
         torch.cuda.empty_cache()
         if phase == "cifar_bigt" and "cifar" in paths:
             log(f"final noise budget: cifar_bigt {paths[phase]['budget']} "
                 f"bits, cifar {paths['cifar']['budget']} bits (this run)")
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if "featurize" in phases:
+        t0 = time.perf_counter()
+        featurize_phase(dev)
+        log(f"phase featurize: {time.perf_counter() - t0:.1f} s")
     if recorded:
         t0 = time.perf_counter()
         by_name, err = launch_shape_phase(recorded)

@@ -16,7 +16,9 @@ gamma decrypt when every t is below 2**31 (`_device_decode`).  Plain
 primes of 2**31 to 2**62 (`_device_decode_big`) encode on the host (the
 C++ 128-bit NTT, per-limb residues) and decrypt on the device to two
 planes that the host joins exactly and decodes with the same C++ NTT.
-Any other mix decrypts exactly on the host.  Keys are made on the
+Any other mix, plain primes of 2**62 and above among them, encodes on the
+host (the object-int NTT from 2**63 on), encrypts and evaluates on the
+device like the others, and decrypts exactly on the host.  Keys are made on the
 factory's device; the reference's keygen on a host CPU backend, its
 on-disk key cache and its environment switches answer a remote-compile
 set-up the port does not have, and are not carried.  `RawFactory` is the
@@ -33,7 +35,7 @@ from ..crypto.encoder import BIG_T, BatchEncoder
 from ..crypto.hostmath import CRT
 from ..crypto.ntt import get_ntt_context, ntt_automorphism_perm
 from ..crypto.primes import default_coeff_modulus_128
-from ..device import resolve_device
+from ..device import canonical, resolve_device
 
 # Columns per piece of the device encode + encrypt.  A piece holds a few
 # int64 temporaries of [piece, k, N] per plain prime (59 MB each at 128
@@ -121,6 +123,19 @@ class CrtBfvFactory:
     @property
     def block_size(self) -> int:
         return self.n
+
+    def to(self, device) -> "CrtBfvFactory":
+        """A factory of the same parameters on `device`, holding this one's
+        key set there (`KeySet.to`); this factory when it lies there."""
+        if canonical(device) == canonical(self.device):
+            return self
+        p = self.params[0]
+        other = CrtBfvFactory(
+            self.plain_primes, n=self.n, coeff_modulus=self.coeff_modulus,
+            dbc=p.dbc, seed=p.seed, n_special=p.n_special, ks_alpha=p.ks_alpha,
+            ntt_impl=self.ntt_impl, device=device, keys=self.keys)
+        other.has_secret_key = self.has_secret_key
+        return other
 
     def fresh_key(self) -> torch.Generator:
         """A new generator on the factory's device, seeded from the
@@ -223,7 +238,8 @@ class CrtBfvFactory:
         """Signed ints -> per-prime residue arrays (ref SplitBigNumbers,
         `EncryptedSealBfvVector.cs:352-379`)."""
         v = np.asarray(values, dtype=object)
-        return [(v % t).astype(np.int64) for t in self.plain_primes]
+        return [v % t if t >= 1 << 63 else (v % t).astype(np.int64)
+                for t in self.plain_primes]
 
     def _decrypt_big_all(self, data):
         """[P, C, size, k, N] -> (W mod 2**32 int64, W mod m2 int32)
@@ -324,9 +340,7 @@ class CrtBfvFactory:
     def join_decoded_blocks(self, slots_all: np.ndarray, dim: int):
         """Decoded slot residues [P, C, N] -> centered big-int values [dim]."""
         return self.join_split_numbers([
-            slots_all[pi].reshape(-1)[:dim].astype(np.int64)
-            for pi in range(self.P)
-        ])
+            slots_all[pi].reshape(-1)[:dim] for pi in range(self.P)])
 
     # ------------------------------------------------------ rotation keys
     def stacked_galois(self, g_tuple):
@@ -377,9 +391,14 @@ class CrtBfvFactory:
         """Slot rows [R, n] (integers of any size, signed ok) -> coefficient
         residues [R, k, N] int32 of plain prime `pi` on the device: the
         slot encode on the host (exact mod t; the C++ NTT, in threads, for
-        t >= 2**31), each limb's residue on the device."""
+        2**31 <= t < 2**63), each limb's residue on the device (on the
+        host from 2**63 on, where the coefficients pass int64)."""
+        coeffs = self.encoders[pi].encode(rows)
+        if coeffs.dtype == object:   # t >= 2**63: the residues on the host
+            res = self.params[pi].plain_to_residues(coeffs)
+            return torch.from_numpy(res.view(np.int32)).to(self.device)
         # coefficients in [0, t) < 2**63: exact as int64
-        c = torch.from_numpy(self.encoders[pi].encode(rows).astype(np.int64))
+        c = torch.from_numpy(coeffs.astype(np.int64))
         return (c.to(self.device)[:, None, :] % self.bfv[0].p.chain_q.q).to(torch.int32)
 
     def plain_mult_forms(self, slot_rows) -> torch.Tensor:

@@ -423,7 +423,7 @@ class HEVector:
             slots_all = p.decrypt_slots(self.data)
         if self.fmt == SPARSE:
             return p.join_split_numbers([
-                slots_all[pi, :, 0].astype(np.int64)[: self.dim]
+                slots_all[pi, :, 0][: self.dim]
                 for pi in range(p.P)
             ])
         return p.join_decoded_blocks(slots_all, self.dim)

@@ -1,4 +1,5 @@
-"""Carry model weights and key sets across from numpy.
+"""Carry model weights, key sets and the AlexNet featurizer's parameters
+across from numpy.
 
 `keyset_from_numpy` reads the npz layout that the JAX package's
 `CrtBfvFactory._save_cached_keys` writes (`s_hat_mont`, `s2_hat_mont`,
@@ -65,3 +66,13 @@ def keyset_from_numpy(arrays, device=None) -> KeySet:
         galois=dict(sorted(galois.items())),
         s_small=_tensor(arrays["s_small"], device),
     )
+
+
+def alexnet_from_numpy(featurizer, arrays) -> None:
+    """Load a featurizer's parameters (name -> array: the state_dict of the
+    JAX package's `data/alexnet.AlexNetFeaturizer` model as numpy arrays)
+    into the port's `data.alexnet.AlexNetFeaturizer`, on its device."""
+    model = featurizer.model
+    dev = next(model.parameters()).device
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                           for k, v in arrays.items()})

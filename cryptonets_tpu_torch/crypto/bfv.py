@@ -10,7 +10,7 @@ here unchanged and every deterministic op is bit-equal to the reference.
 Ported: parameters and tables, keygen, encrypt, decrypt (raw residues,
 the BEHZ gamma scale-and-round mod t for t < 2**31, the two-plane
 scale-and-round for 2**31 <= t < 2**62 with its exact host join, and the
-exact host decrypt), plaintext multiply, the BEHZ
+exact host decrypt, the only one for t >= 2**62), plaintext multiply, the BEHZ
 ciphertext multiply, relinearization, Galois automorphisms, row/column
 rotations and the rotate-and-add ladder, with three key-switching modes:
 digit decomposition (base 2**dbc digits of every limb, SEAL 3.2's), in a
@@ -155,8 +155,6 @@ class BFVParams:
         if not 0 < (1 << self.dbc) < min(qs):
             raise ValueError("digit width must fit the smallest limb")
         self.digits_per_limb = -(-max(q.bit_length() for q in qs) // self.dbc)
-        if self.t >= 1 << 62:
-            raise NotImplementedError("plain moduli >= 2**62 are not ported")
 
         self.chain_q = get_mod_chain(qs, device)
         self.ntt_q = ntt_context_for(ntt_impl, n, qs)
@@ -199,11 +197,12 @@ class BFVParams:
 
         # ---- device scale-and-round decrypt: the BEHZ gamma correction
         # for t < 2**31, the two-plane form (W mod 2**32 and mod m2, joined
-        # exactly on the host) for 2**31 <= t < 2**62
+        # exactly on the host) for 2**31 <= t < 2**62; larger t decrypt
+        # exactly on the host only (`decrypt`)
         self.gamma = self.big_gamma = None
         if self.t < 1 << 31:
             self._init_gamma_decrypt(qs, aux)
-        else:
+        elif self.t < 1 << 62:
             self._init_big_t_decrypt(qs, aux)
 
         # ---- B -> q back-conversion (Shenoy-Kumaresan with m_sk)
@@ -336,12 +335,12 @@ class BFVParams:
 
     def plain_to_residues(self, coeffs) -> np.ndarray:
         """Plain poly coeffs (ints mod t, leading axes allowed) -> [..., k,
-        N] uint32 residues (host).  Integer arrays reduce in int64 (t <
-        2**31) or uint64 (t < 2**62, coefficients in [0, t)); object
-        arrays exactly."""
+        N] uint32 residues (host).  Integer arrays reduce in int64 or
+        uint64 (coefficients in [0, t), t < 2**63); object arrays, and
+        every array for t >= 2**63, exactly."""
         c = np.asarray(coeffs)
-        if c.dtype == object:
-            c = c % self.t
+        if c.dtype == object or self.t >= 1 << 63:
+            c = c.astype(object) % self.t
             return np.stack([(c % q).astype(np.uint32) for q in self.q_list], axis=-2)
         if c.dtype == np.uint64:
             cu = c % np.uint64(self.t)

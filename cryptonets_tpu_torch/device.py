@@ -18,6 +18,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def canonical(device) -> torch.device:
+    """`device` with the index that a bare "cuda" stands for, so that two
+    names of one card compare equal."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def synchronize(factory) -> None:
     """Wait for the work queued on `factory`'s device when it is a CUDA
     device, so that a host clock read next measures work, not launches."""

@@ -71,6 +71,22 @@ class EncryptedForward:
         padded[:, :dim] = np.round(vecs).astype(np.int64)
         return padded.reshape(V * C, fac.n), (V, C, dim, float(raw.scale))
 
+    def input_matrix(self, datas, dim: int, scale: float) -> HEMatrix:
+        """The encrypted input matrix of a record from its columns' data
+        ([P, C, 2, k, N] each) and the record's dim and scale."""
+        fac = self.encrypt_layer.factory
+        return HEMatrix(fac, [HEVector(fac, data=d, dim=dim, scale=scale, fmt="dense")
+                              for d in datas], "col")
+
+    def encrypt(self, raw) -> HEMatrix:
+        """A reader record (RawMatrix) -> its encrypted input matrix: the
+        slot encode and encrypt of every column in one pass."""
+        fac = self.encrypt_layer.factory
+        ints, (V, C, dim, scale) = self.slot_ints(raw)
+        data = fac._encrypt_slotsets(ints)               # [P, V*C, 2, k, N]
+        data = data.reshape(fac.P, V, C, *data.shape[2:])
+        return self.input_matrix([data[:, i] for i in range(V)], dim, scale)
+
     def __call__(self):
         """Pull one record through encode, encrypt, the network, decrypt
         and decode."""
@@ -78,14 +94,7 @@ class EncryptedForward:
         if raw is None:
             return None
         fac = self.encrypt_layer.factory
-        ints, (V, C, dim, scale) = self.slot_ints(raw)
-        data = fac._encrypt_slotsets(ints)               # [P, V*C, 2, k, N]
-        data = data.reshape(fac.P, V, C, *data.shape[2:])
-        m = HEMatrix(fac, [
-            HEVector(fac, data=data[:, i], dim=dim, scale=scale, fmt="dense")
-            for i in range(V)
-        ], "col")
-        out = self.run_encrypted(m)
+        out = self.run_encrypted(self.encrypt(raw))
         # decrypt + slot decode of every output column in one pass: on
         # the device (gamma decrypt) or through the host join (big t)
         blocks = [v.data.shape[1] for v in out.vectors]

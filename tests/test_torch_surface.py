@@ -5,8 +5,8 @@ CPU: subtraction (`BFV.sub`, `neg`, `sub_plain`, `square`,
 operation counts (`utils/opcount.py`) after the per-operation budget
 sequence and after a reduced LoLa chain run layer by layer, the verbose
 layer path, `DebugLayer`, `utils/debug.py`, the mean-pool `LLPoolLayer`,
-the `default` preset and the Basic Example; and the one refusal left
-(plain moduli of 2**62 and above).
+the `default` preset and the Basic Example.  Plain moduli of 2**62 and
+above are held to the reference in `tests/test_torch_big_plain.py`.
 
 The ring is the reference's serial ring (n = 256, two 17-bit plain
 primes, three 30-bit limbs, dbc 16, seed 21); the port's factory holds
@@ -32,7 +32,7 @@ from cryptonets_tpu_torch.api.factory import RawFactory  # noqa: E402
 from cryptonets_tpu_torch.api.matrix import HEMatrix  # noqa: E402
 from cryptonets_tpu_torch.api.vector import HEVector  # noqa: E402
 from cryptonets_tpu_torch.models import basic_example  # noqa: E402
-from cryptonets_tpu_torch.models.presets import CONFIGS, make_factory  # noqa: E402
+from cryptonets_tpu_torch.models.presets import CONFIGS  # noqa: E402
 from cryptonets_tpu_torch.nn.layers import DebugLayer, EncryptLayer, SquareActivation  # noqa: E402
 from cryptonets_tpu_torch.nn.lola import LLDenseLayer, LLPoolLayer, LLVectorizeLayer  # noqa: E402
 from cryptonets_tpu_torch.nn.readers import LLConvReader  # noqa: E402
@@ -310,8 +310,3 @@ def test_default_preset_and_basic_example():
     assert res["norm_squared"] == 385 and res["sum"] == 55
     np.testing.assert_array_equal(res["elementwise"], v * v[::-1])
 
-
-def test_plain_moduli_of_2_62_and_above_still_refused():
-    """Slice F2's refusal, the one left: the object-int host path."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_factory("caltech", plain_primes=((1 << 62) + 135,), device="cpu")
