@@ -90,14 +90,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bits and within 3 bits of the reference's row (`REFERENCE_OP_BUDGETS`,
      printed by the JAX package's `utils/budget.py` on today's presets);
  13. `parallel`: the `parallel/` package at full width, LoLaSmall at
-     n = 8192 on the 6-data + 1-special chain: `dryrun_production` on a
-     one-rank NCCL group (mesh {batch: 1, limb: 1}), then over two ranks
+     n = 8192 on the 6-data + 1-special chain: (a) `dryrun_production` on
+     a one-rank NCCL group (mesh {batch: 1, limb: 1}), then over two ranks
      started with the spawn method on this one card under gloo, asked for
-     by name (NCCL refuses one card twice), each rank encrypting and
-     evaluating only its own records; every record exact against the Raw
-     oracle, the verdicts gathered on rank 0, records per second of each
-     over its group's window (a barrier before the timed forward, one
-     after every rank's has synchronised);
+     by name (NCCL refuses one card twice): (b) at {batch: 2, limb: 1},
+     each rank encrypting and evaluating only its own records, and (c) at
+     {batch: 1, limb: 2}, rank 0 holding data limbs [0, 3) and rank 1
+     [3, 6), both the special prime, each its limbs of the key set, on
+     (a)'s first input ciphertexts (encrypted once and saved for the
+     ranks), with collectives at every cross-limb operation, the outputs
+     gathered over the ranks bit-equal to (a)'s; every record exact
+     against the Raw oracle, the verdicts gathered on rank 0, records per
+     second of each over its group's window (a barrier before the timed
+     forward, one after every rank's has synchronised), each rank's key
+     bytes and collectives per record in (c);
  14. `pipeline`: `PipelineForward` over LoLa at full width, one stage and
      three stages on a CUDA stream each; every streamed record against the
      Raw oracle, the three-stage outputs equal to the one-stage ones,
@@ -114,7 +120,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5 and K4
      (on the path's own weights) bit-equal to their plain versions at
      each, with edge rows, and times each beside its bound (the two-rank
-     `parallel` run's rank 0 sends its shapes back to this process).
+     `parallel` runs' rank 0 sends its shapes back to this process).
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -1596,8 +1602,9 @@ def op_budgets_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     return dict(launches=launched, rows=rows)
 
 
-# ------------------------------------------------------- slice G1 and F2
+# ------------------------------------------------------- slice G1, G2 and F2
 PARALLEL_RECORDS = 16    # records of each rank, timed after one warm-up record
+LIMB_RECORDS = 4         # (c)'s records, on both ranks, after one warm-up
 
 
 def parallel_rank(per_rank: int) -> dict:
@@ -1615,7 +1622,8 @@ def parallel_rank(per_rank: int) -> dict:
     reset_kernel_counts()
     shapes = LaunchShapes() if rank == 0 else None
     with shapes or contextlib.nullcontext():
-        verdict = dryrun.production_rank(per_rank, device="cuda")
+        verdict = dryrun.production_rank(per_rank, device="cuda",
+                                         batch=dist.get_world_size())
     launched = kernel_counts()
     check_launches(f"parallel rank {rank}", launched,
                    BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
@@ -1624,7 +1632,45 @@ def parallel_rank(per_rank: int) -> dict:
     gathered = [None] * dist.get_world_size() if rank == 0 else None
     dist.gather_object(verdict, gathered, dst=0)
     return dict(verdicts=gathered,
-                cases=shape_cases("parallel", shapes) if shapes else [])
+                cases=shape_cases("parallel (b)", shapes) if shapes else [])
+
+
+def parallel_limb_rank(inputs_path: str) -> dict:
+    """One rank of the `parallel` phase's part (c) (started by
+    `distributed.run_ranks` under gloo, both ranks on card 0):
+    `dryrun_production` over the reference's default mesh of two ranks,
+    {batch: 1, limb: 2}, on the input ciphertexts saved at `inputs_path`,
+    this rank on its block of the 6 data limbs with its limbs of the key
+    set, every record exact against the Raw oracle; its launch counts
+    from zero, rank 0's launch shapes, the output columns gathered over
+    the ranks (on the CPU), and every rank's verdict gathered on rank 0."""
+    import torch.distributed as dist
+
+    from cryptonets_tpu_torch.parallel import dryrun, make_mesh
+    from cryptonets_tpu_torch.parallel.distributed import global_ciphertext_batch
+
+    rank = dist.get_rank()
+    mesh = make_mesh()
+    inputs = torch.load(inputs_path)
+    reset_kernel_counts()
+    shapes = LaunchShapes() if rank == 0 else None
+    with shapes or contextlib.nullcontext():
+        res = dryrun.dryrun_production(mesh, n_records=LIMB_RECORDS,
+                                       device="cuda", inputs=inputs)
+    launched = kernel_counts()
+    check_launches(f"parallel (c) rank {rank}", launched,
+                   BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+    outputs = [global_ciphertext_batch(o, mesh, batch_axis=0, limb_axis=4).cpu()
+               for o in res["outputs"]]
+    verdict = {k: res[k] for k in dryrun.SUMMARY}
+    verdict.update(rank=rank, exact=True, launches=launched,
+                   device=torch.cuda.get_device_name(torch.cuda.current_device()))
+    gathered = [None] * dist.get_world_size() if rank == 0 else None
+    dist.gather_object(verdict, gathered, dst=0)
+    if rank:
+        return {}
+    return dict(verdicts=gathered, outputs=outputs,
+                cases=shape_cases("parallel (c)", shapes))
 
 
 def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
@@ -1633,14 +1679,19 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     this process, mesh {batch: 1, limb: 1}; (b) the same over two ranks
     started with the spawn method, both on this card, under gloo, asked
     for by name (NCCL refuses one card twice; gloo's collectives run on
-    host tensors), each rank encrypting and evaluating only its own
-    records.  Every record's decoded logits exact against the Raw oracle
-    (each rank checks its own; a failing rank fails the run), the
-    verdicts gathered on rank 0, the launches held to K1, K2 and K4;
-    records per second of each run: all its timed records over the
-    group's window (host clock, from a barrier of every rank before the
-    forward to one after every rank's forward has synchronised, after one
-    warm-up record a rank)."""
+    host tensors), at {batch: 2, limb: 1}, each rank encrypting and
+    evaluating only its own records; (c) two such ranks at {batch: 1,
+    limb: 2}, each on its 3 of the 6 data limbs and the special prime,
+    on (a)'s first LIMB_RECORDS input ciphertexts, their outputs gathered
+    over the ranks and held bit-equal to (a)'s.  Every record's decoded
+    logits exact against the Raw oracle (each rank checks its own; a
+    failing rank fails the run), the verdicts gathered on rank 0, the
+    launches held to K1, K2 and K4; records per second of each run: all
+    its timed records over the group's window (host clock, from a barrier
+    of every rank before the forward to one after every rank's forward
+    has synchronised, after one warm-up record a rank)."""
+    import tempfile
+
     import torch.distributed as dist
 
     from cryptonets_tpu_torch.parallel import dryrun, make_mesh
@@ -1664,12 +1715,17 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
                    BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
     out["one_rank"] = dict(mesh=res["mesh"], backend=backend,
                            records=PARALLEL_RECORDS, window_s=res["window_s"],
-                           records_per_s=PARALLEL_RECORDS / res["window_s"])
+                           records_per_s=PARALLEL_RECORDS / res["window_s"],
+                           key_bytes=res["key_bytes"])
     log(f"parallel (a): dryrun_production on one rank ({backend}), mesh "
         f"{res['mesh']}, LoLaSmall n = 8192, {res['n_limbs']} data limbs + 1 "
         f"special: {PARALLEL_RECORDS} records exact against the Raw oracle, "
         f"{out['one_rank']['records_per_s']:.2f} records/s "
         f"(window {res['window_s']:.4f} s); kernel launches {launched}")
+    # (c)'s inputs and what (a) made of them
+    limb_inputs = [d[:LIMB_RECORDS].cpu() for d in res["inputs"]]
+    one_rank_outputs = [o[:LIMB_RECORDS].cpu() for o in res["outputs"]]
+    del res
 
     n_ranks = 2
     log(f"parallel (b): {n_ranks} ranks on one card, backend gloo asked for "
@@ -1697,7 +1753,55 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         f"{[round(v['forward_s'], 4) for v in verdicts]} s; the ranks' "
         f"processes {wall:.1f} s with start-up, keygen and prepare); "
         f"launches per rank {[v['launches'] for v in verdicts]}")
-    out.update(launches=launched, cases=ranks[0]["cases"])
+    cases = ranks[0]["cases"]
+
+    log(f"parallel (c): {n_ranks} ranks on one card, gloo, the reference's "
+        f"default mesh of two ranks: {LIMB_RECORDS} of (a)'s input "
+        f"ciphertexts, RNS limbs over the ranks")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(limb_inputs, path)
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_limb_rank, n_ranks, path, backend="gloo")
+        wall = time.perf_counter() - t0
+    verdicts = ranks[0]["verdicts"]
+    if len(verdicts) != n_ranks or not all(v["exact"] for v in verdicts):
+        raise SystemExit(f"parallel (c): verdicts {verdicts}")
+    if verdicts[0]["mesh"] != {"batch": 1, "limb": 2} or [
+            v["limbs"] for v in verdicts] != [(0, 3), (3, 6)]:
+        raise SystemExit(f"parallel (c): mesh {verdicts[0]['mesh']}, limbs "
+                         f"{[v['limbs'] for v in verdicts]}")
+    same = [torch.equal(g, w) for g, w in zip(ranks[0]["outputs"], one_rank_outputs)]
+    if len(same) != len(one_rank_outputs) or not all(same):
+        raise SystemExit(f"parallel (c): gathered outputs equal to (a)'s: {same}")
+    window = max(v["window_s"] for v in verdicts)
+    for name in launched:
+        launched[name] += sum(v["launches"][name] for v in verdicts)
+    one_key = out["one_rank"]["key_bytes"]
+    out["limb_ranks"] = dict(
+        n_ranks=n_ranks, backend="gloo", records=LIMB_RECORDS,
+        mesh=verdicts[0]["mesh"], limbs=[v["limbs"] for v in verdicts],
+        wall_s=wall, window_s=window,
+        forward_s=[v["forward_s"] for v in verdicts],
+        records_per_s=LIMB_RECORDS / window,
+        key_bytes=[v["key_bytes"] for v in verdicts], one_rank_key_bytes=one_key,
+        collectives_per_record=verdicts[0]["collectives"],
+        launches=[v["launches"] for v in verdicts])
+    lr = out["limb_ranks"]
+    log(f"parallel (c): mesh {lr['mesh']}, ranks' limbs {lr['limbs']} of 6 "
+        f"(+ the special prime on both) on {verdicts[0]['device']}, every "
+        f"record exact against the Raw oracle, the {len(same)} output "
+        f"column(s) gathered over the ranks bit-equal to (a)'s on the same "
+        f"inputs; {lr['records_per_s']:.2f} records/s (window "
+        f"{window:.4f} s; the ranks' own forwards "
+        f"{[round(f, 4) for f in lr['forward_s']]} s; the ranks' processes "
+        f"{wall:.1f} s with start-up, keygen and prepare); key set bytes a "
+        f"rank {lr['key_bytes']} against {one_key} on one rank "
+        f"({[round(b / one_key, 4) for b in lr['key_bytes']]}; (3 + 1) / "
+        f"(6 + 1) = {4 / 7:.4f}); collectives per record of the timed "
+        f"forward {lr['collectives_per_record']}; launches per rank "
+        f"{lr['launches']}; card {card_line()}")
+    out.update(launches=launched, cases=cases + ranks[0]["cases"])
     return out
 
 

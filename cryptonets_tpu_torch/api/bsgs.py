@@ -124,7 +124,7 @@ def _encode_diag_chunk(fac, tbl_a):
     launch, coefficients broadcast over the limbs since t < every q, then
     NTT_q and Montgomery)."""
     g, F, n = tbl_a.shape
-    k = len(fac.coeff_modulus)
+    k = len(fac.limb_moduli)
     t = torch.tensor(fac.plain_primes, dtype=torch.int32,
                      device=tbl_a.device).view(1, -1, 1)
     flat = tbl_a.reshape(g * F, 1, n)
@@ -164,10 +164,11 @@ def _hoisted_babies_hat(fac, ub, g):
     c0, c1 = ub[..., 0, :, :], ub[..., 1, :, :]           # [P, F, k, N]
     c0_hat = p.ntt_q.forward(c0)
     c1_hat = p.ntt_q.forward(c1)
+    c1_all = bfv0.gather_limbs(c1)      # every limb: one gather on a limb mesh
     if p.ks_hybrid:
-        dhat = p.ntt_qp.forward(bfv0._group_decompose(c1))  # [omega, P, F, kp, N]
+        dhat = p.ntt_qp.forward(bfv0._group_decompose(c1_all))  # [omega, P, F, kp, N]
     else:
-        dhat = p.ntt_q.forward(bfv0._decompose_digits(c1))  # [kD, P, F, k, N]
+        dhat = p.ntt_q.forward(bfv0._decompose_digits(c1_all))  # [kD, P, F, k, N]
     perms, k0s, k1s = fac.stacked_baby_rotations(g)       # keys [g-1, J, k, N]
     rots = []
     for b0 in range(0, g - 1, BABY_CHUNK):

@@ -56,7 +56,16 @@ class CrtBfvFactory:
     default, also for None) or "matmul" (`crypto/ntt.py`).  It is an
     argument only; no environment variable overrides it.  Keys are
     NTT-domain values: a key set passed in must have been made under the
-    same `ntt_impl`, which nothing in the key set records."""
+    same `ntt_impl`, which nothing in the key set records.
+
+    `shard` (a `parallel/limbs.LimbShard`, None for one process) makes
+    this the factory of one rank of a mesh whose `limb` axis shards the
+    data limbs: its parameters are built from the full chain and narrowed
+    to the rank's limbs (`BFVParams.narrow`), keys are made on the full
+    chain (the same seed on every rank) or taken whole and narrowed
+    (`KeySet.narrow`), and every ciphertext, plaintext form and table it
+    makes covers `limb_moduli`, the rank's limbs.  `coeff_modulus` stays
+    the full chain."""
 
     is_encrypted = True
 
@@ -74,6 +83,7 @@ class CrtBfvFactory:
         ntt_impl: str | None = None,
         device=None,
         keys=None,
+        shard=None,
     ):
         self.device = resolve_device(device)
         self.n = n
@@ -84,17 +94,23 @@ class CrtBfvFactory:
         if coeff_count is not None:
             chain = chain[:coeff_count]
         self.coeff_modulus = chain
+        self.shard = shard
         self.params = [
             BFVParams(n, t, coeff_modulus=chain, dbc=dbc, ks_alpha=ks_alpha,
                       seed=seed, n_special=n_special, ntt_impl=self.ntt_impl,
                       device=self.device)
             for t in self.plain_primes
         ]
+        if keys is None:
+            keys = BFV(self.params[0]).keygen(seed=seed, rot_steps=rot_steps)
+        if shard is not None:
+            self.params = [p.narrow(shard) for p in self.params]
+            if keys.s_hat_mont.shape[0] == len(chain):    # a whole key set
+                keys = keys.narrow(shard.lo, shard.hi, len(chain))
+        # the data limbs this factory's ciphertexts and forms cover
+        self.limb_moduli = self.params[0].limb_moduli
         self.bfv = [BFV(p) for p in self.params]
-        self.keys = (
-            keys.to(self.device) if keys is not None
-            else self.bfv[0].keygen(seed=seed, rot_steps=rot_steps)
-        )
+        self.keys = keys.to(self.device)
         # False for a factory loaded from a public-only key file
         # (`api/serial.py`): it encrypts and evaluates, never decrypts
         self.has_secret_key = True
@@ -133,7 +149,8 @@ class CrtBfvFactory:
         other = CrtBfvFactory(
             self.plain_primes, n=self.n, coeff_modulus=self.coeff_modulus,
             dbc=p.dbc, seed=p.seed, n_special=p.n_special, ks_alpha=p.ks_alpha,
-            ntt_impl=self.ntt_impl, device=device, keys=self.keys)
+            ntt_impl=self.ntt_impl, device=device, keys=self.keys,
+            shard=self.shard)
         other.has_secret_key = self.has_secret_key
         return other
 
@@ -169,7 +186,7 @@ class CrtBfvFactory:
             bufs = torch.from_numpy(
                 np.ascontiguousarray(bufs, np.uint32).view(np.int32))
         bufs = bufs.to(self.device)
-        k = len(self.coeff_modulus)
+        k = len(self.limb_moduli)
         C = bufs.shape[1]
         coeffs = self._plain_ntt.inverse(bufs.transpose(0, 1))  # [C, P, n]
         out = torch.empty((self.P, C, 2, k, self.n), dtype=torch.int32,
@@ -408,7 +425,7 @@ class CrtBfvFactory:
         rows = np.asarray(slot_rows)
         R = rows.shape[0]
         bfv0 = self.bfv[0]
-        out = torch.empty((self.P, R, len(self.coeff_modulus), self.n),
+        out = torch.empty((self.P, R, len(self.limb_moduli), self.n),
                           dtype=torch.int32, device=self.device)
         for r0 in range(0, R, ENCODE_CHUNK):
             piece = rows[r0 : r0 + ENCODE_CHUNK]
@@ -476,7 +493,7 @@ class CrtBfvFactory:
         tensor, equal to `unit_mask_form` of each (not cached: the matrix
         that forces its rows keeps them), built a piece at a time."""
         cols = np.asarray(cols, dtype=np.int64)
-        out = torch.empty((self.P, len(cols), len(self.coeff_modulus), self.n),
+        out = torch.empty((self.P, len(cols), len(self.limb_moduli), self.n),
                           dtype=torch.int32, device=self.device)
         for r0 in range(0, len(cols), ENCODE_CHUNK):
             piece = cols[r0 : r0 + ENCODE_CHUNK]
@@ -552,7 +569,7 @@ class CrtBfvFactory:
         from .vector import HEVector
 
         C = max(1, -(-dim // self.n))
-        data = torch.zeros((self.P, C, 2, len(self.coeff_modulus), self.n),
+        data = torch.zeros((self.P, C, 2, len(self.limb_moduli), self.n),
                            dtype=torch.int32, device=self.device)
         return HEVector(self, data=data, dim=dim, scale=scale, fmt="dense")
 

@@ -43,12 +43,12 @@ ROW_MAJOR = "row"
 
 
 def _scalar_residue_table(factory, values) -> torch.Tensor:
-    """Integer scalars -> their residues [V, k, 1] on every limb, on the
-    factory's device.  An integer acts alike on every plain prime's
+    """Integer scalars -> their residues [V, L, 1] on the factory's L
+    limbs, on its device.  An integer acts alike on every plain prime's
     pipeline (the ciphertext ring is mod q; decrypt reduces mod t), so the
     table is shared over the P axis.  The reference's Shoup companions
     have no use here: `mul_const_mod` multiplies exactly in int64."""
-    qs = factory.coeff_modulus
+    qs = factory.limb_moduli
     w = np.array([[int(v) % q for q in qs] for v in values], np.int64)
     return torch.from_numpy(w.reshape(len(values), len(qs), 1)).to(factory.device)
 
@@ -201,7 +201,7 @@ class HEMatrix:
         bfv0 = f.bfv[0]
         q = bfv0.p.chain_q.q
         col0 = self.vectors[0]
-        k, N = len(f.coeff_modulus), f.n
+        k, N = len(f.limb_moduli), f.n
         if self.is_encrypted and v.is_encrypted:
             OPS.count("multiplication", V)
             OPS.count("relinearization", 1)
@@ -246,7 +246,7 @@ class HEMatrix:
         bfv0 = f.bfv[0]
         chain, ntt = bfv0.p.chain_q, bfv0.p.ntt_q
         q = chain.q
-        k, N = len(f.coeff_modulus), f.n
+        k, N = len(f.limb_moduli), f.n
         masks = self._stacked_unit_masks() if force_dense else None
         if self.is_encrypted and v.is_encrypted:
             OPS.count("multiplication", R)

@@ -62,7 +62,12 @@ def _key_arrays(keys: KeySet) -> dict:
 
 def save_keys(factory, path: str, include_secret: bool = True) -> None:
     """Write the factory's configuration and keys, with or without the
-    secret key."""
+    secret key.  A factory of one rank of a limb-sharded mesh holds only
+    its limbs of the keys and raises: save from the unsharded factory."""
+    if getattr(factory, "shard", None) is not None:
+        raise ValueError(
+            f"this factory holds only the limbs of {factory.shard} of the "
+            "key set; save the keys from the unsharded factory")
     p0 = factory.params[0]
     cfg = dict(
         plain_primes=list(factory.plain_primes), n=factory.n,

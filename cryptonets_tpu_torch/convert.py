@@ -40,12 +40,16 @@ def weights_from_numpy(arrays: dict) -> dict:
     return {k: np.asarray(v, dtype=np.float64) for k, v in arrays.items()}
 
 
-def keyset_from_numpy(arrays, device=None) -> KeySet:
+def keyset_from_numpy(arrays, device=None, shard=None) -> KeySet:
     """A key set from the reference's key-cache npz layout (a mapping of
     name -> array, e.g. `np.load(path)`), on `device` (CUDA unless the
     caller names another).  Pass the factory that takes it the `ntt_impl`
-    the keys were made under."""
+    the keys were made under.  With `shard` (a `parallel/limbs.LimbShard`)
+    only that rank's limbs reach the device (`KeySet.narrow`)."""
     device = resolve_device(device)
+    if shard is not None:
+        return keyset_from_numpy(arrays, "cpu").narrow(
+            shard.lo, shard.hi, shard.k).to(device)
     galois = {}
     for name in arrays:
         if name.startswith("g_") and name.endswith("_k0"):

@@ -21,10 +21,21 @@ to Q*P, rounded division by P), stacked over the groups or looped over
 them.  The ciphertext NTTs come from the context `ntt_impl` names
 ("butterfly" or "matmul", `crypto/ntt.py`); keys are NTT-domain values, so
 a key set belongs to the ordering it was made under.
+
+The data limbs may be sharded over the ranks of a mesh's `limb` axis
+(`BFVParams.narrow` with a `parallel/limbs.LimbShard`, `KeySet.narrow`):
+each rank then holds limbs [lo, hi) of every ciphertext and key.  Per-limb
+operations stay local; a fast base conversion out of base q sums each
+rank's partial sums over the ranks (`_limb_sum`); a key switch gathers
+its polynomial once (`gather_limbs`) and computes the rank's own output
+limbs; conversions out of a replicated base (Bsk -> q, P -> q) need no
+collective.  This module never imports `torch.distributed`: without a
+shard the code paths are the one-process ones, with no extra copy.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from functools import lru_cache
 from typing import NamedTuple
@@ -37,6 +48,7 @@ from .hostmath import CRT, modinv
 from .modular import (
     RES,
     add_mod,
+    as_res,
     mod_sum,
     mont_mul,
     mont_precompute_host,
@@ -158,6 +170,12 @@ class BFVParams:
 
         self.chain_q = get_mod_chain(qs, device)
         self.ntt_q = ntt_context_for(ntt_impl, n, qs)
+        # the data limbs these tables cover: all of them, until `narrow`
+        # gives one rank of a limb-sharded mesh its block [lo, hi)
+        self.shard = None
+        self.lo, self.hi, self.k_local = 0, self.k, self.k
+        self.limb_moduli = qs
+        self.chain_q_full = self.chain_q
         self.crt_q = CRT(list(qs))
         self.q_big = self.crt_q.product
         self.delta = self.q_big // self.t  # floor(q/t)
@@ -326,6 +344,57 @@ class BFVParams:
         self.ks_pinv_q = self.chain_q.col(
             [modinv(self.P_big % q, q) for q in self.q_list])
 
+    # per-limb [k, 1] columns, and the FastBConv tables out of base q
+    # (source axis 0) and into it (target axis 1), narrowed by `narrow`
+    _LIMB_COLUMNS = ("delta_col", "t_mod_q", "mtilde_mod_q", "inv_punct_q",
+                     "gt_mod_q", "big_gt_mod_q", "B_mod_q", "ks_phalf_q",
+                     "ks_pinv_q", "punct_q_to_bsk", "punct_q_to_mtilde",
+                     "punct_q_to_tg", "punct_q_to_g2", "punct_q_to_m1")
+    _LIMB_TARGETS = ("punct_B_to_q", "ks_punct_sp_to_q")
+
+    def narrow(self, shard) -> "BFVParams":
+        """These parameters on one rank of a limb-sharded mesh: a copy whose
+        ciphertext tables cover the data limbs [shard.lo, shard.hi) only.
+        Everything that depends on the whole chain (Delta, the Bsk primes
+        and m~, the special primes, gamma and m2, the punctured products,
+        the group CRT constants) is kept from the full chain this object
+        was built from; only the per-limb tables are cut, the FastBConv
+        tables out of base q on their source axis and those into it on
+        their target axis.  The rank's Q*P chain is its own q limbs
+        followed by every special prime; the Bsk, (t, gamma), (m2, gamma)
+        and special-prime chains are the same on every rank.  The RNS-group
+        switching keeps its source tables whole (a group reads the gathered
+        polynomial) and cuts its targets."""
+        if self.shard is not None:
+            raise ValueError("these parameters are already narrowed")
+        lo, hi = shard.lo, shard.hi
+        if shard.k != self.k or not 0 <= lo < hi <= self.k:
+            raise ValueError(f"{shard} does not fit a chain of {self.k} limbs")
+        p = copy.copy(self)
+        p.shard = shard
+        p.lo, p.hi, p.k_local = lo, hi, hi - lo
+        p.limb_moduli = local = self.q_list[lo:hi]
+        p.chain_q = get_mod_chain(local, self.device)
+        p.ntt_q = ntt_context_for(self.ntt_impl, self.n, local)
+        for name in self._LIMB_COLUMNS:
+            if getattr(self, name, None) is not None:
+                setattr(p, name, getattr(self, name)[lo:hi])
+        for name in self._LIMB_TARGETS:
+            if hasattr(self, name):
+                setattr(p, name, getattr(self, name)[:, lo:hi])
+        qp_local = local + self.sp_list
+        p.chain_qp = get_mod_chain(qp_local, self.device)
+        p.ntt_qp = ntt_context_for(self.ntt_impl, self.n, qp_local)
+
+        def targets(x):    # [J, kp, 1] -> the rank's q limbs + every special prime
+            return torch.cat([x[:, lo:hi], x[:, self.k:]], dim=1)
+
+        if self.ks_hybrid:
+            p.ks_grp_conv, p.ks_pqt = targets(self.ks_grp_conv), targets(self.ks_pqt)
+        else:
+            p.ks_digit_w = targets(self.ks_digit_w)
+        return p
+
     def _punct_matrix(self, punctured, to_chain: ModChain) -> torch.Tensor:
         """[Lf, Lt, 1] constants |punct_i|_{m_t} for FastBConv against
         [..., Lf, 1, N] inputs."""
@@ -334,20 +403,22 @@ class BFVParams:
                             device=self.device).unsqueeze(-1)
 
     def plain_to_residues(self, coeffs) -> np.ndarray:
-        """Plain poly coeffs (ints mod t, leading axes allowed) -> [..., k,
-        N] uint32 residues (host).  Integer arrays reduce in int64 or
-        uint64 (coefficients in [0, t), t < 2**63); object arrays, and
-        every array for t >= 2**63, exactly."""
+        """Plain poly coeffs (ints mod t, leading axes allowed) -> [..., L,
+        N] uint32 residues (host) of the L limbs these tables cover
+        (`limb_moduli`: every limb unless narrowed).  Integer arrays reduce
+        in int64 or uint64 (coefficients in [0, t), t < 2**63); object
+        arrays, and every array for t >= 2**63, exactly."""
         c = np.asarray(coeffs)
         if c.dtype == object or self.t >= 1 << 63:
             c = c.astype(object) % self.t
-            return np.stack([(c % q).astype(np.uint32) for q in self.q_list], axis=-2)
+            return np.stack([(c % q).astype(np.uint32) for q in self.limb_moduli],
+                            axis=-2)
         if c.dtype == np.uint64:
             cu = c % np.uint64(self.t)
         else:
             cu = (c.astype(np.int64) % self.t).astype(np.uint64)
-        return np.stack([(cu % np.uint64(q)).astype(np.uint32) for q in self.q_list],
-                        axis=-2)
+        return np.stack([(cu % np.uint64(q)).astype(np.uint32)
+                         for q in self.limb_moduli], axis=-2)
 
 
 class SwitchKeys(NamedTuple):
@@ -357,6 +428,12 @@ class SwitchKeys(NamedTuple):
 
     k0: torch.Tensor
     k1: torch.Tensor
+
+    def narrow(self, lo: int, hi: int, k: int) -> "SwitchKeys":
+        """The keys of data limbs [lo, hi) of k and every special prime:
+        [J, hi - lo + n_special, N], the J axis (digits or groups) still
+        indexing the full chain; copies, so the full keys can be freed."""
+        return SwitchKeys(*(torch.cat([x[:, lo:hi], x[:, k:]], dim=1) for x in self))
 
 
 class KeySet(NamedTuple):
@@ -379,6 +456,27 @@ class KeySet(NamedTuple):
             mv(self.relin), {g: mv(sk) for g, sk in self.galois.items()},
             self.s_small.to(device),
         )
+
+    def narrow(self, lo: int, hi: int, k: int) -> "KeySet":
+        """One rank's keys on a limb-sharded mesh: data limbs [lo, hi) of
+        k of the secret and public keys, and of every switch key with
+        every special prime (`SwitchKeys.narrow`); copies."""
+        def cut(x):
+            return x[lo:hi].clone()
+
+        return KeySet(
+            cut(self.s_hat_mont), cut(self.s2_hat_mont), cut(self.p0_hat_mont),
+            cut(self.p1_hat_mont), self.relin.narrow(lo, hi, k),
+            {g: sk.narrow(lo, hi, k) for g, sk in self.galois.items()},
+            self.s_small,
+        )
+
+    def nbytes(self) -> int:
+        """Bytes of every tensor of the key set."""
+        tensors = [self.s_hat_mont, self.s2_hat_mont, self.p0_hat_mont,
+                   self.p1_hat_mont, self.s_small, *self.relin]
+        tensors += [x for sk in self.galois.values() for x in sk]
+        return sum(x.numel() * x.element_size() for x in tensors)
 
 
 @lru_cache(maxsize=None)
@@ -411,6 +509,22 @@ class BFV:
         self.p = params
         self._auto: dict = {}
 
+    # ------------------------------------------------- limbs of other ranks
+    def gather_limbs(self, x):
+        """x [..., L, N] over this rank's data limbs -> [..., k, N] over
+        every limb (an all-gather over the limb group); x itself when the
+        limbs are not sharded."""
+        shard = self.p.shard
+        return x if shard is None else shard.all_gather(x, dim=-2)
+
+    def _limb_sum(self, x, m):
+        """A sum over this rank's source limbs, reduced mod m -> the sum
+        over every limb mod m (int64; an all-reduce over the limb group:
+        each partial sum is below m <= 2**32, so the ranks' sum is exact);
+        x itself when the limbs are not sharded."""
+        shard = self.p.shard
+        return x if shard is None else shard.all_reduce_sum(x) % m
+
     # ------------------------------------------------------------------ keys
     def galois_elt_rows(self, steps: int) -> int:
         """Galois element realizing a row rotation by `steps` slots."""
@@ -433,8 +547,11 @@ class BFV:
 
     def keygen(self, seed: int | None = None, rot_steps=(),
                column_key=True) -> KeySet:
-        """All keys from one seeded generator on the params' device."""
+        """All keys from one seeded generator on the params' device, over
+        the full chain (a limb-sharded rank narrows them: `KeySet.narrow`)."""
         p = self.p
+        if p.shard is not None:
+            raise ValueError("keys are made on the full chain, then narrowed")
         c = p.chain_q
         gen = torch.Generator(device=p.device)
         gen.manual_seed(p.seed if seed is None else seed)
@@ -533,7 +650,8 @@ class BFV:
         x = self.raw_decrypt_residues(keys, ct)            # [..., k, N]
         xs = mul_const_mod(x, p.gt_mod_q, cq.q)            # |gamma*t*x|_q
         y = mul_const_mod(xs, p.inv_punct_q, cq.q)
-        conv = self._fast_bconv(y, p.punct_q_to_tg, ctg)   # [..., 2, N]
+        conv = as_res(self._limb_sum(                      # [..., 2, N]
+            self._fast_bconv(y, p.punct_q_to_tg, ctg), ctg.q))
         s = mul_const_mod(conv, p.neg_qinv_tg, ctg.q)
         s_t, s_g = s[..., 0, :], s[..., 1, :]
         t = p.t
@@ -564,9 +682,10 @@ class BFV:
         y = mul_const_mod(xs, p.inv_punct_q, cq.q)
         yx = mul_const_mod(x, p.inv_punct_q, cq.q)
         # conv_y over {m2, gamma}; conv_x over {m2}
-        conv_y = self._fast_bconv(y, p.punct_q_to_g2, p.chain_g2)    # [..., 2, N]
-        conv_x_m2 = self._fast_bconv(
-            yx, p.punct_q_to_g2[:, :1], p.big_m2_chain)[..., 0, :]
+        conv_y = as_res(self._limb_sum(                    # [..., 2, N]
+            self._fast_bconv(y, p.punct_q_to_g2, p.chain_g2), p.chain_g2.q))
+        conv_x_m2 = as_res(self._limb_sum(self._fast_bconv(
+            yx, p.punct_q_to_g2[:, :1], p.big_m2_chain), m2))[..., 0, :]
         # gamma plane: s_g = V mod gamma, V = Z - e  (g t x = 0 mod g)
         s_g = mul_const_mod(conv_y[..., 1, :], p.big_neg_qinv_g, g)
         # V' mod m2 = (g t conv_x - conv_y) * q^-1
@@ -575,8 +694,10 @@ class BFV:
                     conv_y[..., 0, :], m2),
             p.big_qinv_m2, m2)
         # V' mod 2**32
-        conv_y_m1 = (_mul32(wide(y), p.punct_q_to_m1).sum(dim=-2)) & MASK32
-        conv_x_m1 = (_mul32(wide(yx), p.punct_q_to_m1).sum(dim=-2)) & MASK32
+        conv_y_m1 = self._limb_sum(
+            (_mul32(wide(y), p.punct_q_to_m1).sum(dim=-2)) & MASK32, M32)
+        conv_x_m1 = self._limb_sum(
+            (_mul32(wide(yx), p.punct_q_to_m1).sum(dim=-2)) & MASK32, M32)
         v_m1 = _mul32((_mul32(conv_x_m1, p.big_gt_m1) - conv_y_m1) & MASK32,
                       p.big_qinv_m1)
         # center the gamma residue and divide by gamma: W' = (V' - e) / g
@@ -603,9 +724,10 @@ class BFV:
         """Exact host decrypt of [..., size, k, N]: plaintext coefficients
         as object ints [..., N] in [0, t), round(t w / q) mod t of the
         centered CRT composition w (any t; the plain twin of the device
-        decrypts)."""
+        decrypts).  Sharded limbs are gathered first."""
         p = self.p
-        limbs = self.raw_decrypt_residues(keys, ct).cpu().numpy().astype(object)
+        limbs = self.gather_limbs(self.raw_decrypt_residues(keys, ct))
+        limbs = limbs.cpu().numpy().astype(object)
         acc = None
         for i, (inv, punct, q) in enumerate(zip(
                 p.crt_q.inv_punctured, p.crt_q.punctured, p.crt_q.moduli)):
@@ -669,7 +791,8 @@ class BFV:
     # ------------------------------------------------------------- multiply
     def _fast_bconv(self, y, punct, to_chain: ModChain):
         """y [..., Lf, N] (already * inv_punct) -> [..., Lt, N] =
-        sum_i y_i * |punct_i|_m mod m."""
+        sum_i y_i * |punct_i|_m mod m, over the source limbs y holds (out
+        of sharded base q: this rank's, for `_limb_sum`)."""
         terms = mul_const_mod(y[..., :, None, :], punct, to_chain.q[None])
         return mod_sum(terms, to_chain.q, dim=-3)
 
@@ -681,9 +804,10 @@ class BFV:
         mt = p.m_tilde
         xt = mul_const_mod(x_q, p.mtilde_mod_q, cq.q)      # |m_tilde x|_q
         y = mul_const_mod(xt, p.inv_punct_q, cq.q)
-        conv = self._fast_bconv(y, p.punct_q_to_bsk, cb)
+        conv = as_res(self._limb_sum(self._fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
         # residue mod m_tilde: the low 16 bits of the wrap-around sum
-        conv_mt = ((wide(y)[..., :, None, :] * p.punct_q_to_mtilde) % mt).sum(dim=-3) % mt
+        conv_mt = self._limb_sum(
+            ((wide(y)[..., :, None, :] * p.punct_q_to_mtilde) % mt).sum(dim=-3) % mt, mt)
         r = conv_mt.squeeze(-2) * p.neg_qinv_mtilde % mt
         r_c = torch.where(r >= mt >> 1, r - mt, r)         # centered, small
         corr = mul_const_mod(r_c[..., None, :] % cb.q, p.q_mod_bsk, cb.q)
@@ -714,10 +838,11 @@ class BFV:
         tc_q = mul_const_mod(c_q, p.t_mod_q, cq.q)
         tc_bsk = mul_const_mod(c_bsk, p.t_mod_bsk, cb.q)
         y = mul_const_mod(tc_q, p.inv_punct_q, cq.q)
-        u = self._fast_bconv(y, p.punct_q_to_bsk, cb)
+        u = as_res(self._limb_sum(self._fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
         fl = mul_const_mod(sub_mod(tc_bsk, u, cb.q), p.qinv_mod_bsk, cb.q)
 
-        # Shenoy-Kumaresan back-conversion Bsk -> q
+        # Shenoy-Kumaresan back-conversion Bsk -> q (each rank its own q
+        # limbs out of the replicated Bsk)
         nB = len(p.B_list)
         y_B, y_msk = fl[..., :nB, :], fl[..., nB, :]
         z = mul_const_mod(y_B, p.inv_punct_B, p.chain_B.q)
@@ -739,16 +864,18 @@ class BFV:
 
     # ----------------------------------------------------------- key switch
     def _digit(self, poly, d: int):
-        """Digit d = (limb, position) of poly [..., k, N]: base-2^dbc
-        digit `position` of that limb's residues, broadcast over the limb
-        axis (a digit is a valid residue of every limb: 2^dbc < min q)."""
+        """Digit d = (limb, position) of poly [..., k, N] (every limb):
+        base-2^dbc digit `position` of that limb's residues, broadcast over
+        the limbs these tables cover (a digit is a valid residue of every
+        limb: 2^dbc < min q), [..., L, N]."""
         p = self.p
         i, j = divmod(d, p.digits_per_limb)
         dig = (poly[..., i, :] >> (p.dbc * j)) & ((1 << p.dbc) - 1)
-        return dig[..., None, :].expand(poly.shape)
+        return dig[..., None, :].expand(*poly.shape[:-2], p.k_local, p.n)
 
     def _decompose_digits(self, poly):
-        """poly [..., k, N] -> all k*D digits, [k*D, ..., k, N]."""
+        """poly [..., k, N] (every limb) -> all k*D digits, [k*D, ..., L,
+        N] over the limbs these tables cover."""
         p = self.p
         return torch.stack(
             [self._digit(poly, d) for d in range(p.k * p.digits_per_limb)])
@@ -768,10 +895,15 @@ class BFV:
         return p.ntt_q.inverse(torch.stack([t0, t1], dim=-3))
 
     def _switch_key_inner(self, poly, keys: SwitchKeys):
-        """Key switch of poly [..., k, N] -> two polys [..., 2, k, N] in
-        the coefficient domain, by digits or by RNS groups."""
+        """Key switch of poly [..., L, N] -> two polys [..., 2, L, N] in
+        the coefficient domain, by digits or by RNS groups.  A digit or a
+        group reads whole source limbs: with sharded limbs the polynomial
+        is gathered once here, and each rank computes its own output
+        limbs.  The stacked-or-looped choices read the gathered sizes, so
+        every rank of the limb group takes the same branch."""
         p = self.p
         cq = p.chain_q
+        poly = self.gather_limbs(poly)                     # [..., k, N]
         if p.ks_hybrid:
             return self._switch_key_inner_hybrid(poly, keys)
         stacked = 4 * p.k * p.digits_per_limb * poly.numel()
@@ -791,8 +923,9 @@ class BFV:
         ], dim=-3)
 
     def _switch_key_inner_hybrid(self, poly, keys: SwitchKeys):
-        """RNS-group key switch: each group of data limbs is extended to
-        Q*P, one inner product with the keys runs over the extended chain,
+        """RNS-group key switch of poly [..., k, N] (every limb): each
+        group of data limbs is extended to Q*P (to this rank's limbs of
+        it), one inner product with the keys runs over the extended chain,
         and with special primes a rounded division by P brings the result
         back to Q.  The groups are stacked, or looped over when the stack
         [omega, ..., kp, N] would pass `group_stack_bytes`: the same sums."""
@@ -801,7 +934,7 @@ class BFV:
         kp = len(p.qp_list)
         stacked = 4 * p.ks_omega * (poly.numel() // p.k) * kp
         if stacked > self.group_stack_bytes:
-            y = mul_const_mod(poly, p.ks_inv_punct_grp, cq.q)
+            y = mul_const_mod(poly, p.ks_inv_punct_grp, p.chain_q_full.q)
             t0 = t1 = None
             for gi in range(p.ks_omega):
                 dhat = p.ntt_qp.forward(self._group_extend(y, gi))
@@ -816,8 +949,9 @@ class BFV:
         tt = p.ntt_qp.inverse(t_hat)                              # [..., 2, kp, N]
         if p.n_special == 0:
             return tt
-        # rounded division by P: (t + P/2 - [(t + P/2) mod P]) / P
-        t_q, t_sp = tt[..., : p.k, :], tt[..., p.k :, :]
+        # rounded division by P: (t + P/2 - [(t + P/2) mod P]) / P, each
+        # rank its own q limbs out of the replicated special primes
+        t_q, t_sp = tt[..., : p.k_local, :], tt[..., p.k_local :, :]
         csp = p.chain_sp
         z = add_mod(t_sp, p.ks_phalf_sp, csp.q)
         y2 = mul_const_mod(z, p.ks_inv_punct_sp, csp.q)
@@ -827,7 +961,7 @@ class BFV:
 
     def _group_extend(self, y, gi: int):
         """Group gi of y [..., k, N] (already * ks_inv_punct_grp) extended
-        to the chain Q*P: [..., kp, N]."""
+        to the chain Q*P (this rank's limbs of it): [..., kp, N]."""
         p = self.p
         i0, i1 = p.ks_groups[gi]
         qp = p.chain_qp.q
@@ -835,10 +969,11 @@ class BFV:
         return mod_sum(terms, qp, dim=-3) if i1 - i0 > 1 else terms[..., 0, :, :]
 
     def _group_decompose(self, poly):
-        """poly [..., k, N] -> per-group base extensions [omega, ..., kp, N]
-        (the RNS-group digits of the key switch, coefficient domain)."""
+        """poly [..., k, N] (every limb) -> per-group base extensions
+        [omega, ..., kp, N] (the RNS-group digits of the key switch,
+        coefficient domain)."""
         p = self.p
-        y = mul_const_mod(poly, p.ks_inv_punct_grp, p.chain_q.q)
+        y = mul_const_mod(poly, p.ks_inv_punct_grp, p.chain_q_full.q)
         return torch.stack(
             [self._group_extend(y, gi) for gi in range(p.ks_omega)], dim=0)
 

@@ -33,8 +33,8 @@ def noise_residues_budget(p, limbs: np.ndarray) -> int:
 
 
 def invariant_noise_budget(bfv, keys, ct) -> int:
-    """Budget of one ciphertext [size, k, N]."""
+    """Budget of one ciphertext [size, k, N] (sharded limbs gathered)."""
     if ct.dim() != 3:
         raise ValueError("pass a single ciphertext [size, k, N]")
-    limbs = bfv.raw_decrypt_residues(keys, ct).cpu().numpy()
+    limbs = bfv.gather_limbs(bfv.raw_decrypt_residues(keys, ct)).cpu().numpy()
     return noise_residues_budget(bfv.p, limbs)

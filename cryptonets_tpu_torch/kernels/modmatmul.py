@@ -175,7 +175,7 @@ class ContractCache:
         e = self._entry
         if e is None or e[0] is not factory or e[1] != device:
             e = self._entry = (factory, device, prepare_contract(
-                weights(), factory.coeff_modulus, device))
+                weights(), factory.limb_moduli, device))
         return e[2]
 
 

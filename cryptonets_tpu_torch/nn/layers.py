@@ -173,12 +173,12 @@ class PoolLayer(Layer):
             Xg = gather([e.location(e.corners[0], off, e.input_shape)
                          for off in e.offsets])
             wc = self._contract.get(f, Xh.device, self._weight_matrix)
-            stacked = exact_mod_contract(wc, Xg, f.coeff_modulus, q)
+            stacked = exact_mod_contract(wc, Xg, f.limb_moduli, q)
         else:
             # conv: per offset one gather of every corner's column, per
             # map a constant multiply; the reduced terms (< 2**31 each)
             # add up exactly in int64 and are reduced once at the end
-            wq = [[int(W[mi, oi]) % int(qq) for qq in f.coeff_modulus]
+            wq = [[int(W[mi, oi]) % int(qq) for qq in f.limb_moduli]
                   for mi in range(maps) for oi in range(len(e.offsets))]
             wq = torch.tensor(wq, dtype=torch.int64, device=Xh.device).view(
                 maps, len(e.offsets), -1, 1)             # [maps, O, k, 1]

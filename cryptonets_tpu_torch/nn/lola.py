@@ -110,7 +110,7 @@ class LLPoolLayer(Layer):
         wc = self._contract.get(f, x.device, self._weight_ints)
         OPS.count("plain_multiplication", wc.M * wc.O)
         out = exact_mod_contract(
-            wc, x, f.coeff_modulus, f.bfv[0].p.chain_q.q
+            wc, x, f.limb_moduli, f.bfv[0].p.chain_q.q
         )                                                 # [P, maps, C, s, k, N]
         col0 = m.get_column(0)
         out_scale = col0.scale * self.weights_scale

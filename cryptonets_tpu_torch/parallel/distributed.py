@@ -9,6 +9,9 @@ ciphertext batch; port of `cryptonets_tpu/parallel/distributed.py`.
     rank encodes, encrypts and evaluates only its own records
     (`local_record_slice`), and ranks talk only where records are
     assembled (`global_ciphertext_batch`) or verdicts gathered.
+  * The RNS limbs shard over `limb`: the ranks of a limb group hold the
+    blocks of the same ciphertexts and meet at every cross-limb operation
+    (`limbs.py`).
   * Nothing picks a backend behind the caller's back: the default is
     NCCL, the card's.  Two ranks on one card must ask for gloo (NCCL
     refuses a card twice), whose collectives then run on host tensors.
@@ -29,6 +32,7 @@ import tempfile
 import torch
 import torch.distributed as dist
 
+from .limbs import all_gather_cat
 from .mesh import Mesh, make_mesh
 
 # how long a collective waits for the other ranks before it raises
@@ -42,11 +46,13 @@ def init_multihost(
     *,
     single_process: bool = False,
     backend: str | None = None,
+    timeout: datetime.timedelta | None = None,
 ) -> None:
     """Join the default process group (idempotent): `coordinator_address`
     "host:port" (rank 0 listens there), `num_processes` ranks, this one
-    `process_id`; `backend` "nccl" (the default) or "gloo".  Where CUDA
-    is available the rank takes card `process_id % device_count`.  A single process
+    `process_id`; `backend` "nccl" (the default) or "gloo"; a collective
+    waits `timeout` (COLLECTIVE_TIMEOUT by default) for the others.  Where
+    CUDA is available the rank takes card `process_id % device_count`.  A single process
     must opt in with `single_process=True` (it then joins no group): that
     is never inferred from missing arguments, so a rank that forgets its
     coordinator fails instead of running the whole batch alone."""
@@ -59,7 +65,8 @@ def init_multihost(
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(
         backend or "nccl", init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id, timeout=COLLECTIVE_TIMEOUT)
+        world_size=num_processes, rank=process_id,
+        timeout=timeout or COLLECTIVE_TIMEOUT)
 
 
 def local_record_slice(n_records: int) -> slice:
@@ -80,22 +87,20 @@ def local_record_slice(n_records: int) -> slice:
 
 
 def global_ciphertext_batch(local_data: torch.Tensor, mesh: Mesh | None = None,
-                            batch_axis: int = 1) -> torch.Tensor:
+                            batch_axis: int = 1, limb_axis: int = 3) -> torch.Tensor:
     """The global batch ([P, C, size, k, N] by default, C = the records of
-    every rank) from each rank's own block: an all-gather over the mesh's
-    batch group, the blocks in rank order, on every rank.  Under gloo the
-    blocks cross through host memory; the result lies on `local_data`'s
-    device.  Every rank's block must have the same shape."""
+    every rank, k every limb) from each rank's own block: an all-gather
+    over the mesh's limb group along `limb_axis` (when the limb axis is
+    more than 1), then one over its batch group along `batch_axis`, the
+    blocks in rank order, on every rank.  Under gloo the blocks cross
+    through host memory; the result lies on `local_data`'s device.  Every
+    rank's block must have the same shape."""
     mesh = mesh or make_mesh()
+    out = local_data
+    if mesh.shape["limb"] > 1:
+        out = all_gather_cat(out, mesh.limb_group(), limb_axis)
     group = mesh.batch_group()
-    if group is None:
-        return local_data
-    wire = local_data.contiguous()
-    if dist.get_backend(group) == "gloo":
-        wire = wire.cpu()
-    blocks = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(blocks, wire, group=group)
-    return torch.cat(blocks, dim=batch_axis).to(local_data.device)
+    return out if group is None else all_gather_cat(out, group, batch_axis)
 
 
 # ------------------------------------------------- ranks of one host
@@ -106,9 +111,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_entry(rank, n_ranks, port, backend, out_dir, fn, args):
+def _rank_entry(rank, n_ranks, port, backend, timeout, out_dir, fn, args):
     """A spawned rank: join the group, run fn(*args), write its result."""
-    init_multihost(f"127.0.0.1:{port}", n_ranks, rank, backend=backend)
+    init_multihost(f"127.0.0.1:{port}", n_ranks, rank, backend=backend,
+                   timeout=timeout)
     try:
         result = fn(*args)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
@@ -117,17 +123,19 @@ def _rank_entry(rank, n_ranks, port, backend, out_dir, fn, args):
         dist.destroy_process_group()
 
 
-def run_ranks(fn, n_ranks: int, *args, backend: str | None = None) -> list:
+def run_ranks(fn, n_ranks: int, *args, backend: str | None = None,
+              timeout: datetime.timedelta | None = None) -> list:
     """Run fn(*args) on `n_ranks` processes of this host in one process
-    group (`init_multihost` on a free localhost port, `backend` as there),
+    group (`init_multihost` on a free localhost port, `backend` and
+    `timeout` as there),
     started by `torch.multiprocessing` with the spawn method; `fn` must be
     a module-level function.  Returns each rank's result in rank order.
     A rank that fails ends the others and raises here."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(_rank_entry, args=(n_ranks, free_port(), backend, out_dir,
-                                    fn, args),
+        mp.spawn(_rank_entry, args=(n_ranks, free_port(), backend, timeout,
+                                    out_dir, fn, args),
                  nprocs=n_ranks, join=True, start_method="spawn")
         results = []
         for r in range(n_ranks):

@@ -6,15 +6,14 @@ polynomials, RNS limbs, coefficients):
   * the `batch` axis shards C: independent ciphertexts, which need no
     communication until their records are assembled or decrypted;
   * the `limb` axis shards k.  The JAX package leaves its collectives to
-    GSPMD; torch has no such partitioner, so a limb axis needs explicit
-    collectives at every operation that reads across limbs (base
-    conversion, key switching, decrypt), which this package does not have
-    yet: a mesh with limb > 1 can be built, and raises NotImplementedError
-    when used.
+    GSPMD; torch has no such partitioner, so each operation that reads
+    across limbs (base conversion, key switching, decrypt) takes an
+    explicit collective over the limb group: a rank's factory is given
+    its `limb_shard` (`parallel/limbs.py`, `CrtBfvFactory(shard=...)`).
 
-Each rank holds its own block of C (`shard_ciphertext_data`); a sharding
-is described, as the reference's PartitionSpec, by the mesh axis name of
-each tensor axis (`ciphertext_spec`, `batch_sharding`).
+Each rank holds its own block of C and of k (`shard_ciphertext_data`); a
+sharding is described, as the reference's PartitionSpec, by the mesh axis
+name of each tensor axis (`ciphertext_spec`, `batch_sharding`).
 """
 
 from __future__ import annotations
@@ -48,22 +47,51 @@ class Mesh:
         self.shape = {"batch": batch, "limb": limb}
         self.device_mesh = device_mesh
 
-    def batch_index(self) -> int:
-        """This rank's coordinate on the batch axis.  Every use of a mesh
-        passes here, so a mesh with limb > 1 raises."""
-        if self.shape["limb"] > 1:
-            raise NotImplementedError(
-                f"a mesh with limb = {self.shape['limb']} > 1 (RNS limbs "
-                f"sharded over ranks, with collectives at base conversion, "
-                f"key switching and decrypt) is not ported")
+    def _coordinate(self, axis: int) -> int:
         if self.device_mesh is None:
             return 0
-        return int(self.device_mesh.get_coordinate()[0])
+        return int(self.device_mesh.get_coordinate()[axis])
+
+    def batch_index(self) -> int:
+        """This rank's coordinate on the batch axis."""
+        return self._coordinate(0)
+
+    def limb_index(self) -> int:
+        """This rank's coordinate on the limb axis."""
+        return self._coordinate(1)
+
+    def _group(self, name: str):
+        return None if self.device_mesh is None else self.device_mesh.get_group(name)
 
     def batch_group(self):
         """The process group of this rank's batch axis (None on one rank)."""
-        self.batch_index()
-        return None if self.device_mesh is None else self.device_mesh.get_group("batch")
+        return self._group("batch")
+
+    def limb_group(self):
+        """The process group of this rank's limb axis (None on one rank)."""
+        return self._group("limb")
+
+    def limb_block(self, k: int) -> tuple[int, int]:
+        """This rank's data limbs [lo, hi) of a k-limb chain: the l-th of
+        the limb axis' equal blocks.  A limb count that does not divide k
+        raises."""
+        parts = self.shape["limb"]
+        if k % parts:
+            raise ValueError(f"{k} limbs do not split into {parts} equal "
+                             f"blocks over the limb axis")
+        per = k // parts
+        i = self.limb_index()
+        return i * per, (i + 1) * per
+
+    def limb_shard(self, k: int):
+        """The `LimbShard` of this rank's limbs of a k-limb chain, for the
+        factory (`CrtBfvFactory(shard=...)`); None when the limb axis is
+        1, where the factory is the one-process one."""
+        if self.shape["limb"] == 1:
+            return None
+        from .limbs import LimbShard
+
+        return LimbShard(*self.limb_block(k), k, self.limb_group())
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -73,9 +101,8 @@ def make_mesh(n_devices: int | None = None, batch: int | None = None) -> Mesh:
     """A (batch, limb) mesh over the ranks of the default process group,
     or over one rank when none is initialised.  `n_devices` defaults to
     the world size and must equal it when a group exists.  The default
-    factoring puts half the ranks on `limb` (n // 2 on batch), and a
-    limb axis raises when used: for n > 1 pass batch=n to get a usable
-    mesh."""
+    factoring is the reference's: n // 2 ranks on batch and 2 on limb
+    for n > 1; pass batch=n to put every rank on batch."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = n_devices or world
     b, lb = mesh_shape(n, batch)
@@ -110,17 +137,17 @@ class Sharding(NamedTuple):
 
 def batch_sharding(mesh: Mesh, ndim: int, batch_axis: int = 1) -> Sharding:
     """`ndim`-axis data whose axis `batch_axis` lies over the batch axis."""
-    mesh.batch_index()
     spec = [None] * ndim
     spec[batch_axis] = "batch"
     return Sharding(mesh, tuple(spec))
 
 
-def shard_ciphertext_data(data: torch.Tensor, mesh: Mesh,
-                          batch_axis: int = 1) -> torch.Tensor:
-    """This rank's block of `data` along `batch_axis` (default: C of
-    [P, C, size, k, N]): the b-th of the mesh's `batch` equal blocks, a
-    view.  An axis the batch size does not divide raises."""
+def shard_ciphertext_data(data: torch.Tensor, mesh: Mesh, batch_axis: int = 1,
+                          limb_axis: int = 3) -> torch.Tensor:
+    """This rank's block of `data` (default: C and k of [P, C, size, k,
+    N]): the b-th of the mesh's `batch` equal blocks along `batch_axis`
+    and the l-th of its `limb` blocks along `limb_axis`, a view.  An axis
+    its mesh axis does not divide raises."""
     b = mesh.batch_index()
     parts = mesh.shape["batch"]
     size = data.shape[batch_axis]
@@ -128,4 +155,8 @@ def shard_ciphertext_data(data: torch.Tensor, mesh: Mesh,
         raise ValueError(f"axis {batch_axis} of {size} does not split into "
                          f"{parts} equal blocks over the batch axis")
     per = size // parts
-    return data.narrow(batch_axis, b * per, per)
+    block = data.narrow(batch_axis, b * per, per)
+    if mesh.shape["limb"] == 1:
+        return block
+    lo, hi = mesh.limb_block(data.shape[limb_axis])
+    return block.narrow(limb_axis, lo, hi - lo)

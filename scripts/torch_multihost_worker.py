@@ -32,7 +32,7 @@ def rank_main(device) -> str:
     from cryptonets_tpu_torch.parallel.dryrun import sharded_rank
 
     n = dist.get_world_size()
-    res = sharded_rank(2 * n, None, device)
+    res = sharded_rank(2 * n, None, device, n)
     start, stop = res["records"]
     if tuple(res["global_output"].shape[:1]) != (2 * n,):
         raise SystemExit(f"global batch {tuple(res['global_output'].shape)}")

@@ -49,7 +49,7 @@ def run_mesh_curve(ranks: int, per_rank: int, backend, device) -> dict:
     rate, windows = {}, {}
     R = 1
     while R <= ranks:
-        res = run_ranks(production_rank, R, per_rank, device, backend=backend)
+        res = run_ranks(production_rank, R, per_rank, device, R, backend=backend)
         windows[R] = max(r["window_s"] for r in res)
         rate[R] = R * per_rank / windows[R]
         print(f"# {R} rank(s): {rate[R]:.2f} rec/s (window {windows[R]:.4f} s, "

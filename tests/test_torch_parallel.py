@@ -2,15 +2,17 @@
 
   * `make_mesh`'s factoring against the JAX `make_mesh` on its 8 virtual
     devices, for 1-8 ranks; `local_record_slice` against the reference's
-    arithmetic, the ragged-split error too; the placement specs; a mesh
-    with limb > 1 raising NotImplementedError wherever it is used;
+    arithmetic, the ragged-split error too; the placement specs; each
+    rank's blocks of a mesh with limb > 1;
   * the tiny LoLa network of `parallel/dryrun.py` (n = 256, hybrid key
-    switching): its weights equal the reference's; 2 and 4 ranks under
-    gloo (spawned processes), {batch: ranks, limb: 1}: the input
-    ciphertexts encrypted once, each rank's outputs for its records
-    bit-equal to the one-process run on the same ciphertexts, the global
-    batch assembled by all-gather equal to it, and the decrypted outputs
-    equal to the JAX package's `build_tiny_lola(encrypt=False)` oracle;
+    switching): its weights equal the reference's; ranks under gloo
+    (spawned processes) on the meshes {2, 1}, {4, 1} and the JAX
+    package's defaults {1, 2} and {2, 2} (records over batch, RNS limbs
+    over limb): the input ciphertexts encrypted once, each rank's outputs
+    for its records and limbs bit-equal to the one-process run on the same
+    ciphertexts, the global batch assembled by all-gathers equal to it,
+    and the decrypted outputs equal to the JAX package's
+    `build_tiny_lola(encrypt=False)` oracle;
   * `PipelineForward` with 1 and 3 stages on the CPU: equal outputs, the
     Raw oracle's values, each stage's factory and keys on its device.
 
@@ -91,14 +93,39 @@ def test_one_rank_mesh_and_specs():
         make_mesh(2)               # two ranks need a process group
 
 
-def test_limb_axis_is_not_ported():
-    m = mesh.Mesh(1, 2)
-    x = torch.zeros(1, 2, 2, 4, 8)
-    for use in (m.batch_index, lambda: shard_ciphertext_data(x, m),
-                lambda: batch_sharding(m, 5), lambda: global_ciphertext_batch(x, m),
-                lambda: dryrun.dryrun_production(m, device="cpu")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            use()
+class _Coordinate:
+    """A device mesh that only says this rank's coordinate."""
+
+    def __init__(self, coordinate):
+        self.coordinate = coordinate
+
+    def get_coordinate(self):
+        return list(self.coordinate)
+
+    def get_group(self, name):
+        return None
+
+
+@pytest.mark.parametrize("coordinate", [(0, 0), (1, 1)])
+def test_limb_axis_blocks(coordinate):
+    """A {2, 2} mesh's rank at `coordinate`: its batch and limb indices,
+    its block of [P, C, size, k, N] data on both axes, its limb shard,
+    the batch spec; a limb axis that does not divide k raises."""
+    b, lb = coordinate
+    m = mesh.Mesh(2, 2, _Coordinate(coordinate))
+    assert (m.batch_index(), m.limb_index()) == coordinate
+    x = torch.arange(2 * 4 * 2 * 6 * 8).reshape(2, 4, 2, 6, 8)
+    assert torch.equal(shard_ciphertext_data(x, m),
+                       x[:, 2 * b:2 * b + 2, :, 3 * lb:3 * lb + 3])
+    y = x.movedim(1, 0).movedim(4, 3)                    # [C, P, size, N, k]
+    assert torch.equal(shard_ciphertext_data(y, m, batch_axis=0, limb_axis=4),
+                       y[2 * b:2 * b + 2, ..., 3 * lb:3 * lb + 3])
+    shard = m.limb_shard(6)
+    assert (shard.lo, shard.hi, shard.k) == (3 * lb, 3 * lb + 3, 6)
+    assert mesh.Mesh(2, 1).limb_shard(6) is None
+    assert batch_sharding(m, 5).spec == (None, "batch", None, None, None)
+    with pytest.raises(ValueError):
+        shard_ciphertext_data(x[..., :5, :], m)
 
 
 def test_uneven_batch_split_raises():
@@ -148,22 +175,31 @@ def test_one_process_outputs_equal_reference_raw_oracle(one_process):
         np.testing.assert_allclose(got[: len(want)], want, atol=1e-9)
 
 
-@pytest.mark.parametrize("ranks", [2, 4])
-def test_gloo_ranks_bit_equal_to_one_process(one_process, ranks, monkeypatch):
-    """`ranks` spawned processes under gloo, each on its own records of the
-    same ciphertexts (each rank also holds its records to the Raw oracle):
-    every rank's outputs equal the one-process run's for its records, and
-    the all-gathered global batch equals the whole run.  The ranks run one
-    torch thread each (they inherit OMP_NUM_THREADS)."""
+@pytest.mark.parametrize("ranks,batch", [(2, 2), (4, 4), (2, None), (4, None)],
+                         ids=["2x1", "4x1", "1x2", "2x2"])
+def test_gloo_ranks_bit_equal_to_one_process(one_process, ranks, batch, monkeypatch):
+    """`ranks` spawned processes under gloo on the mesh of `batch` (None:
+    the default factoring, held to the JAX `make_mesh` default, as
+    `dryrun_multichip` runs it), each on its own records and limbs of the
+    same ciphertexts (each limb group also holds its records to the Raw
+    oracle): every rank's outputs equal the one-process run's for its
+    records and limbs, and the global batch all-gathered over both axes
+    equals the whole run.  The ranks run one torch thread each (they
+    inherit OMP_NUM_THREADS)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     path, _, stacked = one_process
     results = distributed.run_ranks(dryrun.sharded_rank, ranks, 4, path, "cpu",
-                                    backend="gloo")
-    per = 4 // ranks
+                                    batch, backend="gloo")
+    want = dict(jmesh.make_mesh(ranks, batch=batch).shape)
+    per, limb = 4 // want["batch"], dryrun.TINY_LIMBS // want["limb"]
     for r, res in enumerate(results):
-        assert res["records"] == (r * per, (r + 1) * per)
+        b, lb = divmod(r, want["limb"])
+        assert res["mesh"] == want
+        assert res["records"] == (b * per, (b + 1) * per)
+        assert res["limbs"] == (lb * limb, (lb + 1) * limb)
         assert res["window_s"] >= res["forward_s"] > 0
-        assert torch.equal(res["outputs"][0], stacked[r * per:(r + 1) * per])
+        assert torch.equal(res["outputs"][0],
+                           stacked[b * per:(b + 1) * per, ..., lb * limb:(lb + 1) * limb, :])
         assert torch.equal(res["global_output"], stacked)
 
 
