@@ -5,7 +5,7 @@
                            lola_small,caltech,lola_packed,lola_large,cifar,
                            lola_dense,cifar_bigt,lola_large_bigt,serve,
                            basic,op_budgets,parallel,pipeline,bigt62,
-                           featurize]
+                           graph,record_batch,featurize]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi);
@@ -113,9 +113,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      add_plain, a plaintext product and a ciphertext product with
      relinearisation, each exact with budget left, the budgets beside the
      reference's;
- 16. `featurize`: the seeded AlexNet featurizer on the card for four
+ 16. `graph`: the compiled record (`nn/forward.py`), the counterpart of
+     the reference's one XLA program a record: LoLa, LoLaSmall,
+     Caltech-101, CryptoNets (8192 images), LoLaDense, LoLaPacked,
+     LoLaLarge and CIFAR each eager and under `graph=True, fuse_io=True`
+     on one head and key set (the whole record in one CUDA graph; the
+     layers only for LoLaDense, whose plain primes encode on the host): a
+     warm-up and five timed records of each form, every record against
+     the Raw oracle (LoLaDense's wrong records counted, ROADMAP.md §3) and
+     the two forms' decryptions equal, the graph's launches a record
+     (replayed) equal to the eager record's, its outputs bit-equal to the
+     eager layers on its own input ciphertexts read from its static
+     buffer, two replays of one record with different input ciphertexts
+     and equal decoded slots, capture seconds, graph pool and peak GiB,
+     device busy ms and idle share of one profiled graph record, one
+     record's parts with the device synchronised between them;
+     `record_batch`: LoLaSmall at B = 16 and Caltech-101 at B = 32
+     (`bench.py`'s BENCH_VMAP rows), the layers under `torch.func.vmap`,
+     one graph replay a batch: every record against the Raw oracle and
+     bit-equal to the eager layers on its input ciphertexts, ms a record,
+     launches a batch, peak and graph pool GiB;
+ 17. `featurize`: the seeded AlexNet featurizer on the card for four
      synthetic images against the CPU run of the same parameters;
- 17. launch shapes: every path records the shape of every kernel launch
+ 18. launch shapes: every path records the shape of every kernel launch
      of its first record (batch), and after the paths a fresh process
      (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5 and K4
      (on the path's own weights) bit-equal to their plain versions at
@@ -154,7 +174,7 @@ PHASES = ("build", "ntt", "mmntt", "contract", "bigt", "lola", "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
           "lola_large_bigt", "serve", "basic", "op_budgets", "parallel",
-          "pipeline", "bigt62", "featurize")
+          "pipeline", "bigt62", "graph", "record_batch", "featurize")
 # final budgets the reference records (docs/PARITY.md:175; :155 gives no
 # budget for `cryptonets_bigt`, only its plain moduli's 78.6-bit capacity)
 REFERENCE_BUDGETS = {"cifar_bigt": "none recorded: the JAX package never ran "
@@ -223,7 +243,7 @@ def device_ms(fn, kernel: str, launches: int = 50, attempts: int = 3) -> float:
         if count:
             return sum(e.self_device_time_total for e in hits) / count / 1e3
         seen = [e.key[:60] for e in events]
-    raise SystemExit(f"the profiler recorded no device time for {kernel} "
+    raise SystemExit(f"{PROFILER_EMPTY} for {kernel} "
                      f"in {attempts} windows; device events seen: {seen}")
 
 
@@ -1096,9 +1116,9 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     """Every kernel held to its plain version and timed beside its bound
     at every launch shape recorded on the paths (each (shape, moduli)
     once, in the first path that launched it; K4 on the path's own
-    weights), in a fresh process (`--launch-shapes`): after the paths'
-    hundreds of thousands of launches the profiler's windows came back
-    empty in this one.  `recorded` maps a path to its LaunchShapes, or to
+    weights), in fresh processes of SHAPE_CHUNK cases each
+    (`_shape_process`): after the paths' hundreds of thousands of launches
+    the profiler's windows came back empty in this one.  `recorded` maps a path to its LaunchShapes, or to
     the cases (`shape_cases`) a rank process sent back.  Returns ({kernel
     name: [entries with `where`]}, {kernel name: max error})."""
     cases, done = [], set()
@@ -1112,22 +1132,50 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     paths = ", ".join(recorded)
     recorded.clear()
     torch.cuda.empty_cache()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--launch-shapes"], input=pickle.dumps(cases),
-                          stdout=subprocess.PIPE, timeout=900, check=False)
-    lines = proc.stdout.decode().splitlines()
-    for line in lines[:-1]:
-        log(line)
-    if proc.returncode != 0:
-        raise SystemExit(f"the launch-shape check failed ({proc.returncode}): "
-                         + (lines[-1] if lines else ""))
-    out = json.loads(lines[-1])
+    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",)
+    shapes, err = {name: [] for name in names}, dict.fromkeys(names, 0)
+    for c0 in range(0, len(cases), SHAPE_CHUNK):
+        out = _shape_process(cases[c0:c0 + SHAPE_CHUNK])
+        for name in names:
+            shapes[name] += out["shapes"][name]
+            err[name] = max(err[name], out["err"][name])
     counts = {kind: sum(c["kind"] == kind for c in cases)
               for kind in ("ntt", "mmntt", "contract")}
     log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4) bit-equal "
         f"to the plain versions, edge rows too, each timed with the "
         f"profiler's device time")
-    return out["shapes"], out["err"]
+    return shapes, err
+
+
+# cases a fresh process checks and times: a process's profiler has come
+# back empty after some hundreds of windows (PERF.md §7), so the cases
+# are cut into pieces, and a piece whose process saw no device time at
+# all runs once more in another fresh process
+SHAPE_CHUNK = 120
+PROFILER_EMPTY = "the profiler recorded no device time"
+
+
+def _shape_process(cases) -> dict:
+    """`cases` checked and timed in a fresh process (`--launch-shapes`);
+    its JSON result.  A kernel that disagrees with its plain version, or
+    any other failure, fails the run; an empty profiler twice does too."""
+    for attempt in range(2):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--launch-shapes"], input=pickle.dumps(cases),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              timeout=900, check=False)
+        lines = proc.stdout.decode().splitlines()
+        errors = proc.stderr.decode()
+        for line in lines[:-1] if proc.returncode == 0 else lines:
+            log(line)
+        sys.stderr.write(errors)
+        if proc.returncode == 0:
+            return json.loads(lines[-1])
+        if attempt or PROFILER_EMPTY not in errors:
+            raise SystemExit(f"the launch-shape check failed ({proc.returncode}): "
+                             + (errors.strip().splitlines() or [""])[-1])
+        log(f"launch shapes: the profiler of that process saw no device time; "
+            f"its {len(cases)} cases once more in a fresh process")
 
 
 def _crt_weights(reduced: np.ndarray, mods) -> np.ndarray:
@@ -1968,6 +2016,352 @@ def featurize_phase(dev) -> dict:
     return dict(ms=ms, max_abs_err=err, largest=scale)
 
 
+# ------------------------------------------------------------- slice H
+GRAPH_TIMED = 5   # timed records (CryptoNets: batches) of each form, after one
+# the paths under a graph, the main path first: the whole record in the
+# graph (fused) where the factory encodes and decodes on the card, the
+# layers only for LoLaDense (plain primes near 2**35)
+GRAPH_PATHS = ("lola", "lola_small", "caltech", "cryptonets", "lola_dense",
+               "lola_packed", "lola_large", "cifar")
+BATCHES = (("lola_small", 16), ("caltech", 32))   # README.md:32's batches
+
+
+def _graph_spec(which: str, count: int):
+    """(title, build(encrypt, records, device), pools of records (a pool:
+    the records of one reader pull), the kernels the path must launch)
+    for `count` pools of one path."""
+    from functools import partial
+
+    from cryptonets_tpu_torch.data.preprocess import (synthetic_cifar_records,
+                                                      synthetic_feature_records,
+                                                      synthetic_mnist_records)
+    from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
+    from cryptonets_tpu_torch.models import lola_mnist as LM
+
+    conv = BUTTERFLY_KERNELS + ("mod_contract",)
+    if which == "cryptonets":
+        records, _ = cryptonets_data(8192)
+        pools = [records[:8192], records[8192:]]
+        return ("CryptoNets", partial(cryptonets_mnist.build, batch_size=8192),
+                pools, conv)
+    if which == "caltech":
+        recs = synthetic_feature_records(count, caltech101.N_FEATURES, seed=6)
+        return "Caltech-101", caltech101.build, [[r] for r in recs], BUTTERFLY_KERNELS
+    if which == "cifar":
+        return ("CIFAR", lola_cifar.build,
+                [[r] for r in synthetic_cifar_records(count, seed=4)], conv)
+    title, build = {"lola": ("LoLa", LM.build_lola_bsgs),
+                    "lola_small": ("LoLaSmall", LM.build_lola_small),
+                    "lola_dense": ("LoLaDense", LM.build_lola_dense),
+                    "lola_packed": ("LoLaPacked", LM.build_lola),
+                    "lola_large": ("LoLaLarge", LM.build_lola_large)}[which]
+    return title, build, [[r] for r in synthetic_mnist_records(count, seed=11)], conv
+
+
+def _copies(records) -> list:
+    return [(lb, f.copy()) for lb, f in records]
+
+
+def _oracle(which: str, build, pools) -> list:
+    """The Raw oracle's output matrix ([dim, columns]) of every pool."""
+    if which == "cryptonets":
+        return cryptonets_data(8192)[1]
+    head_r, _, reader_r = build(False, records=_copies(sum(pools, [])))
+    head_r.prepare_network()
+    return [np.asarray(head_r.get_next().decrypt(), dtype=float) for _ in pools]
+
+
+# LoLaDense decrypts some records wrong, eagerly as under a graph: its
+# plain primes near 2**35 leave 0-6 bits at the end (PERF.md's sweep), and
+# the fourth record this phase runs (record 0 encrypted a second time)
+# decrypts to other logits at a reported budget of 1 bit, with the eager
+# code as it was before the graphs too (ROADMAP.md §3).  On this path a
+# record that disagrees with the Raw oracle is counted and reported; the
+# graph is held bit-equal to the eager layers on its own input ciphertexts
+# all the same
+WRONG_AT_TIMES = ("lola_dense",)
+
+
+def _gate(title: str, which: str, i: int, enc, raw) -> bool:
+    """A record's decrypted outputs against the Raw oracle's at rtol 1e-9
+    (CryptoNets, as its own phase: the first batch's logits, every
+    batch's 8192 predictions): True when they agree.  On a path of
+    WRONG_AT_TIMES a record that disagrees is logged and False; on any
+    other path it fails the run."""
+    if enc.shape != raw.shape or not np.all(np.isfinite(enc)):
+        raise SystemExit(f"{title} record {i}: output {enc.shape} is malformed")
+    close = bool(np.allclose(enc, raw, rtol=1e-9, atol=0))
+    if not close and which in WRONG_AT_TIMES:
+        log(f"{title} record {i}: decrypts to {enc.ravel()[:4]} against the "
+            f"Raw oracle's {raw.ravel()[:4]} (ROADMAP.md §3)")
+        return False
+    if which == "cryptonets":
+        wrong = int((np.argmax(enc, axis=1) != np.argmax(raw, axis=1)).sum())
+        if wrong or (i % 2 == 0 and not close):
+            raise SystemExit(f"{title} batch {i}: {wrong} predictions differ "
+                             f"from the Raw oracle's, logits close: {close}")
+    elif not close:
+        raise SystemExit(f"{title} record {i}: encrypted outputs "
+                         f"{enc.ravel()[:6]} disagree with the Raw oracle "
+                         f"{raw.ravel()[:6]}")
+    return True
+
+
+def _profiled_ms(step) -> float | None:
+    """Device busy ms of one `step()` (the sum of its kernels' device
+    times, torch.profiler); None when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 if busy > 0 else None
+
+
+def graph_case(dev, which: str) -> dict:
+    """One path eager and under `graph=True` (the whole record in one
+    graph where the factory encodes and decodes on the card, else the
+    layers), one head and key set: a warm-up and GRAPH_TIMED timed records
+    of each form, every record against the Raw oracle and the two forms'
+    decryptions equal; the graph's launches a record (replayed) equal to
+    the eager record's; its outputs bit-equal to the eager layers on its
+    own input ciphertexts (read from its static buffer after a replay);
+    two replays of one record with different input ciphertexts and equal
+    decoded slots; capture seconds, graph memory, device busy time and
+    idle share of one profiled graph record, a record's parts; budget >
+    0."""
+    from cryptonets_tpu_torch.nn.forward import EncryptedForward
+
+    title, build, pools, kernels = _graph_spec(which, 3)
+    raws = _oracle(which, build, pools)
+    head, fac, _ = build(True, records=_copies(pools[0]), device=dev)
+    head.prepare_network()
+    eager = EncryptedForward(head)
+    graph = EncryptedForward(head, graph=True, fuse_io=True)
+    form = "the whole record" if graph.fuse_io else "the layers"
+
+    def record(fwd, i):
+        fwd.reader.set_source_records(_copies(pools[i % len(pools)]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd()
+        enc = np.asarray(out.decrypt(), dtype=float)
+        return out, enc, time.perf_counter() - t0
+
+    lats, per, decs, limit = {}, {}, {}, {}
+    for kind, fwd in (("eager", eager), ("graph", graph)):
+        lats[kind], decs[kind], limit[kind] = [], [], 0
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1 + GRAPH_TIMED):
+            before = kernel_counts()
+            out, enc, s = record(fwd, i)
+            launched = {k: v - before[k] for k, v in kernel_counts().items()}
+            check_launches(f"{title} ({kind}) record {i}", launched, kernels,
+                           MATMUL_KERNELS + (() if "mod_contract" in kernels
+                                             else ("mod_contract",)))
+            exact = _gate(f"{title} ({kind})", which, i, enc, raws[i % len(raws)])
+            limit[kind] += not exact
+            decs[kind].append(enc if exact else None)
+            if i:
+                lats[kind].append(s)
+                per[kind] = launched
+            else:
+                first = s
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if kind == "graph":
+            peak_graph, first_graph = peak, first
+        else:
+            peak_eager = peak
+    if per["graph"] != per["eager"]:
+        raise SystemExit(f"{title}: launches a graph record {per['graph']} "
+                         f"differ from an eager record's {per['eager']}")
+    if any(a is not None and b is not None and not np.array_equal(a, b)
+           for a, b in zip(decs["graph"], decs["eager"])):
+        raise SystemExit(f"{title}: graph and eager decryptions differ")
+    budget = min(v.noise_budget() for v in out.vectors)
+    if budget <= 0:
+        raise SystemExit(f"{title} (graph): the noise budget is exhausted")
+    log(f"{title}: {1 + GRAPH_TIMED} eager and {1 + GRAPH_TIMED} graph records "
+        f"exact, launches a record equal")
+
+    (key, g), = graph.graphs().items()
+    graph.reader.set_source_records(_copies(pools[0]))
+    raw0 = graph.reader.get_next()
+    if graph.fuse_io:
+        datas, _, data = g.outputs
+        outs, ins = [d.clone() for d in datas], data.clone()
+        _, V, C, dim, scale = key
+        cols = ins.reshape(fac.P, V, C, *ins.shape[2:]).unbind(1)
+        ref = eager.run_encrypted(eager.input_matrix(list(cols), dim, scale))
+        bufs, _ = graph.slot_bufs(raw0)
+        g.replay(bufs)
+        in1, s1 = g.outputs[2].clone(), g.outputs[1].clone()
+        g.replay(bufs)
+        fresh = not torch.equal(in1, g.outputs[2])
+        same = torch.equal(s1, g.outputs[1])
+    else:
+        m = eager.encrypt(raw0)
+        outs = [v.data for v in graph.run_graph(m).vectors]
+        ref = eager.run_encrypted(m)
+        # encrypt runs outside the graph, a fresh draw a call: two records'
+        # inputs differ; the graph holds no randomness to replay
+        m2 = eager.encrypt(raw0)
+        fresh, same = not torch.equal(m.vectors[0].data, m2.vectors[0].data), True
+    if not all(torch.equal(a, v.data) for a, v in zip(outs, ref.vectors)):
+        raise SystemExit(f"{title}: the graph's outputs differ from the eager "
+                         f"layers' on the graph's own input ciphertexts")
+    if not (fresh and same):
+        raise SystemExit(f"{title}: two replays of one record drew the same "
+                         f"randomness ({not fresh}) or decoded differently "
+                         f"({not same})")
+    busy = _profiled_ms(lambda: record(graph, 0))
+    parts = _record_parts(eager, graph, raw0)
+    med = {k: statistics.median(v) for k, v in lats.items()}
+    idle = None if busy is None else max(0.0, 1 - busy / (1e3 * med["graph"]))
+    res = dict(form=form, eager_s=lats["eager"], graph_s=lats["graph"],
+               eager_median_s=med["eager"], graph_median_s=med["graph"],
+               capture_s=g.capture_s, first_graph_record_s=first_graph,
+               graph_pool_gib=g.pool_bytes / 2**30, peak_eager_gib=peak_eager,
+               peak_graph_gib=peak_graph, busy_ms=busy, idle_share=idle,
+               per_record=per["graph"], budget=budget, parts=parts,
+               wrong_records=limit)
+    log(f"{title} under a graph ({form}): capture {g.capture_s:.3f} s "
+        f"(warm-up included; first record {first_graph:.4f} s), graph pool "
+        f"{res['graph_pool_gib']:.3f} GiB, peak {peak_graph:.2f} GiB (eager "
+        f"{peak_eager:.2f}); record latency median eager {med['eager']:.4f} s "
+        f"{lats['eager']}, graph {med['graph']:.4f} s {lats['graph']} "
+        f"({med['eager'] / med['graph']:.2f}x); device busy ms of one profiled "
+        f"graph record {busy}, idle share against the unprofiled median "
+        f"{idle}; launches a record {per['graph']} (equal to "
+        f"eager's); every record equal to the Raw oracle and to eager; the "
+        f"outputs bit-equal to the eager layers on the graph's own input "
+        f"ciphertexts; two replays of one record: fresh input ciphertexts, "
+        f"equal decoded slots; final budget {budget} bits; one record's parts "
+        f"in ms, device synchronised between them: {parts}"
+        + (f"; records that decrypted wrong (ROADMAP.md §3): {limit}"
+           if any(limit.values()) else ""))
+    graph.release()
+    return res
+
+
+def _record_parts(eager, graph, raw) -> dict:
+    """Host-clock ms of one record's parts, the device synchronised
+    between them: eager (encrypt with the slot encode, the layers, the
+    decrypt with the host decode and join) and under the graph (the host
+    slot buffers, the copy in and the replay, the decoded slots out and
+    the join; a layers-only graph: encrypt, replay, decrypt)."""
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    out = {}
+    m, out["eager encrypt"] = ms(lambda: eager.encrypt(raw))
+    o, out["eager layers"] = ms(lambda: eager.run_encrypted(m))
+    _, out["eager decrypt + join"] = ms(lambda: eager._decrypt_into(o).decrypt())
+    if graph.fuse_io:
+        (key, g), = graph.graphs().items()
+        b, out["graph slot buffers"] = ms(lambda: graph.slot_bufs(raw)[0])
+        r, out["graph copy + replay"] = ms(lambda: g.replay(b))
+        _, out["graph slots out + join"] = ms(lambda: graph._output_matrix(
+            key, [d.clone() for d in r[0]], graph._split_slots(r[1], r[0])).decrypt())
+    else:
+        m, out["graph encrypt"] = ms(lambda: graph.encrypt(raw))
+        o, out["graph layers replay"] = ms(lambda: graph.run_graph(m))
+        _, out["graph decrypt + join"] = ms(lambda: graph._decrypt_into(o).decrypt())
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def graph_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """Every path of GRAPH_PATHS eager and under a graph (`graph_case`),
+    each path's graph and head freed before the next.  A graph launches
+    the kernels at its eager record's shapes, which that path's own phase
+    records: `shapes` stays empty here."""
+    reset_kernel_counts()
+    out = {}
+    for which in GRAPH_PATHS:
+        t0 = time.perf_counter()
+        out[which] = graph_case(dev, which)
+        torch.cuda.empty_cache()
+        log(f"graph {which}: {time.perf_counter() - t0:.1f} s")
+    return dict(launches=kernel_counts(), per_record=out["lola"]["per_record"],
+                paths=out)
+
+
+def record_batch_phase(dev, shapes: LaunchShapes | None = None) -> dict:
+    """LoLaSmall at B = 16 and Caltech-101 at B = 32 (`bench.py`'s
+    BENCH_VMAP rows, README.md:32) as record batches under one graph: one
+    capture, then a warm-up and GRAPH_TIMED timed batches of one replay
+    each; every record against the Raw oracle, every record's outputs
+    bit-equal to the eager layers on its input ciphertexts from the
+    batch's static buffer; ms a record, launches a batch, peak and graph
+    pool GiB."""
+    from cryptonets_tpu_torch.nn.forward import EncryptedForward
+
+    reset_kernel_counts()
+    out = {}
+    for which, B in BATCHES:
+        t0 = time.perf_counter()
+        title, build, pools, kernels = _graph_spec(which, B)
+        raws = _oracle(which, build, pools)
+        recs = sum(pools, [])
+        head, fac, _ = build(True, records=_copies(recs), device=dev)
+        head.prepare_network()
+        graph, eager = EncryptedForward(head, graph=True), EncryptedForward(head)
+        batch = list(iter(graph.reader.get_next, None))
+        torch.cuda.reset_peak_memory_stats()
+        lats, per = [], None
+        for i in range(2 + GRAPH_TIMED):     # capture, warm-up, timed
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            with (shapes if i == 0 and shapes else contextlib.nullcontext()):
+                res = graph.run_batch(batch)
+            encs = [np.asarray(r.decrypt(), dtype=float) for r in res]
+            s = time.perf_counter() - s0
+            launched = {k: v - before[k] for k, v in kernel_counts().items()}
+            check_launches(f"{title} batch {i}", launched, kernels, MATMUL_KERNELS)
+            for r, (enc, raw) in enumerate(zip(encs, raws)):
+                _gate(f"{title} batch {i}", which, r, enc, raw)
+            if i > 1:
+                lats.append(s)
+                per = launched
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        (key, g), = graph.graphs().items()
+        _, _, V, C, dim, scale = key
+        outs, _, data = g.outputs
+        for b in range(B):
+            ref = eager.run_encrypted(eager.input_matrix(
+                [data[b][:, i] for i in range(V)], dim, scale))
+            if not all(torch.equal(o[b], v.data) for o, v in zip(outs, ref.vectors)):
+                raise SystemExit(f"{title} batch: record {b}'s outputs differ "
+                                 f"from the eager layers' on its inputs")
+        budget = min(v.noise_budget() for r in res for v in r.vectors)
+        if budget <= 0:
+            raise SystemExit(f"{title} batch: the noise budget is exhausted")
+        med = statistics.median(lats)
+        out[which] = dict(B=B, batch_s=lats, median_s=med,
+                          ms_per_record=1e3 * med / B, capture_s=g.capture_s,
+                          per_batch=per, peak_gib=peak,
+                          graph_pool_gib=g.pool_bytes / 2**30, budget=budget)
+        log(f"{title} record batch B = {B} under one graph: capture "
+            f"{g.capture_s:.3f} s, batch latency median {med:.4f} s {lats}, "
+            f"{1e3 * med / B:.3f} ms a record; launches a batch {per}; peak "
+            f"{peak:.2f} GiB, graph pool {g.pool_bytes / 2**30:.3f} GiB; every "
+            f"record equal to the Raw oracle and bit-equal to the eager layers "
+            f"on its inputs; least budget {budget} bits "
+            f"({time.perf_counter() - t0:.1f} s)")
+        graph.release()
+        del head, fac, graph, eager, res, outs, data, g
+        torch.cuda.empty_cache()
+    return dict(launches=kernel_counts(), per_batch=out["lola_small"]["per_batch"],
+                paths=out)
+
+
 def launcher_host_ms(dev, calls: int = 400) -> float:
     """K3, the launcher of K1/K2 (`kernels/ntt.py` `_launch`): host
     seconds a call, from the host clock over `calls` back-to-back
@@ -2061,7 +2455,8 @@ def main() -> int:
                                 "lola_dense", "cifar_bigt", "lola_large_bigt"))
     runs += (("serve", serve_phase), ("basic", basic_phase),
              ("op_budgets", op_budgets_phase), ("parallel", parallel_phase),
-             ("pipeline", pipeline_phase), ("bigt62", bigt62_phase))
+             ("pipeline", pipeline_phase), ("bigt62", bigt62_phase),
+             ("graph", graph_phase), ("record_batch", record_batch_phase))
     for phase, run in runs:
         if phase not in phases:
             continue

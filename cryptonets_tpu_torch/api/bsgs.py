@@ -112,21 +112,36 @@ class BsgsDenseForm:
         self._host = table.pin_memory() if factory.device.type == "cuda" else table
         self.table = self._host.numpy()
         self.active = active  # ascending
+        self._device_table = None
+        # the plain primes as a column for `_encode_diag_chunk` ([1, P, 1])
+        self.t_col = torch.tensor(factory.plain_primes, dtype=torch.int32,
+                                  device=factory.device).view(1, -1, 1)
+
+    def make_resident(self) -> None:
+        """Keep the whole table on the device, so that `chunk` copies
+        nothing from the host: what a CUDA graph of the record needs (a
+        copy from the host cannot be captured).  Costs the table's bytes
+        of device memory (G g F n int32) for the form's life."""
+        if self._device_table is None:
+            self._device_table = self._host.to(self.factory.device)
 
     def chunk(self, a: int) -> torch.Tensor:
         """Giant chunk a [g, F, n] on the factory's device."""
+        if self._device_table is not None:
+            return self._device_table[a]
+        if self.factory.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a BSGS table copy cannot be captured in a CUDA "
+                               "graph: make the form resident first")
         return self._host[a].to(self.factory.device, non_blocking=True)
 
 
-def _encode_diag_chunk(fac, tbl_a):
+def _encode_diag_chunk(fac, tbl_a, t):
     """Device encode: [g, F, n] int32 index-mapped slot values -> plaintext
     mult forms [P, g, F, k, N] (Z_t inverse NTT for all primes in one
     launch, coefficients broadcast over the limbs since t < every q, then
-    NTT_q and Montgomery)."""
+    NTT_q and Montgomery); `t` the plain primes [1, P, 1] int32."""
     g, F, n = tbl_a.shape
     k = len(fac.limb_moduli)
-    t = torch.tensor(fac.plain_primes, dtype=torch.int32,
-                     device=tbl_a.device).view(1, -1, 1)
     flat = tbl_a.reshape(g * F, 1, n)
     buf = torch.where(flat < 0, flat + t, flat)           # [gF, P, n]
     coeffs = fac._plain_ntt.inverse(buf)                  # mod t_p
@@ -225,7 +240,7 @@ def bsgs_matvec(form: BsgsDenseForm, data):
 
     def chunk_acc(a):
         """Giant chunk a -> coefficient-domain acc [P, 2, k, N]."""
-        forms = _encode_diag_chunk(fac, form.chunk(a))    # [P, g, F, k, N]
+        forms = _encode_diag_chunk(fac, form.chunk(a), form.t_col)  # [P, g, F, k, N]
         prod = p.chain_q.mont_mul(bab_hat, forms[:, :, :, None])
         acc_hat = mod_sum(prod.reshape(prod.shape[0], g * F, *prod.shape[3:]),
                           q, dim=1)

@@ -42,15 +42,20 @@ COLUMN_MAJOR = "col"
 ROW_MAJOR = "row"
 
 
-def _scalar_residue_table(factory, values) -> torch.Tensor:
-    """Integer scalars -> their residues [V, L, 1] on the factory's L
-    limbs, on its device.  An integer acts alike on every plain prime's
-    pipeline (the ciphertext ring is mod q; decrypt reduces mod t), so the
-    table is shared over the P axis.  The reference's Shoup companions
-    have no use here: `mul_const_mod` multiplies exactly in int64."""
-    qs = factory.limb_moduli
-    w = np.array([[int(v) % q for q in qs] for v in values], np.int64)
-    return torch.from_numpy(w.reshape(len(values), len(qs), 1)).to(factory.device)
+def _scalar_residues(v: HEVector) -> torch.Tensor:
+    """The integer scalars of a plain sparse vector -> their residues [V,
+    L, 1] on the factory's L limbs, on its device, made at first use and
+    kept on the vector (no host-to-device copy a record).  An integer acts
+    alike on every plain prime's pipeline (the ciphertext ring is mod q;
+    decrypt reduces mod t), so the table is shared over the P axis.  The
+    reference's Shoup companions have no use here: `mul_const_mod`
+    multiplies exactly in int64."""
+    if v._scalar_table is None:
+        qs = v.factory.limb_moduli
+        w = np.array([[int(x) % q for q in qs] for x in v.values], np.int64)
+        v._scalar_table = torch.from_numpy(
+            w.reshape(len(v.values), len(qs), 1)).to(v.factory.device)
+    return v._scalar_table
 
 
 def _pieces(count: int, item_bytes: int):
@@ -219,7 +224,7 @@ class HEMatrix:
             elif self.is_encrypted:
                 # a sparse plain vector holds one constant a ciphertext: its
                 # residues multiply directly, no encoded plaintexts
-                w = _scalar_residue_table(f, v.values[c0:c1])   # [c, k, 1]
+                w = _scalar_residues(v)[c0:c1]                  # [c, k, 1]
                 part = mod_sum(mul_const_mod(A, w[None, :, None, None], q),
                                q, dim=1)
             else:
@@ -303,20 +308,20 @@ class HEMatrix:
                 for a, b in zip(self.vectors, other.vectors)
             ], self.fmt)
         # batched ct x ct multiply + relinearisation over pieces of
-        # MULT_CHUNK columns, written into one output tensor
+        # MULT_CHUNK columns, the pieces joined by one concatenation (no
+        # write into a fresh tensor: the record batch runs this under vmap)
         f = self.factory
         OPS.count("multiplication", V)
         OPS.count("relinearization", V)
-        d0 = self.vectors[0].data                       # [P, C, 2, k, N]
-        out = torch.empty((f.P, V) + tuple(d0.shape[1:]), dtype=d0.dtype,
-                          device=d0.device)
+        pieces = []
         for v0 in range(0, V, MULT_CHUNK):
             A = torch.stack([v.data for v in self.vectors[v0 : v0 + MULT_CHUNK]], dim=1)
             B = A if other is self else torch.stack(
                 [v.data for v in other.vectors[v0 : v0 + MULT_CHUNK]], dim=1)
-            for pi, bfv in enumerate(f.bfv):
-                out[pi, v0 : v0 + A.shape[1]] = bfv.relinearize(
-                    bfv.multiply(A[pi], B[pi]), f.keys)
+            pieces.append(torch.stack([
+                bfv.relinearize(bfv.multiply(A[pi], B[pi]), f.keys)
+                for pi, bfv in enumerate(f.bfv)]))
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
         return HEMatrix(f, [
             HEVector(f, data=out[:, i], dim=a.dim, scale=a.scale * b.scale,
                      fmt=a.fmt, is_signed=a.is_signed)

@@ -35,6 +35,7 @@ class HEVector:
         self.is_signed = is_signed
         self._mult_form = None
         self._add_form = None
+        self._scalar_table = None   # `matrix._scalar_residues`
         # decoded slot residues [P, C, N] (host) from the record pipeline
         # (nn/forward.py): decrypt then only does the host CRT join
         self._dec_slots = None

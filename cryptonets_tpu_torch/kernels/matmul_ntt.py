@@ -5,7 +5,10 @@ Hopper kernels (`matmul_ntt.cu`) and their plain PyTorch versions.
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
 kernel, which is built from `matmul_ntt.cu` at first use
 (`kernels/build.py`).  A build or launch failure raises: nothing falls
-back to the plain version.  `LAUNCHES` counts kernel launches.
+back to the plain version.  `LAUNCHES` counts kernel launches.  A tensor
+inside `torch.func.vmap` goes through the operator
+`cryptonets_torch::matmul_ntt`, whose vmap rule moves the record axis to
+the front: one launch over the rows of every record (`batching.py`).
 
 Replaces `MatmulNTTContext._forward` / `_inverse` and `_exact_modmat` of
 `cryptonets_tpu/kernels/matmul_ntt.py`.  With N = N1 * N2 (`split4`), a
@@ -34,6 +37,7 @@ import torch
 
 from ..crypto.hostmath import modinv
 from ..crypto.primes import min_primitive_2n_root
+from .batching import LIB, handle, is_batched, lookup, unbatched
 from .build import load_library, source
 from .modmatmul import swizzle
 
@@ -350,9 +354,29 @@ def _launch(name: str, x: torch.Tensor, tab: MatmulNTTTables, *tables) -> torch.
     return y
 
 
+@torch.library.custom_op(f"{LIB}::matmul_ntt", mutates_args=())
+def _matmul_ntt_op(x: torch.Tensor, tables: int, inverse: bool) -> torch.Tensor:
+    """The four-step NTT of a tensor that is not batched, tables by
+    handle."""
+    fn = matmul_ntt_inverse if inverse else matmul_ntt_forward
+    return fn(x, lookup(tables))
+
+
+@torch.library.register_vmap(_matmul_ntt_op)
+def _matmul_ntt_vmap(info, in_dims, x, tables, inverse):
+    """[B, ..., L, N]: the records are more rows of the same launch."""
+    unbatched(in_dims, "matmul_ntt")
+    if in_dims[0] is None:
+        return _matmul_ntt_op(x, tables, inverse), None
+    x = x.movedim(in_dims[0], 0).contiguous()
+    return _matmul_ntt_op(x, tables, inverse), 0
+
+
 def matmul_ntt_forward(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
     """Forward four-step NTT of int32 residues [..., L, N]: the kernel on
     CUDA, the plain version on the CPU."""
+    if is_batched(x):
+        return _matmul_ntt_op(x, handle(tab), False)
     if x.device.type == "cpu":
         return matmul_ntt_forward_plain(x, tab)
     if x.device.type != "cuda":
@@ -364,6 +388,8 @@ def matmul_ntt_forward(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
 def matmul_ntt_inverse(x: torch.Tensor, tab: MatmulNTTTables) -> torch.Tensor:
     """Inverse four-step NTT of int32 residues [..., L, N] (see
     `matmul_ntt_forward`)."""
+    if is_batched(x):
+        return _matmul_ntt_op(x, handle(tab), True)
     if x.device.type == "cpu":
         return matmul_ntt_inverse_plain(x, tab)
     if x.device.type != "cuda":

@@ -5,7 +5,10 @@ ciphertext columns against an integer weight matrix.  `exact_mod_contract`
 is the only entry point.  A tensor on the CPU goes to the plain version;
 a CUDA tensor goes to the hand-written kernel of `modmatmul.cu`, built at
 first use (`kernels/build.py`).  A build or launch failure raises: nothing
-falls back to the plain version.  `LAUNCHES` counts kernel launches.
+falls back to the plain version.  `LAUNCHES` counts kernel launches.  A
+tensor inside `torch.func.vmap` goes through the operator
+`cryptonets_torch::mod_contract`, whose vmap rule folds the records into
+the column axis C: [P, O, B*C, s, k, N], one launch (`batching.py`).
 
 Replaces `exact_mod_contract` of `cryptonets_tpu/kernels/modmatmul.py`.
 The kernel runs on the int8 tensor cores: both operands split into four
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..crypto.modular import RES, wide
+from .batching import LIB, handle, is_batched, lookup, unbatched
 from .build import load_library, source
 
 _SRC = source("modmatmul.cu")
@@ -284,8 +288,35 @@ def exact_mod_contract(w, x, q_list, q_col):
     x:     int32 [P, O, C, s, k, N] residues (k = len(q_list)).
     q_col: [k, 1] modulus column.  Returns int32 [P, M, C, s, k, N]:
     the kernel on CUDA, the plain version on the CPU."""
+    if is_batched(x):
+        if not isinstance(w, ContractWeights):
+            w = prepare_contract(w, q_list, x.device)
+        return _contract_op(x, handle(w), [int(q) for q in q_list])
     if x.device.type == "cpu":
         return exact_mod_contract_plain(w, x, q_list, q_col)
     if x.device.type != "cuda":
         raise ValueError(f"no contraction for device {x.device}")
     return _launch(w, x, q_list)
+
+
+@torch.library.custom_op(f"{LIB}::mod_contract", mutates_args=())
+def _contract_op(x: torch.Tensor, weights: int, q_list: list[int]) -> torch.Tensor:
+    """The contraction of a tensor that is not batched, prepared weights
+    by handle."""
+    q_col = (torch.tensor(q_list, dtype=torch.int64).view(-1, 1)
+             if x.device.type == "cpu" else None)    # the kernel needs none
+    return exact_mod_contract(lookup(weights), x, q_list, q_col)
+
+
+@torch.library.register_vmap(_contract_op)
+def _contract_vmap(info, in_dims, x, weights, q_list):
+    """[B, P, O, C, s, k, N] -> [P, O, B*C, s, k, N]: the records are more
+    columns of the same launch; the output unfolds to [P, M, B, C, ...]."""
+    unbatched(in_dims, "mod_contract")
+    if in_dims[0] is None:
+        return _contract_op(x, weights, q_list), None
+    x = x.movedim(in_dims[0], 3)                    # [P, O, C, B, s, k, N]
+    P, O, C, B = x.shape[:4]
+    x = x.transpose(2, 3).reshape(P, O, B * C, *x.shape[4:]).contiguous()
+    out = _contract_op(x, weights, q_list)
+    return out.view(P, out.shape[1], B, C, *out.shape[3:]), 2

@@ -6,7 +6,10 @@ CPU goes to the twin; a CUDA tensor goes to the kernel, which is built
 from `ntt.cu` at first use (`kernels/build.py`: `nvcc` for `sm_90a`, a
 shared library with a plain C interface, loaded with ctypes).  A build or
 launch failure raises: nothing falls back to the twin.  `LAUNCHES` counts kernel launches, so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels.  A tensor inside
+`torch.func.vmap` goes through the operator `cryptonets_torch::ntt`,
+whose vmap rule moves the record axis to the front: one launch over the
+rows of every record (`batching.py`).
 
 Replaces `PallasNTTContext._fwd_kernel` / `_inv_kernel`
 (`cryptonets_tpu/kernels/pallas_ntt.py`); see `ntt.cu` for the design.
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .batching import LIB, handle, is_batched, lookup, unbatched
 from .build import load_library, source
 
 _SRC = source("ntt.cu")
@@ -156,9 +160,26 @@ def kernel_info(logn: int, inverse: bool) -> dict:
     return dict(zip(KERNEL_INFO_KEYS, out))
 
 
+@torch.library.custom_op(f"{LIB}::ntt", mutates_args=())
+def _ntt_op(x: torch.Tensor, tables: int, inverse: bool) -> torch.Tensor:
+    """The NTT of a tensor that is not batched, tables by handle."""
+    return (ntt_inverse if inverse else ntt_forward)(x, lookup(tables))
+
+
+@torch.library.register_vmap(_ntt_op)
+def _ntt_vmap(info, in_dims, x, tables, inverse):
+    """[B, ..., L, n]: the records are more rows of the same launch."""
+    unbatched(in_dims, "ntt")
+    if in_dims[0] is None:
+        return _ntt_op(x, tables, inverse), None
+    return _ntt_op(x.movedim(in_dims[0], 0).contiguous(), tables, inverse), 0
+
+
 def ntt_forward(x: torch.Tensor, tab: NTTTables) -> torch.Tensor:
     """Forward NTT of int32 residues [..., L, n]: the kernel on CUDA, the
     plain twin on the CPU."""
+    if is_batched(x):
+        return _ntt_op(x, handle(tab), False)
     if x.device.type == "cpu":
         return ntt_forward_plain(x, tab)
     if x.device.type != "cuda":
@@ -168,6 +189,8 @@ def ntt_forward(x: torch.Tensor, tab: NTTTables) -> torch.Tensor:
 
 def ntt_inverse(x: torch.Tensor, tab: NTTTables) -> torch.Tensor:
     """Inverse NTT of int32 residues [..., L, n] (see `ntt_forward`)."""
+    if is_batched(x):
+        return _ntt_op(x, handle(tab), True)
     if x.device.type == "cpu":
         return ntt_inverse_plain(x, tab)
     if x.device.type != "cuda":

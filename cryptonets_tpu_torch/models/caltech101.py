@@ -11,7 +11,8 @@ switching), under either NTT.
 
 CLI: python -m cryptonets_tpu_torch.models.caltech101 [--records K]
      [--data FILE] [--model-ini FILE] [--affine FILE] [--no-encrypt]
-     [--ntt butterfly|matmul] [--device cpu]
+     [--ntt butterfly|matmul] [--device cpu] [--no-graph]
+(each record one CUDA graph replay on the card unless `--no-graph`)
 It runs on the card unless `--device cpu` is given.
 """
 
@@ -25,7 +26,7 @@ import numpy as np
 
 from ..data import weights_extract
 from ..data.preprocess import synthetic_feature_records
-from ..nn.forward import EncryptedForward
+from ..nn.forward import evaluation_forward
 from ..nn.layers import EncryptLayer
 from ..nn.lola import LLDenseLayer
 from ..nn.readers import LLSingleLineReader
@@ -106,7 +107,7 @@ def build(encrypt: bool = True, records=None, file_name=None, seed: int = 0,
 
 
 def evaluate(encrypt=True, n_records=5, records=None, file_name=None, seed=0,
-             **build_kw):
+             graph=None, **build_kw):
     """Run records through the head; report each prediction's latency
     (encryption included) and the errors against the labels."""
     if records is None and file_name is None:
@@ -114,7 +115,7 @@ def evaluate(encrypt=True, n_records=5, records=None, file_name=None, seed=0,
     head, factory, reader = build(
         encrypt, records=records, file_name=file_name, seed=seed, **build_kw)
     head.prepare_network()
-    run = EncryptedForward(head) if encrypt else None
+    run = evaluation_forward(head, graph) if encrypt else None
     errs = 0
     latencies = []
     for i in range(n_records):
@@ -144,11 +145,15 @@ def main():
                     help="NTT of the ciphertext chain (default butterfly)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a GPU) or cpu")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="run each record eagerly, a launch a kernel, not as "
+                         "one CUDA graph replay")
     args = ap.parse_args()
     evaluate(
         encrypt=not args.no_encrypt, n_records=args.records,
         file_name=args.data, model_ini=args.model_ini,
-        affine_file=args.affine, device=args.device, ntt_impl=args.ntt)
+        affine_file=args.affine, device=args.device, ntt_impl=args.ntt,
+        graph=False if args.no_graph else None)
 
 
 if __name__ == "__main__":

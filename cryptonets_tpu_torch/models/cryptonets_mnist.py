@@ -8,7 +8,9 @@ under either NTT of the ciphertext chain.
 
 CLI: python -m cryptonets_tpu_torch.models.cryptonets_mnist [--batch 8192]
      [--records N] [--data FILE] [--preset cryptonets|cryptonets_bigt]
-     [--ntt butterfly|matmul] [--device cuda|cpu]
+     [--ntt butterfly|matmul] [--device cuda|cpu] [--no-graph]
+(each batch one CUDA graph replay on the card unless `--no-graph` or
+`-v` is given)
 It runs on the card unless `--device cpu` is given.  At full width the
 encrypted batch holds gigabytes of ciphertext: run it on a GPU only.
 """
@@ -21,7 +23,7 @@ import time
 import numpy as np
 
 from ..data.preprocess import synthetic_mnist_records
-from ..nn.forward import EncryptedForward
+from ..nn.forward import evaluation_forward
 from ..nn.layers import EncryptLayer, PoolLayer, SquareActivation, TimingLayer
 from ..nn.readers import BatchReader
 from .lola_mnist import load_cryptonets_weights, transpose_flat
@@ -75,7 +77,7 @@ def build(encrypt: bool = True, batch_size: int = 8192, records=None,
 
 def evaluate(encrypt=True, batch_size=8192, n_batches=1, records=None,
              file_name=None, seed=0, device=None, preset="cryptonets",
-             ntt_impl=None, verbose=False):
+             ntt_impl=None, verbose=False, graph=None):
     """Run `n_batches` batches and count the prediction errors against
     the records' labels; `verbose` prints each layer's report
     (`Layer.forward`)."""
@@ -87,7 +89,7 @@ def evaluate(encrypt=True, batch_size=8192, n_batches=1, records=None,
     if verbose:
         head.set_verbose(True)
     head.prepare_network()
-    run = EncryptedForward(head) if encrypt else None
+    run = evaluation_forward(head, graph, verbose) if encrypt else None
     errs = count = last = 0
     batch_times = []
     for _ in range(n_batches):
@@ -127,6 +129,9 @@ def main():
                     help="NTT of the ciphertext chain (default butterfly)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a GPU) or cpu")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="run each record eagerly, a launch a kernel, not as "
+                         "one CUDA graph replay")
     args = ap.parse_args()
     n_batches = 1
     if args.records:
@@ -135,6 +140,7 @@ def main():
         encrypt=not args.no_encrypt, batch_size=args.batch,
         n_batches=n_batches, file_name=args.data, device=args.device,
         preset=args.preset, ntt_impl=args.ntt, verbose=args.verbose,
+        graph=False if args.no_graph else None,
     )
     if res["batch_times"]:
         print(f"batch size {args.batch}: {res['batch_times'][-1]:0.2f}s/batch, "

@@ -13,7 +13,9 @@ given.
 
 CLI: python -m cryptonets_tpu_torch.models.lola_cifar [-e] [--records K]
      [--preset cifar|cifar_bigt] [--data FILE] [--weights-csv W
-     --bias-csv B] [--device cpu]
+     --bias-csv B] [--device cpu] [--no-graph]
+(each record one CUDA graph replay on the card unless `--no-graph` or
+`-v` is given)
 It runs on the card unless `--device cpu` is given; run the encrypted
 network on a GPU only.
 """
@@ -28,7 +30,7 @@ import numpy as np
 from ..data import weights_extract
 from ..data.preprocess import synthetic_cifar_records
 from ..nn.convolution import ConvolutionEngine
-from ..nn.forward import EncryptedForward
+from ..nn.forward import evaluation_forward
 from ..nn.layers import EncryptLayer, SquareActivation
 from ..nn.lola import LLDenseLayer, LLPoolLayer, LLVectorizeLayer
 from ..nn.readers import LLConvReader, WeightsReader
@@ -98,7 +100,7 @@ def build(encrypt: bool = True, records=None, file_name=None, seed: int = 0,
 
 def evaluate(encrypt=True, n_records=1, records=None, file_name=None,
              seed=0, device=None, weights_csv=None, bias_csv=None,
-             preset="cifar", verbose=False):
+             preset="cifar", verbose=False, graph=None):
     """Run records through the network; report the latency of each
     prediction and the errors against the reader's labels; `verbose`
     prints each layer's report (`Layer.forward`)."""
@@ -111,7 +113,7 @@ def evaluate(encrypt=True, n_records=1, records=None, file_name=None,
     if verbose:
         head.set_verbose(True)
     head.prepare_network()
-    run = EncryptedForward(head) if encrypt else None
+    run = evaluation_forward(head, graph, verbose) if encrypt else None
     errs = 0
     latencies = []
     for i in range(n_records):
@@ -141,11 +143,15 @@ def main():
     ap.add_argument("--bias-csv", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a GPU) or cpu")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="run each record eagerly, a launch a kernel, not as "
+                         "one CUDA graph replay")
     args = ap.parse_args()
     evaluate(encrypt=args.encrypt, n_records=args.records,
              file_name=args.data, device=args.device,
              weights_csv=args.weights_csv, bias_csv=args.bias_csv,
-             preset=args.preset, verbose=args.verbose)
+             preset=args.preset, verbose=args.verbose,
+             graph=False if args.no_graph else None)
 
 
 if __name__ == "__main__":

@@ -40,8 +40,9 @@ under either NTT.
 CLI: python -m cryptonets_tpu_torch.models.lola_mnist
      -n LoLa|LoLaPacked|LoLaSmall|LoLaLarge|LoLaDense [-e]
      [--ntt butterfly|matmul] [--preset lola_large|lola_large_bigt]
-     [--records K] [--data FILE] [--device cpu]
-It runs on the card unless `--device cpu` is given; run a full-width
+     [--records K] [--data FILE] [--device cpu] [--no-graph]
+It runs on the card unless `--device cpu` is given, each record as one
+CUDA graph replay unless `--no-graph` (or `-v`) is given; run a full-width
 encrypted network on a GPU only.
 """
 
@@ -55,7 +56,7 @@ import numpy as np
 from ..convert import weights_from_numpy
 from ..data import weights_extract
 from ..data.preprocess import synthetic_mnist_records
-from ..nn.forward import EncryptedForward
+from ..nn.forward import evaluation_forward
 from ..nn.layers import EncryptLayer, SquareActivation
 from ..nn.convolution import ConvolutionEngine
 from ..nn.lola import (
@@ -334,7 +335,7 @@ BUILDERS = {
 
 def evaluate(build, encrypt=True, n_records=10, records=None,
              file_name=None, seed=0, device=None, ntt_impl=None, preset=None,
-             verbose=False):
+             verbose=False, graph=None):
     """Run records through the network; report the latency of each
     prediction and the errors against the reader's labels.  `preset`,
     when given, goes to a builder that takes one (LoLaLarge); `verbose`
@@ -348,7 +349,7 @@ def evaluate(build, encrypt=True, n_records=10, records=None,
     if verbose:
         head.set_verbose(True)
     head.prepare_network()
-    run = EncryptedForward(head) if encrypt else None
+    run = evaluation_forward(head, graph, verbose) if encrypt else None
     errs = 0
     latencies = []
     for i in range(n_records):
@@ -385,11 +386,15 @@ def main():
                     help="LoLaLarge's preset (default lola_large)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; fails without a GPU) or cpu")
+    ap.add_argument("--no-graph", action="store_true",
+                    help="run each record eagerly, a launch a kernel, not as "
+                         "one CUDA graph replay")
     args = ap.parse_args()
     res = evaluate(
         BUILDERS[args.network], encrypt=args.encrypt, n_records=args.records,
         file_name=args.data, device=args.device, ntt_impl=args.ntt,
-        preset=args.preset, verbose=args.verbose)
+        preset=args.preset, verbose=args.verbose,
+        graph=False if args.no_graph else None)
     if res["count"]:
         print(f"done: {res['count']} records, steady-state latency "
               f"{res['steady_latency']:.3f}s")

@@ -1,5 +1,5 @@
-"""The record pipeline of an encrypted network (port of the fused path
-of `EncryptedForward`, `cryptonets_tpu/nn/jit.py`).
+"""The record pipeline of an encrypted network, port of `EncryptedForward`
+(`cryptonets_tpu/nn/jit.py`).
 
 One call pulls a record (LoLa: one image; CryptoNets: a batch of images
 in the SIMD slots) from the reader and runs, on the factory's device:
@@ -7,23 +7,51 @@ slot encode + RLWE encrypt of every input column, every layer above the
 EncryptLayer, gamma decrypt + slot decode of every output column.  The
 host only index-maps the input slots and CRT-joins the decoded outputs.
 A factory whose plain primes do not fit the device encode and decode
-(`_device_encode`, `_device_decode`: LoLaDense's and CryptoNets' big-t
+(`_device_encode`, `_device_decode`: LoLaDense's and the big-t presets'
 primes) takes the reference's other path: slot encode on the host (C++
 NTT, per-limb residues) and encrypt on the device, the layers, then the
 two-plane device decrypt with the host join and the C++ slot decode.
-It runs eagerly, as a sequence of kernel launches; there is no
-whole-network compile to trace.
+
+`graph=True` is the counterpart of the reference's `jit=True`: where the
+reference compiles one XLA program, the record runs as one CUDA graph,
+captured once per signature and replayed (`RecordGraph`).  With
+`fuse_io=True` and a factory that encodes and decodes on the device, the
+graph holds the whole record (`record_fn`: encrypt, the layers, decrypt
+and decode), so a record is one copy of its slot buffers, one replay and
+one copy of its decoded slots; otherwise it holds the layers only, and
+encrypt and decrypt run outside it (the reference's three programs,
+`jit.py:70-113`).  `run_batch` is the counterpart of `bench.py`'s
+`BENCH_VMAP` record batch: B records' columns encrypted in one pass, the
+layers under `torch.func.vmap` over the record axis (each kernel folds
+the records into its rows, `kernels/batching.py`), every output
+decrypted and decoded in one pass; under `graph=True` one replay for B
+records.  Nothing falls back to the eager path: a graph on a CPU factory,
+a failed capture and a batch on a factory that encodes on the host raise.
+
+A graph's operation and kernel counts (`utils/opcount.OPS`, each
+kernel's `LAUNCHES`) are taken at capture and added at every replay, as
+the reference's `hoist_jit` replays its trace-time counts: a replayed
+record counts what an eager record counts, and the warm-up and capture
+count nothing.  Under vmap the layers count once for the B records; the
+batch adds the other B - 1 records' operation counts, while `LAUNCHES`
+keep the launches that ran (one for the B records).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from ..api.matrix import HEMatrix
 from ..api.vector import HEVector
+from ..kernels import matmul_ntt, modmatmul, ntt
+from ..utils.opcount import OPS
 from .layers import EncryptLayer
 from .network import Layer
+
+_LAUNCH_TABLES = (ntt.LAUNCHES, modmatmul.LAUNCHES, matmul_ntt.LAUNCHES)
 
 
 def split_at_encrypt(head: Layer):
@@ -39,12 +67,117 @@ def split_at_encrypt(head: Layer):
     return p, list(reversed(chain))
 
 
-class EncryptedForward:
-    """fwd = EncryptedForward(head)  # after head.prepare_network()
-    out = fwd()                      # one record end to end, or None"""
+def _counts() -> tuple[dict, list[dict]]:
+    """The operation counts and every kernel's launch counts, copied."""
+    return OPS.snapshot(), [dict(t) for t in _LAUNCH_TABLES]
 
-    def __init__(self, head: Layer):
+
+def _restore(counts) -> None:
+    ops, launches = counts
+    OPS.counters.clear()
+    OPS.counters.update(ops)
+    for table, saved in zip(_LAUNCH_TABLES, launches):
+        table.update(saved)
+
+
+def _difference(after, before) -> tuple[dict, list[dict]]:
+    ops = {k: v - before[0].get(k, 0) for k, v in after[0].items()
+           if v != before[0].get(k, 0)}
+    return ops, [{k: a[k] - b[k] for k in a} for a, b in zip(after[1], before[1])]
+
+
+def _add(delta) -> None:
+    ops, launches = delta
+    for k, v in ops.items():
+        OPS.count(k, v)
+    for table, d in zip(_LAUNCH_TABLES, launches):
+        for k, v in d.items():
+            table[k] += v
+
+
+class RecordGraph:
+    """A function of device tensors captured as one CUDA graph.
+
+    `RecordGraph(fn, inputs, generators)`: `inputs` are the static input
+    tensors (their values are the warm-up's); `fn` runs once eagerly on a
+    side stream, which fills every lazy cache it reads (stacked Galois
+    keys, masks, the contraction's prepared weights, BSGS forms), then is
+    captured with `generators` registered, so every replay draws fresh
+    randomness from them.  `replay(*values)` copies the values into the
+    static inputs and replays; the outputs (`self.outputs`, whatever `fn`
+    returned) are static tensors that the next replay overwrites.  The
+    counts of the capture are added at each replay (module docstring).
+    `capture_s` is the wall seconds of warm-up and capture; `pool_bytes`
+    the device memory the capture took from the allocator."""
+
+    def __init__(self, fn, inputs, generators=()):
+        dev = inputs[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs CUDA tensors, not {dev}")
+        self.inputs = inputs
+        before = _counts()
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        warm = _counts()
+        torch.cuda.empty_cache()         # as the capture does on entering
+        reserved = torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            # fresh randomness at every replay: replaying one encryption's
+            # noise for every record would be a silent security fault
+            self.graph.register_generator_state(gen)
+        with torch.cuda.graph(self.graph):
+            self.outputs = fn(*inputs)
+        torch.cuda.synchronize(dev)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.delta = _difference(_counts(), warm)
+        _restore(before)
+
+    def replay(self, *values):
+        for static, v in zip(self.inputs, values):
+            static.copy_(v)
+        self.graph.replay()
+        _add(self.delta)
+        return self.outputs
+
+
+def _device_io(fac) -> bool:
+    return bool(getattr(fac, "_device_encode", False)
+                and getattr(fac, "_device_decode", False))
+
+
+class EncryptedForward:
+    """fwd = EncryptedForward(head, graph=False, fuse_io=False)
+                                     # after head.prepare_network()
+    out = fwd()                      # one record end to end, or None
+    outs = fwd.run_batch(raws)       # B records, one pass each way
+
+    `graph` and `fuse_io` mirror the reference's `jit` and `fuse_io`
+    (module docstring): `fuse_io` takes effect under `graph` on a factory
+    that encodes and decodes on the device."""
+
+    def __init__(self, head: Layer, graph: bool = False, fuse_io: bool = False):
         self.encrypt_layer, self.layers = split_at_encrypt(head)
+        fac = self.encrypt_layer.factory
+        self.graph = bool(graph)
+        if self.graph and getattr(fac, "device", torch.device("cpu")).type != "cuda":
+            raise ValueError("graph=True needs a factory on a CUDA device: "
+                             "a CUDA graph has no CPU counterpart")
+        self.fuse_io = bool(fuse_io and self.graph and _device_io(fac))
+        self._graphs: dict = {}
+        self._meta: dict = {}
+        if self.graph:
+            # a graph copies nothing from the host: BSGS tables resident
+            for layer in self.layers:
+                form = getattr(layer, "bsgs_form", None)
+                if form is not None:
+                    form.make_resident()
 
     @property
     def reader(self):
@@ -53,17 +186,53 @@ class EncryptedForward:
             p = p.source
         return p
 
+    @property
+    def factory(self):
+        return self.encrypt_layer.factory
+
+    def release(self) -> None:
+        """Drop every captured graph (its memory pool goes with it)."""
+        self._graphs.clear()
+
+    def graphs(self) -> dict:
+        """The captured graphs by signature."""
+        return dict(self._graphs)
+
+    # ------------------------------------------------------ eager layers
     def run_encrypted(self, m: HEMatrix) -> HEMatrix:
-        """The layers above the EncryptLayer on an encrypted matrix (each
-        with its report in verbose mode, `Layer.forward`)."""
+        """The layers above the EncryptLayer on an encrypted matrix,
+        eagerly (each with its report in verbose mode, `Layer.forward`)."""
         for layer in self.layers:
             m = layer.forward(m)
         return m
 
+    def _apply_layers(self, m: HEMatrix, key) -> HEMatrix:
+        """The layers' `apply` (what a graph or vmap traces), recording the
+        output's metadata under `key`."""
+        for layer in self.layers:
+            m = layer.apply(m)
+        self._meta[key] = ([(v.dim, v.scale, v.fmt, v.is_signed)
+                            for v in m.vectors], m.fmt)
+        return m
+
+    def _output_matrix(self, key, datas, slots=None) -> HEMatrix:
+        """The output matrix of a record from its columns' data and, when
+        decoded already, their host slots [P, C, N] each."""
+        fac = self.factory
+        metas, fmt = self._meta[key]
+        vecs = []
+        for i, (d, (dim, sc, f, sg)) in enumerate(zip(datas, metas)):
+            v = HEVector(fac, data=d, dim=dim, scale=sc, fmt=f, is_signed=sg)
+            if slots is not None:
+                v._dec_slots = slots[i]
+            vecs.append(v)
+        return HEMatrix(fac, vecs, fmt)
+
+    # ------------------------------------------------------- host side
     def slot_ints(self, raw):
         """Host side: RawMatrix -> (slot values [V*C, n] int64, (V, C,
         dim, scale))."""
-        fac = self.encrypt_layer.factory
+        fac = self.factory
         vecs = np.asarray(raw.m, dtype=np.float64).T  # [V, dim] scaled ints
         V, dim = vecs.shape
         C = max(1, -(-dim // fac.n))
@@ -71,21 +240,100 @@ class EncryptedForward:
         padded[:, :dim] = np.round(vecs).astype(np.int64)
         return padded.reshape(V * C, fac.n), (V, C, dim, float(raw.scale))
 
+    def slot_bufs(self, raw):
+        """Host side of the fused record: RawMatrix -> (index-mapped slot
+        buffers [P, V*C, n] int32 tensor, (V, C, dim, scale))."""
+        ints, sig = self.slot_ints(raw)
+        bufs = self.factory.encode_bufs(ints)
+        return torch.from_numpy(bufs.view(np.int32)), sig
+
     def input_matrix(self, datas, dim: int, scale: float) -> HEMatrix:
         """The encrypted input matrix of a record from its columns' data
         ([P, C, 2, k, N] each) and the record's dim and scale."""
-        fac = self.encrypt_layer.factory
+        fac = self.factory
         return HEMatrix(fac, [HEVector(fac, data=d, dim=dim, scale=scale, fmt="dense")
                               for d in datas], "col")
 
     def encrypt(self, raw) -> HEMatrix:
         """A reader record (RawMatrix) -> its encrypted input matrix: the
         slot encode and encrypt of every column in one pass."""
-        fac = self.encrypt_layer.factory
+        fac = self.factory
         ints, (V, C, dim, scale) = self.slot_ints(raw)
         data = fac._encrypt_slotsets(ints)               # [P, V*C, 2, k, N]
         data = data.reshape(fac.P, V, C, *data.shape[2:])
         return self.input_matrix([data[:, i] for i in range(V)], dim, scale)
+
+    def _decrypt_into(self, out: HEMatrix) -> HEMatrix:
+        """Decrypt + slot decode of every output column in one pass: on
+        the device (gamma decrypt) or through the host join (big t)."""
+        blocks = [v.data.shape[1] for v in out.vectors]
+        slots = self.factory.decrypt_slots(torch.cat([v.data for v in out.vectors], dim=1))
+        for v, s in zip(out.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
+            v._dec_slots = s
+        return out
+
+    # ------------------------------------------------------- the record
+    def record_fn(self, V: int, C: int, dim: int, scale: float):
+        """The fused record body, fn(bufs) -> (output column datas,
+        decoded slots [P, sum C_out, N], encrypted input [P, V*C, 2, k,
+        N]), from the index-mapped slot buffers [P, V*C, n] on the
+        device: encrypt, the layers, decrypt and decode, no host work
+        (the counterpart of `fused_record_fn`, `jit.py:130-162`)."""
+        fac = self.factory
+        key = ("fused", V, C, dim, scale)
+
+        def forward(bufs):
+            data = fac._encrypt_all_dev(bufs)             # [P, V*C, 2, k, N]
+            cols = data.reshape(fac.P, V, C, *data.shape[2:])
+            m = self._apply_layers(
+                self.input_matrix([cols[:, i] for i in range(V)], dim, scale), key)
+            datas = [v.data for v in m.vectors]
+            return datas, fac._decrypt_decode_all(torch.cat(datas, dim=1)), data
+
+        return forward
+
+    def _run_fused(self, raw) -> HEMatrix:
+        bufs, (V, C, dim, scale) = self.slot_bufs(raw)
+        key = ("fused", V, C, dim, scale)
+        g = self._graphs.get(key)
+        if g is None:
+            static = bufs.to(self.factory.device)
+            g = self._graphs[key] = RecordGraph(
+                self.record_fn(V, C, dim, scale), [static], [self.factory._gen])
+        datas, slots, _ = g.replay(bufs)
+        return self._output_matrix(key, [d.clone() for d in datas],
+                                   self._split_slots(slots, datas))
+
+    @staticmethod
+    def _split_slots(slots, datas) -> list:
+        """Decoded slots [P, sum C, N] on the device -> one host array a
+        column ([P, C_i, N] int64)."""
+        host = slots.cpu().numpy().astype(np.int64)
+        return np.split(host, np.cumsum([d.shape[1] for d in datas])[:-1], axis=1)
+
+    def run_graph(self, m: HEMatrix) -> HEMatrix:
+        """The layers on an encrypted matrix as one CUDA graph replay, the
+        graph captured at the first matrix of its signature (the
+        layers-only form: encrypt and decrypt run outside)."""
+        if not self.graph:
+            raise ValueError("run_graph needs graph=True")
+        key = ("layers", m.fmt, tuple((v.dim, v.scale, v.fmt, v.is_signed,
+                                       tuple(v.data.shape)) for v in m.vectors))
+        g = self._graphs.get(key)
+        if g is None:
+            metas = [(v.dim, v.scale, v.fmt, v.is_signed) for v in m.vectors]
+
+            def forward(*datas):
+                vecs = [HEVector(self.factory, data=d, dim=dim, scale=sc, fmt=f,
+                                 is_signed=sg)
+                        for d, (dim, sc, f, sg) in zip(datas, metas)]
+                out = self._apply_layers(HEMatrix(self.factory, vecs, m.fmt), key)
+                return [v.data for v in out.vectors]
+
+            g = self._graphs[key] = RecordGraph(
+                forward, [v.data.clone() for v in m.vectors])
+        datas = g.replay(*[v.data for v in m.vectors])
+        return self._output_matrix(key, [d.clone() for d in datas])
 
     def __call__(self):
         """Pull one record through encode, encrypt, the network, decrypt
@@ -93,15 +341,119 @@ class EncryptedForward:
         raw = self.reader.get_next()
         if raw is None:
             return None
-        fac = self.encrypt_layer.factory
-        out = self.run_encrypted(self.encrypt(raw))
-        # decrypt + slot decode of every output column in one pass: on
-        # the device (gamma decrypt) or through the host join (big t)
-        blocks = [v.data.shape[1] for v in out.vectors]
-        slots = fac.decrypt_slots(torch.cat([v.data for v in out.vectors], dim=1))
-        for v, s in zip(out.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
-            v._dec_slots = s
-        return out
+        if self.fuse_io:
+            return self._run_fused(raw)
+        enc = self.encrypt(raw)
+        out = self.run_graph(enc) if self.graph else self.run_encrypted(enc)
+        return self._decrypt_into(out)
+
+    # -------------------------------------------------- the record batch
+    def _vmapped_layers(self, cols, dim: int, scale: float, key) -> list:
+        """The layers on B records' input columns ([B, P, C, 2, k, N]
+        each) under `torch.func.vmap` over the records -> the output
+        columns ([B, P, C_out, s, k, N] each).  The layers count their
+        operations once under vmap: the other B - 1 records' are added."""
+        B = cols[0].shape[0]
+
+        def layers(cs):
+            m = self._apply_layers(self.input_matrix(cs, dim, scale), key)
+            return [v.data for v in m.vectors]
+
+        before = OPS.snapshot()
+        outs = torch.func.vmap(layers)(list(cols))
+        for k, v in OPS.snapshot().items():
+            OPS.count(k, (B - 1) * (v - before.get(k, 0)))
+        return outs
+
+    def run_encrypted_batch(self, cols, dim: int, scale: float) -> list:
+        """The layers on B records' encrypted input columns ([B, P, C, 2,
+        k, N] each, one signature) under `torch.func.vmap`: the B output
+        matrices (the counterpart of the reference's `jax.vmap` of its
+        record program, `parallel/dryrun.py:92-115`)."""
+        key = ("layers batch", dim, scale, tuple(tuple(c.shape) for c in cols))
+        outs = self._vmapped_layers(cols, dim, scale, key)
+        return [self._output_matrix(key, [o[b] for o in outs])
+                for b in range(cols[0].shape[0])]
+
+    def record_batch_fn(self, B: int, V: int, C: int, dim: int, scale: float):
+        """The fused body of B records, fn(bufs) -> (output column datas
+        [B, P, C_out, s, k, N] each, decoded slots [P, B * sum C_out, N],
+        encrypted input [B, P, V, C, 2, k, N]), from the B records' slot
+        buffers [P, B*V*C, n] on the device: every column encrypted in one
+        pass, the layers under `torch.func.vmap` over the records, every
+        output decrypted and decoded in one pass (the counterpart of
+        `bench.py:237-366`)."""
+        fac = self.factory
+        key = ("batch", B, V, C, dim, scale)
+
+        def forward(bufs):
+            data = fac._encrypt_all_dev(bufs)             # [P, B*V*C, 2, k, N]
+            data = data.reshape(fac.P, B, V, C, *data.shape[2:]).movedim(1, 0)
+            outs = self._vmapped_layers([data[:, :, i] for i in range(V)],
+                                        dim, scale, key)
+            flat = torch.cat([o.movedim(0, 1).reshape(fac.P, B * o.shape[2], *o.shape[3:])
+                              for o in outs], dim=1)
+            return outs, fac._decrypt_decode_all(flat), data
+
+        return forward
+
+    def run_batch(self, raws) -> list:
+        """B reader records (RawMatrix, one signature) -> their B output
+        matrices, decoded: one encrypt pass, the layers vmapped over the
+        records, one decrypt pass; one CUDA graph replay under
+        `graph=True`.  The counterpart of `bench.py`'s `BENCH_VMAP`; like
+        it, it needs a factory that encodes and decodes on the device."""
+        fac = self.factory
+        if not _device_io(fac):
+            raise ValueError(
+                "a record batch needs a factory that encodes and decodes on "
+                "the device (every plain prime below 2**31 and below every "
+                "limb); this one encodes on the host: run its records one "
+                "at a time")
+        sigs, bufs = set(), []
+        for raw in raws:
+            b, sig = self.slot_bufs(raw)
+            sigs.add(sig)
+            bufs.append(b)
+        if len(sigs) != 1:
+            raise ValueError(f"a record batch needs one signature: {sigs}")
+        (V, C, dim, scale), = sigs
+        B = len(bufs)
+        bufs = torch.cat(bufs, dim=1)                     # [P, B*V*C, n]
+        key = ("batch", B, V, C, dim, scale)
+        if self.graph:
+            g = self._graphs.get(key)
+            if g is None:
+                static = bufs.to(fac.device)
+                g = self._graphs[key] = RecordGraph(
+                    self.record_batch_fn(B, V, C, dim, scale), [static], [fac._gen])
+            outs, slots, _ = g.replay(bufs)
+            outs = [o.clone() for o in outs]
+        else:
+            outs, slots, _ = self.record_batch_fn(B, V, C, dim, scale)(
+                bufs.to(fac.device))
+        per = [o.shape[2] for o in outs]
+        host = slots.cpu().numpy().astype(np.int64)
+        # column i's B records lie in a row: record b's C_i columns from
+        # B * (C_0 + ... + C_(i-1)) + b * C_i on
+        starts = B * np.cumsum([0] + per[:-1])
+        return [self._output_matrix(key, [o[b] for o in outs], [
+                    host[:, s + b * c: s + (b + 1) * c] for s, c in zip(starts, per)])
+                for b in range(B)]
+
+
+def evaluation_forward(head: Layer, graph: bool | None = None,
+                       verbose: bool = False) -> EncryptedForward:
+    """The forward a model's command line evaluates with (the reference's
+    `EncryptedForward(head, jit=True)`): one CUDA graph a record, the
+    whole record where the factory encodes and decodes on the card.
+    `graph` None takes the graph on a factory on the card outside verbose
+    mode (a graph prints no layer reports), False runs eagerly (the
+    `--no-graph` flag), True insists (and raises on the CPU)."""
+    if graph is None:
+        fac = split_at_encrypt(head)[0].factory
+        graph = fac.device.type == "cuda" and not verbose
+    return EncryptedForward(head, graph=graph, fuse_io=True)
 
 
 def raw_layer_outputs(head_raw: Layer) -> list:

@@ -62,6 +62,7 @@ class PoolLayer(Layer):
         self.kernel_size = -1
         self._weight_ints = None
         self._bias_forms: dict = {}
+        self._gathers: dict = {}      # device index tensors and weights
         self._contract = ContractCache()
 
     def get_output_scale(self):
@@ -137,6 +138,31 @@ class PoolLayer(Layer):
             ], dim=1)
         return self._bias_forms[key]
 
+    def _gather_index(self, locs, device):
+        """(columns, zero columns) of a gather as device index tensors,
+        made once a layer and device: no host-to-device copy a record."""
+        key = (tuple(locs), device)
+        if key not in self._gathers:
+            pad = [i for i, l in enumerate(locs) if l < 0]
+            self._gathers[key] = (
+                torch.tensor([max(l, 0) for l in locs], device=device),
+                torch.tensor(pad, device=device) if pad else None)
+        return self._gathers[key]
+
+    def _reduced_weights(self, device) -> torch.Tensor:
+        """The conv's integer weights mod every limb, [maps, O, k, 1]
+        int64 on `device`, made once a chain and device."""
+        f = self.factory
+        key = (f.limb_moduli, device)
+        if key not in self._gathers:
+            W, e = self._weight_matrix(), self.engine
+            wq = [[int(W[mi, oi]) % int(qq) for qq in f.limb_moduli]
+                  for mi in range(e.maps) for oi in range(len(e.offsets))]
+            self._gathers[key] = torch.tensor(
+                wq, dtype=torch.int64, device=device).view(
+                    e.maps, len(e.offsets), -1, 1)
+        return self._gathers[key]
+
     def _apply_encrypted(self, m):
         """Batched encrypted conv / dense: forward-NTT the input columns
         once, contract patch columns against the integer weights in the
@@ -152,7 +178,6 @@ class PoolLayer(Layer):
         q = p0.chain_q.q
         maps, corners = e.maps, len(e.corners)
         Vin = len(m.vectors)
-        W = self._weight_matrix()
         OPS.count("plain_multiplication", maps * len(e.offsets))
         Xh = p0.ntt_q.forward(m._stacked_data())        # [P, Vin, C, 2, k, N]
 
@@ -160,12 +185,9 @@ class PoolLayer(Layer):
             """Columns `locs` of Xh; a negative entry is a zero column."""
             if locs == list(range(Vin)):
                 return Xh                                # read in place
-            idx = torch.tensor([max(l, 0) for l in locs], device=Xh.device)
+            idx, pad = self._gather_index(locs, Xh.device)
             Xg = Xh.index_select(1, idx)
-            pad = [i for i, l in enumerate(locs) if l < 0]
-            if pad:
-                Xg[:, pad] = 0
-            return Xg
+            return Xg if pad is None else Xg.index_fill_(1, pad, 0)
 
         if corners == 1:
             # dense layer (kernel == input): one gather of the offset
@@ -178,10 +200,7 @@ class PoolLayer(Layer):
             # conv: per offset one gather of every corner's column, per
             # map a constant multiply; the reduced terms (< 2**31 each)
             # add up exactly in int64 and are reduced once at the end
-            wq = [[int(W[mi, oi]) % int(qq) for qq in f.limb_moduli]
-                  for mi in range(maps) for oi in range(len(e.offsets))]
-            wq = torch.tensor(wq, dtype=torch.int64, device=Xh.device).view(
-                maps, len(e.offsets), -1, 1)             # [maps, O, k, 1]
+            wq = self._reduced_weights(Xh.device)        # [maps, O, k, 1]
             accs = [None] * maps
             for oi, off in enumerate(e.offsets):
                 Xo = wide(gather([e.location(c, off, e.input_shape)

@@ -5,9 +5,11 @@ topology) run over the records of a (batch, limb) mesh of ranks, each
 record's decrypted output held exactly to the Raw oracle.
 
 The JAX package vmaps the forward over the record axis and lets GSPMD
-shard it; here each rank loops over its own block of records through
-`nn/forward.EncryptedForward` (one launch sequence a record; batching
-records into single launches is later work).  The record axis shards over
+shard it; here each rank runs its own block of records through
+`nn/forward.EncryptedForward`: one record at a time, or with `batched`
+as one record batch, the layers under `torch.func.vmap` (one launch a
+kernel for the block).  A limb group always loops over its records: the
+collectives of `limbs.py` do not run under vmap.  The record axis shards over
 `batch`: the ranks of a batch group talk only where outputs are assembled
 or verdicts gathered (and at the two barriers that bound a timed window).
 The RNS limbs shard over `limb`: the ranks of a limb group run the same
@@ -109,12 +111,14 @@ def batched_encrypted_forward(head, recs):
     """(forward, batched): `batched` the records' encrypted input columns
     stacked, one [B, P, C, 2, k, N] tensor a column (a global batch to
     save and cut into ranks' blocks); forward(batched) -> the B output
-    matrices, one record at a time through the layers."""
+    matrices, the layers under `torch.func.vmap` over the records (the
+    reference's `jax.vmap` of its record program)."""
     fwd, raws = _reader_records(head, recs)
     batched = _stacked([fwd.encrypt(raw) for raw in raws])
+    _, (_, _, dim, scale) = fwd.slot_ints(raws[0])
 
     def forward(datas):
-        return [fwd.run_encrypted(m) for m in _input_matrices(fwd, raws, datas)]
+        return fwd.run_encrypted_batch(datas, dim, scale)
 
     return forward, batched
 
@@ -135,7 +139,8 @@ def _stacked(mats) -> list:
             for i in range(len(mats[0].vectors))]
 
 
-def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None) -> dict:
+def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None,
+                        batched: bool = False) -> dict:
     """Run this rank's block of `recs` (the b-th of the mesh's batch
     blocks) through the encrypted network on its block of the limbs (the
     l-th of the mesh's limb blocks: `fac` must be the factory of this
@@ -153,7 +158,10 @@ def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None) -> dict:
     rank's own forward, the device synchronised, and `window_s` the
     group's window, from a barrier of every rank before the forward to one
     after every rank's forward has synchronised (on one rank the two are
-    the same)."""
+    the same).  `batched`: the block runs as one record batch, the layers
+    under `torch.func.vmap` (the warm-up too), on a rank without a limb
+    shard only: collectives do not run under vmap, so a limb group loops
+    over its records."""
     b = mesh.batch_index()
     parts = mesh.shape["batch"]
     if len(recs) % parts:
@@ -174,12 +182,22 @@ def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None) -> dict:
             shard_ciphertext_data(d, mesh, batch_axis=0, limb_axis=4)
             .to(fac.device).contiguous() for d in inputs])
     shard = fac.shard
-    fwd.run_encrypted(mats[0])           # one warm-up record, not timed
+    if batched and shard is not None:
+        raise ValueError("a limb group loops over its records: the "
+                         "collectives do not run under vmap")
+    if batched:
+        cols = _stacked(mats)
+        _, (_, _, dim, scale) = fwd.slot_ints(raws[0])
+        forward = lambda: fwd.run_encrypted_batch(cols, dim, scale)  # noqa: E731
+        forward()                        # one warm-up batch, not timed
+    else:
+        forward = lambda: [fwd.run_encrypted(m) for m in mats]  # noqa: E731
+        fwd.run_encrypted(mats[0])       # one warm-up record, not timed
     synchronize(fac)
     _barrier()
     before = dict(shard.counts) if shard else {}
     t0 = time.perf_counter()
-    outs = [fwd.run_encrypted(m) for m in mats]
+    outs = forward()
     synchronize(fac)
     seconds = time.perf_counter() - t0
     _barrier()
@@ -204,7 +222,7 @@ K_DATA = 6     # the production dry run's data limbs
 
 
 def dryrun_production(mesh, n_records: int | None = None, seed: int = 13,
-                      device=None, inputs=None) -> dict:
+                      device=None, inputs=None, batched: bool = False) -> dict:
     """The production LoLaSmall network at n = 8192 over the mesh: records
     over `batch`, each batch group encrypting and evaluating its own, the
     6 data limbs over `limb`, every record exact against the Raw oracle.
@@ -215,8 +233,8 @@ def dryrun_production(mesh, n_records: int | None = None, seed: int = 13,
     with this rank's limb shard; the factory is set on the network's
     EncryptLayer before `prepare_network`.  A limb axis that does not
     divide 6 raises the reference's ValueError.  Records: synthetic MNIST
-    of `seed`, max(2, batch) by default; `inputs` as `run_sharded_forward`
-    takes them."""
+    of `seed`, max(2, batch) by default; `inputs` and `batched` as
+    `run_sharded_forward` takes them."""
     from ..data.preprocess import synthetic_mnist_records
     from ..models.lola_mnist import build_lola_small
     from ..models.presets import make_factory
@@ -243,7 +261,8 @@ def dryrun_production(mesh, n_records: int | None = None, seed: int = 13,
         rh.prepare_network()
         return rh, rr
 
-    return run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=inputs)
+    return run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=inputs,
+                               batched=batched)
 
 
 def _world() -> int:

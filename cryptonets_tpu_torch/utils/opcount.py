@@ -3,8 +3,10 @@
 opcount.py`.
 
 `OPS.count(name, n)` is called where an operation runs, with the
-reference's names and counts.  The port runs eagerly, so every call
-counts an executed operation; there is no trace to replay."""
+reference's names and counts.  An eager run counts every executed
+operation; a CUDA graph's counts are taken at capture and added at each
+replay (`nn/forward.py` `RecordGraph`), as the reference replays its
+trace-time counts."""
 
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ class OperationsCount:
 
     def count(self, name: str, n: int = 1):
         self.counters[name] += n
+
+    def snapshot(self) -> dict:
+        """The counts as they are, copied."""
+        return dict(self.counters)
 
     def reset(self) -> dict:
         """Clear the counts; returns them as they were."""

@@ -9,8 +9,11 @@ network at n = 8192 (6 data + 1 special limbs, `dryrun.dryrun_production`):
            the timed forward to one after every rank's forward has
            synchronised (after one warm-up record a rank);
            efficiency(R) = throughput(R) / (R * throughput(1)).
-  --batch  one process: records/s of B = 1, 2, 4, 8, 16 records run one
-           after another through the layers (no record batching yet).
+  --batch  one process: records/s of record batches of B = 1, 2, 4, 8,
+           16, the layers under `torch.func.vmap` over the records (one
+           launch a kernel for the batch; `dryrun_production(batched=True)`),
+           after one warm-up batch: the amortisation that the batch axis
+           of a mesh inherits.
 
 Every record is held exactly to the Raw oracle.  Defaults: the card and
 NCCL, one card a rank; ranks that share a card, or the CPU, pass
@@ -72,10 +75,11 @@ def run_batch_curve(device) -> dict:
 
     rate = {}
     for B in (1, 2, 4, 8, 16):
-        res = dryrun_production(make_mesh(), n_records=B, device=device)
+        res = dryrun_production(make_mesh(), n_records=B, device=device,
+                                batched=True)
         rate[B] = B / res["window_s"]
         print(f"# one device, B = {B}: {rate[B]:.2f} rec/s", file=sys.stderr)
-    return {"metric": "one-device record scaling (16 vs 1)",
+    return {"metric": "one-device record-batch scaling (16 vs 1)",
             "value": rate[16] / rate[1], "unit": "x",
             "network": "LoLaSmall, n = 8192, 6 + 1 limbs",
             "throughput_rec_s": {str(k): v for k, v in rate.items()},
