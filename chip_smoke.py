@@ -75,7 +75,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      runs as per-row dot products with the forced dense output (5488 and
      2608 SumAllSlots ladders at n = 16384): one record each, the same
      checks as the paths of 7, every layer's output against the Raw
-     oracle's, the budget beside the reference's;
+     oracle's, the budget beside the reference's; then the layers as one
+     CUDA graph as the command lines run them (`evaluation_forward`,
+     `bigt_graph_case`; `cryptonets_bigt` too, after its batches): on the
+     eager record's input ciphertexts, the warm-up eager, the capture
+     decided from the card's free memory against the reckoned pool and
+     printed, one replay, its outputs bit-equal to the warm-up's and the
+     eager record's; capture, eager and replay seconds, pool and peak GiB;
+     `cryptonets_bigt` also with the pool made not to fit: the decision
+     eager, two records eager and bit-equal;
  10. `serve`: LoLa at full width and depth through the client/server
      split and files (`api/serial.py`): the client writes a public-only
      and a full key file and the encrypted input of one record, the server
@@ -99,15 +107,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      [3, 6), both the special prime, each its limbs of the key set, on
      (a)'s first input ciphertexts (encrypted once and saved for the
      ranks), with collectives at every cross-limb operation, the outputs
-     gathered over the ranks bit-equal to (a)'s; every record exact
+     gathered over the ranks bit-equal to (a)'s, once as a loop over the
+     records and once as one record batch under `torch.func.vmap` (one
+     collective a cross-limb operation for the batch); every record exact
      against the Raw oracle, the verdicts gathered on rank 0, records per
      second of each over its group's window (a barrier before the timed
      forward, one after every rank's has synchronised), each rank's key
      bytes and collectives per record in (c);
  14. `pipeline`: `PipelineForward` over LoLa at full width, one stage and
-     three stages on a CUDA stream each; every streamed record against the
-     Raw oracle, the three-stage outputs equal to the one-stage ones,
-     records per second of each;
+     three stages on a CUDA stream each, each stage holding only the keys
+     its layers look up; every streamed record against the Raw oracle,
+     the three-stage outputs equal to the one-stage ones, records per
+     second of each, each stage's key bytes beside the whole set's (fewer
+     where its layers use fewer keys, no secret key);
  15. `bigt62`: a plain prime between 2**62 and 2**63 at n = 8192: host
      encode, encrypt and evaluate on the card, exact host decrypt of
      add_plain, a plaintext product and a ciphertext product with
@@ -993,6 +1005,79 @@ def layer_gate(title: str, which: str, names, outs, raws) -> list:
     return rows
 
 
+def bigt_graph_case(title: str, head, m, eager_out, refuse: bool = False) -> dict:
+    """A big-t preset's layers as one CUDA graph, as its command line runs
+    it (`evaluation_forward`: the factory encodes on the host, so the
+    graph holds the layers), on the input matrix `m` of the path's eager
+    record, whose outputs were `eager_out`: `run_graph`'s warm-up runs
+    the layers eagerly on the graph's static inputs (a copy of m), the
+    capture is decided from the card's free memory against the reckoned
+    pool (printed), the graph is captured and replayed once.  The
+    replay's outputs must be bit-equal to the warm-up's and to the eager
+    record's (so its decryption is the eager record's, gated on the Raw
+    oracle there).  `refuse`: then once more with the pool made not to
+    fit (`GRAPH_FREE_SHARE` 0): the decision eager, printed, no graph, the
+    record's outputs and those of a second record on m (the eager path)
+    bit-equal to the eager record's.  Returns the decision, the warm-up
+    (eager), capture and replay seconds, the reckoned, free and pool GiB,
+    the peak GiB and the replay's kernel launches."""
+    from cryptonets_tpu_torch.nn import forward
+    from cryptonets_tpu_torch.nn.forward import evaluation_forward
+
+    def same(out):
+        return all(torch.equal(a.data, b.data) for a, b in zip(out.vectors, eager_out.vectors))
+
+    fwd = evaluation_forward(head)
+    if not fwd.graph or fwd.fuse_io:
+        raise SystemExit(f"{title}: expected a layers-only graph, got graph="
+                         f"{fwd.graph}, fuse_io={fwd.fuse_io}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_counts()
+    t0 = time.perf_counter()
+    out = fwd.run_graph(m)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in kernel_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if fwd.eager:
+        raise SystemExit(f"{title}: the graph was refused on this card: "
+                         f"{list(fwd.eager.values())}")
+    (g,) = fwd.graphs().values()
+    if not (all(torch.equal(v.data, w) for v, w in zip(out.vectors, g.warm_outputs))
+            and same(out)):
+        raise SystemExit(f"{title}: the graph's outputs differ from the eager "
+                         f"layers' on the graph's own input ciphertexts")
+    res = dict(decision=g.decision, eager_s=g.warm_s,
+               capture_s=g.capture_s - g.warm_s, replay_s=first_s - g.capture_s,
+               need_gib=g.need_bytes / 2**30, free_gib=g.free_bytes / 2**30,
+               pool_gib=g.pool_bytes / 2**30, peak_gib=peak, replay_launches=launched)
+    log(f"{title} under a graph (the layers): {g.decision}; eager (the "
+        f"warm-up) {res['eager_s']:.3f} s, capture {res['capture_s']:.3f} s, "
+        f"replay {res['replay_s']:.3f} s; pool {res['pool_gib']:.3f} GiB, peak "
+        f"{peak:.2f} GiB; the replay's outputs bit-equal to the warm-up's and "
+        f"to the eager record's on the same input ciphertexts; kernel "
+        f"launches of the replay {launched}")
+    fwd.release()
+    del g, out
+    torch.cuda.empty_cache()
+    if refuse:
+        share = forward.GRAPH_FREE_SHARE
+        forward.GRAPH_FREE_SHARE = 0.0
+        try:
+            fwd = evaluation_forward(head)
+            outs = [fwd.run_graph(m), fwd.run_graph(m)]
+        finally:
+            forward.GRAPH_FREE_SHARE = share
+        if fwd.graphs() or len(fwd.eager) != 1 or not all(same(o) for o in outs):
+            raise SystemExit(f"{title}: a graph whose pool does not fit: "
+                             f"graphs {list(fwd.graphs())}, eager {fwd.eager}")
+        (res["refused"],) = fwd.eager.values()
+        log(f"{title} with the pool made not to fit: {res['refused']}; two "
+            f"records ran eagerly, bit-equal to the eager record")
+    return res
+
+
 def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> dict:
     """A full-width single-image network on the card (LoLa, LoLaPacked,
     LoLaLarge, CIFAR, LoLaDense, or CIFAR and LoLaLarge under their
@@ -1029,9 +1114,11 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
     fwd = EncryptedForward(head)
     kept = []
     if raw_layers is not None:
-        # keep every layer's output of the record for `layer_gate`
+        # keep every layer's output of the record for `layer_gate`, and
+        # its input for the graph's (`bigt_graph_case`)
         for layer in fwd.layers:
             layer.apply = (lambda m, f=layer.apply: kept.append(f(m)) or kept[-1])
+        fwd.encrypt = (lambda raw, f=fwd.encrypt: kept.append(f(raw)) or kept[-1])
     lats, per_record, peaks = [], None, []
     out = by_layer = None
     for i, raw in enumerate(raws):
@@ -1052,7 +1139,8 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
                        BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
         if raw_layers is not None:
             by_layer = layer_gate(title, which, [type(l).__name__ for l in fwd.layers],
-                                  kept, raw_layers)
+                                  kept[1:], raw_layers)
+            first_record = (kept[0], kept[-1])
             kept.clear()
         # bench.py's gate: the Raw oracle is float64 and the logits reach
         # 2**67 in fixed point, so it carries its own rounding (~1e-16)
@@ -1075,10 +1163,14 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
     if raw_layers is not None:
         for layer in fwd.layers:
             del layer.apply      # the wrappers' cycle would keep the weights
-    launches = kernel_counts()
+        del fwd.encrypt
     budget = out.noise_budget()
     if budget <= 0 and which not in EXHAUSTS_IN_LAST_LAYER:
         raise SystemExit(f"{title}: the noise budget is exhausted")
+    graph = None
+    if which in BY_LAYER:
+        graph = bigt_graph_case(title, head, *first_record)
+    launches = kernel_counts()
     beside = REFERENCE_BUDGETS.get(which)
     log(f"{title} record latency: median {statistics.median(lats):.4f} s over "
         f"{len(lats)} records {lats}; prepare {prepare_s:.3f} s; peak memory "
@@ -1089,7 +1181,8 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
            if budget <= 0 else ""))
     return dict(launches=launches, per_record=per_record, latency=lats,
                 keygen_s=keygen_s, prepare_s=prepare_s, budget=budget,
-                galois_keys=galois, peak_gib=max(peaks), by_layer=by_layer)
+                galois_keys=galois, peak_gib=max(peaks), by_layer=by_layer,
+                graph=graph)
 
 
 def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
@@ -1297,7 +1390,11 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
         f"prepare: {prepare_s:.3f} s")
 
     fwd = EncryptedForward(head)
-    lat = per_batch = out = logits = None
+    inputs = []
+    if preset == "cryptonets_bigt":
+        # the warm-up batch's input, for its graph (`bigt_graph_case`)
+        fwd.encrypt = (lambda raw, f=fwd.encrypt: inputs.append(f(raw)) or inputs[-1])
+    lat = per_batch = out = logits = first = None
     for i, raw in enumerate(raws):
         before = kernel_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1330,7 +1427,7 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
                 f"the Raw oracle's, logits within rtol 1e-9: {close}; "
                 f"enc[0]={enc[0]}, raw[0]={raw[0]}")
         if i == 0:
-            logits = enc
+            logits, first = enc, out
             if same_as is not None and not np.array_equal(enc, same_as["logits"]):
                 raise SystemExit(f"{title}: the warm-up batch's logits differ "
                                  f"from the butterfly run's")
@@ -1340,10 +1437,14 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
             f"predictions equal the Raw oracle's, logits within rtol 1e-9: "
             f"{close}, kernel launches {per_batch}, peak memory "
             f"{peak_gib:.2f} GiB")
-    launches = kernel_counts()
     budget = min(v.noise_budget() for v in out.vectors)
     if budget <= 0:
         raise SystemExit(f"{title}: the noise budget is exhausted")
+    graph = None
+    if inputs:
+        del fwd.encrypt
+        graph = bigt_graph_case(title, head, inputs[0], first, refuse=True)
+    launches = kernel_counts()
     beside = REFERENCE_BUDGETS.get(preset)
     log(f"{title} batch latency {lat:.4f} s, {1e3 * lat / batch:.4f} ms per "
         f"image; final noise budget {budget} bits (minimum over the 10 output "
@@ -1353,7 +1454,7 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
            if same_as is not None else ""))
     return dict(launches=launches, per_batch=per_batch, latency=lat,
                 keygen_s=keygen_s, prepare_s=prepare_s, budget=budget,
-                logits=logits, peak_gib=peak_gib)
+                logits=logits, peak_gib=peak_gib, graph=graph)
 
 
 def slice_c_phase(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
@@ -1683,13 +1784,15 @@ def parallel_rank(per_rank: int) -> dict:
                 cases=shape_cases("parallel (b)", shapes) if shapes else [])
 
 
-def parallel_limb_rank(inputs_path: str) -> dict:
+def parallel_limb_rank(inputs_path: str, batched: bool) -> dict:
     """One rank of the `parallel` phase's part (c) (started by
     `distributed.run_ranks` under gloo, both ranks on card 0):
     `dryrun_production` over the reference's default mesh of two ranks,
     {batch: 1, limb: 2}, on the input ciphertexts saved at `inputs_path`,
     this rank on its block of the 6 data limbs with its limbs of the key
-    set, every record exact against the Raw oracle; its launch counts
+    set, a loop over the records or (`batched`) one record batch under
+    `torch.func.vmap` with one collective a cross-limb operation for the
+    batch, every record exact against the Raw oracle; its launch counts
     from zero, rank 0's launch shapes, the output columns gathered over
     the ranks (on the CPU), and every rank's verdict gathered on rank 0."""
     import torch.distributed as dist
@@ -1704,7 +1807,8 @@ def parallel_limb_rank(inputs_path: str) -> dict:
     shapes = LaunchShapes() if rank == 0 else None
     with shapes or contextlib.nullcontext():
         res = dryrun.dryrun_production(mesh, n_records=LIMB_RECORDS,
-                                       device="cuda", inputs=inputs)
+                                       device="cuda", inputs=inputs,
+                                       batched=batched)
     launched = kernel_counts()
     check_launches(f"parallel (c) rank {rank}", launched,
                    BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
@@ -1717,8 +1821,8 @@ def parallel_limb_rank(inputs_path: str) -> dict:
     dist.gather_object(verdict, gathered, dst=0)
     if rank:
         return {}
-    return dict(verdicts=gathered, outputs=outputs,
-                cases=shape_cases("parallel (c)", shapes))
+    where = "parallel (c, batched)" if batched else "parallel (c)"
+    return dict(verdicts=gathered, outputs=outputs, cases=shape_cases(where, shapes))
 
 
 def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
@@ -1803,53 +1907,69 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         f"launches per rank {[v['launches'] for v in verdicts]}")
     cases = ranks[0]["cases"]
 
-    log(f"parallel (c): {n_ranks} ranks on one card, gloo, the reference's "
-        f"default mesh of two ranks: {LIMB_RECORDS} of (a)'s input "
-        f"ciphertexts, RNS limbs over the ranks")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "inputs.pt")
-        torch.save(limb_inputs, path)
-        t0 = time.perf_counter()
-        ranks = run_ranks(parallel_limb_rank, n_ranks, path, backend="gloo")
-        wall = time.perf_counter() - t0
-    verdicts = ranks[0]["verdicts"]
-    if len(verdicts) != n_ranks or not all(v["exact"] for v in verdicts):
-        raise SystemExit(f"parallel (c): verdicts {verdicts}")
-    if verdicts[0]["mesh"] != {"batch": 1, "limb": 2} or [
-            v["limbs"] for v in verdicts] != [(0, 3), (3, 6)]:
-        raise SystemExit(f"parallel (c): mesh {verdicts[0]['mesh']}, limbs "
-                         f"{[v['limbs'] for v in verdicts]}")
-    same = [torch.equal(g, w) for g, w in zip(ranks[0]["outputs"], one_rank_outputs)]
-    if len(same) != len(one_rank_outputs) or not all(same):
-        raise SystemExit(f"parallel (c): gathered outputs equal to (a)'s: {same}")
-    window = max(v["window_s"] for v in verdicts)
-    for name in launched:
-        launched[name] += sum(v["launches"][name] for v in verdicts)
     one_key = out["one_rank"]["key_bytes"]
-    out["limb_ranks"] = dict(
-        n_ranks=n_ranks, backend="gloo", records=LIMB_RECORDS,
-        mesh=verdicts[0]["mesh"], limbs=[v["limbs"] for v in verdicts],
-        wall_s=wall, window_s=window,
-        forward_s=[v["forward_s"] for v in verdicts],
-        records_per_s=LIMB_RECORDS / window,
-        key_bytes=[v["key_bytes"] for v in verdicts], one_rank_key_bytes=one_key,
-        collectives_per_record=verdicts[0]["collectives"],
-        launches=[v["launches"] for v in verdicts])
-    lr = out["limb_ranks"]
-    log(f"parallel (c): mesh {lr['mesh']}, ranks' limbs {lr['limbs']} of 6 "
-        f"(+ the special prime on both) on {verdicts[0]['device']}, every "
-        f"record exact against the Raw oracle, the {len(same)} output "
-        f"column(s) gathered over the ranks bit-equal to (a)'s on the same "
-        f"inputs; {lr['records_per_s']:.2f} records/s (window "
-        f"{window:.4f} s; the ranks' own forwards "
-        f"{[round(f, 4) for f in lr['forward_s']]} s; the ranks' processes "
-        f"{wall:.1f} s with start-up, keygen and prepare); key set bytes a "
-        f"rank {lr['key_bytes']} against {one_key} on one rank "
-        f"({[round(b / one_key, 4) for b in lr['key_bytes']]}; (3 + 1) / "
-        f"(6 + 1) = {4 / 7:.4f}); collectives per record of the timed "
-        f"forward {lr['collectives_per_record']}; launches per rank "
-        f"{lr['launches']}; card {card_line()}")
-    out.update(launches=launched, cases=cases + ranks[0]["cases"])
+    for batched in (False, True):
+        name = "limb_batch" if batched else "limb_ranks"
+        what = "(c, batched)" if batched else "(c)"
+        log(f"parallel {what}: {n_ranks} ranks on one card, gloo, the "
+            f"reference's default mesh of two ranks: {LIMB_RECORDS} of (a)'s "
+            f"input ciphertexts, RNS limbs over the ranks"
+            + (", the records as one batch under vmap" if batched else ""))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "inputs.pt")
+            torch.save(limb_inputs, path)
+            t0 = time.perf_counter()
+            ranks = run_ranks(parallel_limb_rank, n_ranks, path, batched,
+                              backend="gloo")
+            wall = time.perf_counter() - t0
+        verdicts = ranks[0]["verdicts"]
+        if len(verdicts) != n_ranks or not all(v["exact"] for v in verdicts):
+            raise SystemExit(f"parallel {what}: verdicts {verdicts}")
+        if verdicts[0]["mesh"] != {"batch": 1, "limb": 2} or [
+                v["limbs"] for v in verdicts] != [(0, 3), (3, 6)]:
+            raise SystemExit(f"parallel {what}: mesh {verdicts[0]['mesh']}, "
+                             f"limbs {[v['limbs'] for v in verdicts]}")
+        same = [torch.equal(g, w) for g, w in zip(ranks[0]["outputs"], one_rank_outputs)]
+        if len(same) != len(one_rank_outputs) or not all(same):
+            raise SystemExit(f"parallel {what}: gathered outputs equal to "
+                             f"(a)'s: {same}")
+        window = max(v["window_s"] for v in verdicts)
+        for k in launched:
+            launched[k] += sum(v["launches"][k] for v in verdicts)
+        out[name] = lr = dict(
+            n_ranks=n_ranks, backend="gloo", records=LIMB_RECORDS,
+            batched=batched, mesh=verdicts[0]["mesh"],
+            limbs=[v["limbs"] for v in verdicts], wall_s=wall, window_s=window,
+            forward_s=[v["forward_s"] for v in verdicts],
+            records_per_s=LIMB_RECORDS / window,
+            key_bytes=[v["key_bytes"] for v in verdicts], one_rank_key_bytes=one_key,
+            collectives_per_record=verdicts[0]["collectives"],
+            launches=[v["launches"] for v in verdicts])
+        cases += ranks[0]["cases"]
+        log(f"parallel {what}: mesh {lr['mesh']}, ranks' limbs {lr['limbs']} of "
+            f"6 (+ the special prime on both) on {verdicts[0]['device']}, every "
+            f"record exact against the Raw oracle, the {len(same)} output "
+            f"column(s) gathered over the ranks bit-equal to (a)'s on the same "
+            f"inputs; {lr['records_per_s']:.2f} records/s (window "
+            f"{window:.4f} s; the ranks' own forwards "
+            f"{[round(f, 4) for f in lr['forward_s']]} s; the ranks' processes "
+            f"{wall:.1f} s with start-up, keygen and prepare); key set bytes a "
+            f"rank {lr['key_bytes']} against {one_key} on one rank "
+            f"({[round(b / one_key, 4) for b in lr['key_bytes']]}; (3 + 1) / "
+            f"(6 + 1) = {4 / 7:.4f}); collectives per record of the timed "
+            f"forward {lr['collectives_per_record']}"
+            + (f" (one a cross-limb operation for the batch of {LIMB_RECORDS})"
+               if batched else "")
+            + f"; launches per rank {lr['launches']}; card {card_line()}")
+    loop, batch = out["limb_ranks"], out["limb_batch"]
+    for k, n in loop["collectives_per_record"].items():
+        if batch["collectives_per_record"][k] * LIMB_RECORDS != n:
+            raise SystemExit(f"parallel (c, batched): {k} a record "
+                             f"{batch['collectives_per_record'][k]}, the loop's {n}")
+    log(f"parallel (c): the batch {batch['records_per_s']:.2f} records/s against "
+        f"the loop's {loop['records_per_s']:.2f} "
+        f"({batch['records_per_s'] / loop['records_per_s']:.2f}x)")
+    out.update(launches=launched, cases=cases)
     return out
 
 
@@ -1885,6 +2005,13 @@ def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         before = kernel_counts()
         with shapes or contextlib.nullcontext():
             first = pipe.run_stream(1)
+        stage_bytes, whole = pipe.stage_key_bytes(), fac.keys.nbytes()
+        for f, b in zip(pipe.factories, stage_bytes):
+            fewer = (len(dict.keys(f.keys.galois)) < len(fac.keys.galois)
+                     or f.keys.relin is None)
+            if b > whole or (fewer and b >= whole) or f.has_secret_key:
+                raise SystemExit(f"pipeline {S} stages: a stage holds {b} key "
+                                 f"bytes of the whole set's {whole}")
         t0 = time.perf_counter()
         outs = first + pipe.run_stream(PIPELINE_RECORDS)
         dt = time.perf_counter() - t0
@@ -1899,12 +2026,18 @@ def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         out[f"stages_{S}"] = dict(
             layers=[len(g) for g in pipe.groups], records=PIPELINE_RECORDS,
             seconds=dt, records_per_s=PIPELINE_RECORDS / dt, launches=launched,
-            budget=outs[-1].get_column(0).noise_budget())
+            budget=outs[-1].get_column(0).noise_budget(),
+            stage_key_bytes=stage_bytes, whole_key_bytes=whole,
+            stage_galois_keys=[len(dict.keys(f.keys.galois)) for f in pipe.factories],
+            whole_galois_keys=len(fac.keys.galois))
         log(f"pipeline, LoLa in {S} stage(s) of {out[f'stages_{S}']['layers']} "
             f"layers on {S} stream(s) of one card: {1 + PIPELINE_RECORDS} "
             f"records match the Raw oracle; {PIPELINE_RECORDS} streamed in "
             f"{dt:.3f} s = {PIPELINE_RECORDS / dt:.2f} records/s; final budget "
-            f"{out[f'stages_{S}']['budget']} bits; kernel launches {launched}")
+            f"{out[f'stages_{S}']['budget']} bits; key bytes a stage "
+            f"{stage_bytes} ({out[f'stages_{S}']['stage_galois_keys']} Galois "
+            f"keys) against the whole set's {whole} "
+            f"({len(fac.keys.galois)}); kernel launches {launched}")
     if not all(np.array_equal(a, b) for a, b in
                zip(decoded[1], decoded[PIPELINE_STAGES])):
         raise SystemExit("pipeline: the staged run's decoded outputs differ "
@@ -2074,11 +2207,12 @@ def _oracle(which: str, build, pools) -> list:
 # LoLaDense decrypts some records wrong, eagerly as under a graph: its
 # plain primes near 2**35 leave 0-6 bits at the end (PERF.md's sweep), and
 # the fourth record this phase runs (record 0 encrypted a second time)
-# decrypts to other logits at a reported budget of 1 bit, with the eager
-# code as it was before the graphs too (ROADMAP.md §3).  On this path a
-# record that disagrees with the Raw oracle is counted and reported; the
-# graph is held bit-equal to the eager layers on its own input ciphertexts
-# all the same
+# decrypts one unit off in the first plain prime's constant coefficient,
+# whose noise crosses Delta / 2 in the last layer's complete slot sum: a
+# finding about the configuration (ROADMAP.md §3,
+# `scripts/torch_coeff_noise.py`).  On this path a record that disagrees
+# with the Raw oracle is counted and reported; the graph is held bit-equal
+# to the eager layers on its own input ciphertexts all the same
 WRONG_AT_TIMES = ("lola_dense",)
 
 

@@ -140,18 +140,22 @@ class CrtBfvFactory:
     def block_size(self) -> int:
         return self.n
 
-    def to(self, device) -> "CrtBfvFactory":
+    def to(self, device, keys=None) -> "CrtBfvFactory":
         """A factory of the same parameters on `device`, holding this one's
-        key set there (`KeySet.to`); this factory when it lies there."""
-        if canonical(device) == canonical(self.device):
+        key set there (`KeySet.to`), or `keys` (a part of it,
+        `KeySet.select`); this factory when it lies there and no `keys`
+        are given.  A factory given keys without the secret key does not
+        decrypt."""
+        if keys is None and canonical(device) == canonical(self.device):
             return self
         p = self.params[0]
         other = CrtBfvFactory(
             self.plain_primes, n=self.n, coeff_modulus=self.coeff_modulus,
             dbc=p.dbc, seed=p.seed, n_special=p.n_special, ks_alpha=p.ks_alpha,
-            ntt_impl=self.ntt_impl, device=device, keys=self.keys,
-            shard=self.shard)
-        other.has_secret_key = self.has_secret_key
+            ntt_impl=self.ntt_impl, device=device,
+            keys=self.keys if keys is None else keys, shard=self.shard)
+        other.has_secret_key = self.has_secret_key and (
+            keys is None or keys.s_hat_mont is not None)
         return other
 
     def fresh_key(self) -> torch.Generator:

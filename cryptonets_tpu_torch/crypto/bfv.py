@@ -436,6 +436,52 @@ class SwitchKeys(NamedTuple):
         return SwitchKeys(*(torch.cat([x[:, lo:hi], x[:, k:]], dim=1) for x in self))
 
 
+class HeldGaloisKeys(dict):
+    """The Galois keys one holder (a pipeline stage) holds, out of a key
+    set that has more: `g in keys` answers for the whole set (`known`), so
+    every branch that asks whether a single-hop key exists takes the path
+    it takes with the whole set; a lookup of a key that is not held raises
+    a KeyError naming the holder and the Galois element."""
+
+    def __init__(self, held: dict, known, owner: str):
+        super().__init__(held)
+        self.known = frozenset(known)
+        self.owner = owner
+
+    def __contains__(self, g) -> bool:
+        return g in self.known
+
+    def __getitem__(self, g):
+        if not dict.__contains__(self, g):
+            raise KeyError(f"{self.owner} holds no Galois key for element {g}")
+        return dict.__getitem__(self, g)
+
+    def map(self, fn) -> "HeldGaloisKeys":
+        return HeldGaloisKeys({g: fn(sk) for g, sk in self.items()},
+                              self.known, self.owner)
+
+
+class _RecordedGaloisKeys(dict):
+    """A view of a Galois key dict that adds every element looked up to
+    `seen`; membership and lookups answer as the dict it views."""
+
+    def __init__(self, keys: dict, seen: set):
+        super().__init__(keys)
+        self.inner, self.seen = keys, seen
+
+    def __contains__(self, g) -> bool:
+        return g in self.inner
+
+    def __getitem__(self, g):
+        self.seen.add(g)
+        return self.inner[g]
+
+
+def _map_galois(galois: dict, fn) -> dict:
+    return galois.map(fn) if isinstance(galois, HeldGaloisKeys) else {
+        g: fn(sk) for g, sk in galois.items()}
+
+
 class KeySet(NamedTuple):
     s_hat_mont: torch.Tensor   # NTT(s) in Montgomery form [k, N]
     s2_hat_mont: torch.Tensor  # NTT(s^2) in Montgomery form
@@ -446,15 +492,19 @@ class KeySet(NamedTuple):
     s_small: torch.Tensor      # ternary secret [N] (host checks)
 
     def to(self, device) -> "KeySet":
-        """The same keys on `device` (no copy for tensors already there)."""
-        def mv(sk: SwitchKeys) -> SwitchKeys:
-            return SwitchKeys(sk.k0.to(device), sk.k1.to(device))
+        """The same keys on `device` (no copy for tensors already there);
+        a selected set (`select`) stays one."""
+        def mv(x):
+            if x is None:
+                return None
+            if isinstance(x, SwitchKeys):
+                return SwitchKeys(x.k0.to(device), x.k1.to(device))
+            return x.to(device)
 
         return KeySet(
-            self.s_hat_mont.to(device), self.s2_hat_mont.to(device),
-            self.p0_hat_mont.to(device), self.p1_hat_mont.to(device),
-            mv(self.relin), {g: mv(sk) for g, sk in self.galois.items()},
-            self.s_small.to(device),
+            mv(self.s_hat_mont), mv(self.s2_hat_mont), mv(self.p0_hat_mont),
+            mv(self.p1_hat_mont), mv(self.relin), _map_galois(self.galois, mv),
+            mv(self.s_small),
         )
 
     def narrow(self, lo: int, hi: int, k: int) -> "KeySet":
@@ -467,16 +517,58 @@ class KeySet(NamedTuple):
         return KeySet(
             cut(self.s_hat_mont), cut(self.s2_hat_mont), cut(self.p0_hat_mont),
             cut(self.p1_hat_mont), self.relin.narrow(lo, hi, k),
-            {g: sk.narrow(lo, hi, k) for g, sk in self.galois.items()},
+            _map_galois(self.galois, lambda sk: sk.narrow(lo, hi, k)),
             self.s_small,
         )
 
+    def recording(self, seen: set | None = None) -> tuple["KeySet", set]:
+        """(a view of these keys that records what is read, `seen`): every
+        Galois element looked up (an int) and every other field read (its
+        name: "relin", "p0_hat_mont", ...), added to `seen` (a new set by
+        default).  Put the view in a factory's place for one run to learn
+        which keys that run uses."""
+        seen = set() if seen is None else seen
+
+        class _Recorded(KeySet):
+            __slots__ = ()
+
+        for i, name in enumerate(KeySet._fields):
+            if name != "galois":
+                setattr(_Recorded, name, property(
+                    lambda ks, i=i, name=name: seen.add(name) or tuple.__getitem__(ks, i)))
+        return _Recorded(*self._replace(galois=_RecordedGaloisKeys(self.galois, seen))), seen
+
+    def select(self, galois=(), relin: bool = False, keep=(),
+               owner: str = "this key set") -> "KeySet":
+        """The keys one holder uses and nothing more: the Galois keys of
+        the elements `galois`, the relinearization key if `relin`, and of
+        the secret and public keys the fields named in `keep`; every other
+        field is None.  `g in keys.galois` still answers for the whole set
+        (`HeldGaloisKeys`); a missing key raises, naming `owner`.  No copy."""
+        galois = set(galois)
+        missing = galois - set(self.galois)
+        if missing:
+            raise KeyError(f"the key set has no Galois key for {sorted(missing)}")
+        keep = set(keep)
+
+        def field(name):
+            return getattr(self, name) if name in keep else None
+
+        return KeySet(
+            field("s_hat_mont"), field("s2_hat_mont"), field("p0_hat_mont"),
+            field("p1_hat_mont"), self.relin if relin else None,
+            HeldGaloisKeys({g: self.galois[g] for g in sorted(galois)},
+                           set(self.galois), owner),
+            field("s_small"),
+        )
+
     def nbytes(self) -> int:
-        """Bytes of every tensor of the key set."""
+        """Bytes of every tensor the key set holds."""
         tensors = [self.s_hat_mont, self.s2_hat_mont, self.p0_hat_mont,
-                   self.p1_hat_mont, self.s_small, *self.relin]
+                   self.p1_hat_mont, self.s_small,
+                   *(self.relin if self.relin is not None else ())]
         tensors += [x for sk in self.galois.values() for x in sk]
-        return sum(x.numel() * x.element_size() for x in tensors)
+        return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
 @lru_cache(maxsize=None)
@@ -980,6 +1072,9 @@ class BFV:
     def relinearize(self, ct, keys: KeySet):
         if ct.shape[-3] == 2:
             return ct
+        if keys.relin is None:
+            raise KeyError(f"{getattr(keys.galois, 'owner', 'the key set')} "
+                           f"holds no relinearization key")
         ks = self._switch_key_inner(ct[..., 2, :, :], keys.relin)
         return add_mod(ct[..., :2, :, :], ks, self.p.chain_q.q)
 

@@ -25,8 +25,15 @@ encrypt and decrypt run outside it (the reference's three programs,
 layers under `torch.func.vmap` over the record axis (each kernel folds
 the records into its rows, `kernels/batching.py`), every output
 decrypted and decoded in one pass; under `graph=True` one replay for B
-records.  Nothing falls back to the eager path: a graph on a CPU factory,
-a failed capture and a batch on a factory that encodes on the host raise.
+records.  Whether a signature is captured is decided after the warm-up
+and before the capture: the pool the capture is reckoned to take (the
+warm-up's peak over the memory allocated before it) against the card's
+free memory (`GRAPH_FREE_SHARE`).  The decision is printed; a signature
+that does not fit runs eagerly from then on (the warm-up was its first
+record), which is how the big-t presets' multi-GiB records are guarded.
+Nothing else falls back to the eager path: a graph on a CPU factory, a
+capture that starts and fails, and a batch on a factory that encodes on
+the host raise.
 
 A graph's operation and kernel counts (`utils/opcount.OPS`, each
 kernel's `LAUNCHES`) are taken at capture and added at every replay, as
@@ -52,6 +59,12 @@ from .layers import EncryptLayer
 from .network import Layer
 
 _LAUNCH_TABLES = (ntt.LAUNCHES, modmatmul.LAUNCHES, matmul_ntt.LAUNCHES)
+# a capture goes ahead when its reckoned pool is at most this share of the
+# card's free memory (the allocator's cache emptied), else the record runs
+# eagerly: a capture that runs out of memory half-way fails the run.  The
+# pools the big-t presets' captures took were 1.38-1.68 times the reckoning
+# on an H100 (PERF.md §6), hence the half
+GRAPH_FREE_SHARE = 0.5
 
 
 def split_at_encrypt(head: Layer):
@@ -101,30 +114,54 @@ class RecordGraph:
     `RecordGraph(fn, inputs, generators)`: `inputs` are the static input
     tensors (their values are the warm-up's); `fn` runs once eagerly on a
     side stream, which fills every lazy cache it reads (stacked Galois
-    keys, masks, the contraction's prepared weights, BSGS forms), then is
-    captured with `generators` registered, so every replay draws fresh
-    randomness from them.  `replay(*values)` copies the values into the
-    static inputs and replays; the outputs (`self.outputs`, whatever `fn`
-    returned) are static tensors that the next replay overwrites.  The
-    counts of the capture are added at each replay (module docstring).
-    `capture_s` is the wall seconds of warm-up and capture; `pool_bytes`
-    the device memory the capture took from the allocator."""
+    keys, masks, the contraction's prepared weights, BSGS forms).  Then
+    the capture is decided (module docstring; `need_bytes`, `free_bytes`,
+    `decision`, printed): where the reckoned pool does not fit, `graph` is
+    None, `outputs` are the warm-up's and its counts stand (it was an
+    eager run).  Otherwise `fn` is captured with `generators` registered,
+    so every replay draws fresh randomness from them.  `replay(*values)`
+    copies the values into the static inputs and replays; the outputs
+    (`self.outputs`, whatever `fn` returned) are static tensors that the
+    next replay overwrites.  The counts of the capture are added at each
+    replay (module docstring).  `capture_s` is the wall seconds of warm-up
+    and capture, `warm_s` of the warm-up alone; `pool_bytes` the device
+    memory the capture took from the allocator; `warm_outputs` the
+    warm-up's outputs (the eager run on the static inputs) where
+    `keep_warm` asks for them."""
 
-    def __init__(self, fn, inputs, generators=()):
+    def __init__(self, fn, inputs, generators=(), keep_warm: bool = False):
         dev = inputs[0].device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, not {dev}")
         self.inputs = inputs
         before = _counts()
         t0 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fn(*inputs)
+            warm_out = fn(*inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
+        self.warm_s = time.perf_counter() - t0
         warm = _counts()
+        self.need_bytes = torch.cuda.max_memory_allocated(dev) - start
         torch.cuda.empty_cache()         # as the capture does on entering
+        self.free_bytes = torch.cuda.mem_get_info(dev)[0]
+        fits = self.need_bytes <= GRAPH_FREE_SHARE * self.free_bytes
+        self.decision = (
+            f"record graph: {self.need_bytes / 2**30:.2f} GiB reckoned for the "
+            f"pool, {self.free_bytes / 2**30:.2f} GiB free: "
+            + ("capture" if fits else "eager, the pool does not fit"))
+        print(self.decision, flush=True)
+        self.warm_outputs = warm_out if keep_warm or not fits else None
+        if not fits:
+            self.graph, self.outputs, self.pool_bytes = None, warm_out, 0
+            self.capture_s = time.perf_counter() - t0
+            return
+        del warm_out
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
         for gen in generators:
@@ -172,6 +209,8 @@ class EncryptedForward:
         self.fuse_io = bool(fuse_io and self.graph and _device_io(fac))
         self._graphs: dict = {}
         self._meta: dict = {}
+        # signatures whose graph did not fit: the decision, printed once
+        self.eager: dict = {}
         if self.graph:
             # a graph copies nothing from the host: BSGS tables resident
             for layer in self.layers:
@@ -292,14 +331,31 @@ class EncryptedForward:
 
         return forward
 
+    def _capture(self, key, fn, inputs, generators=(), keep_warm=False):
+        """The graph of `key`, captured now (`RecordGraph`): kept and
+        returned, or None where its pool does not fit, the signature then
+        marked eager; (graph or None, the warm-up's outputs or None)."""
+        g = RecordGraph(fn, inputs, generators, keep_warm=keep_warm)
+        if g.graph is None:
+            self.eager[key] = g.decision
+            return None, g.outputs
+        self._graphs[key] = g
+        return g, None
+
     def _run_fused(self, raw) -> HEMatrix:
         bufs, (V, C, dim, scale) = self.slot_bufs(raw)
         key = ("fused", V, C, dim, scale)
+        if key in self.eager:
+            return self._decrypt_into(self.run_encrypted(self.encrypt(raw)))
         g = self._graphs.get(key)
         if g is None:
             static = bufs.to(self.factory.device)
-            g = self._graphs[key] = RecordGraph(
-                self.record_fn(V, C, dim, scale), [static], [self.factory._gen])
+            g, warm = self._capture(key, self.record_fn(V, C, dim, scale),
+                                    [static], [self.factory._gen])
+            if g is None:
+                datas, slots, _ = warm
+                return self._output_matrix(key, datas,
+                                           self._split_slots(slots, datas))
         datas, slots, _ = g.replay(bufs)
         return self._output_matrix(key, [d.clone() for d in datas],
                                    self._split_slots(slots, datas))
@@ -314,11 +370,15 @@ class EncryptedForward:
     def run_graph(self, m: HEMatrix) -> HEMatrix:
         """The layers on an encrypted matrix as one CUDA graph replay, the
         graph captured at the first matrix of its signature (the
-        layers-only form: encrypt and decrypt run outside)."""
+        layers-only form: encrypt and decrypt run outside; the warm-up's
+        outputs kept on the graph, `warm_outputs`).  A signature whose
+        graph does not fit runs eagerly (`self.eager`)."""
         if not self.graph:
             raise ValueError("run_graph needs graph=True")
         key = ("layers", m.fmt, tuple((v.dim, v.scale, v.fmt, v.is_signed,
                                        tuple(v.data.shape)) for v in m.vectors))
+        if key in self.eager:
+            return self.run_encrypted(m)
         g = self._graphs.get(key)
         if g is None:
             metas = [(v.dim, v.scale, v.fmt, v.is_signed) for v in m.vectors]
@@ -330,8 +390,10 @@ class EncryptedForward:
                 out = self._apply_layers(HEMatrix(self.factory, vecs, m.fmt), key)
                 return [v.data for v in out.vectors]
 
-            g = self._graphs[key] = RecordGraph(
-                forward, [v.data.clone() for v in m.vectors])
+            g, warm = self._capture(key, forward, [v.data.clone() for v in m.vectors],
+                                    keep_warm=True)
+            if g is None:
+                return self._output_matrix(key, warm)
         datas = g.replay(*[v.data for v in m.vectors])
         return self._output_matrix(key, [d.clone() for d in datas])
 
@@ -421,17 +483,17 @@ class EncryptedForward:
         B = len(bufs)
         bufs = torch.cat(bufs, dim=1)                     # [P, B*V*C, n]
         key = ("batch", B, V, C, dim, scale)
-        if self.graph:
-            g = self._graphs.get(key)
-            if g is None:
-                static = bufs.to(fac.device)
-                g = self._graphs[key] = RecordGraph(
-                    self.record_batch_fn(B, V, C, dim, scale), [static], [fac._gen])
+        fn = self.record_batch_fn(B, V, C, dim, scale)
+        g, outs = self._graphs.get(key), None
+        if self.graph and g is None and key not in self.eager:
+            g, warm = self._capture(key, fn, [bufs.to(fac.device)], [fac._gen])
+            if g is None:                 # the warm-up was this batch's run
+                outs, slots, _ = warm
+        if g is not None:
             outs, slots, _ = g.replay(bufs)
             outs = [o.clone() for o in outs]
-        else:
-            outs, slots, _ = self.record_batch_fn(B, V, C, dim, scale)(
-                bufs.to(fac.device))
+        elif outs is None:
+            outs, slots, _ = fn(bufs.to(fac.device))
         per = [o.shape[2] for o in outs]
         host = slots.cpu().numpy().astype(np.int64)
         # column i's B records lie in a row: record b's C_i columns from
@@ -449,7 +511,11 @@ def evaluation_forward(head: Layer, graph: bool | None = None,
     whole record where the factory encodes and decodes on the card.
     `graph` None takes the graph on a factory on the card outside verbose
     mode (a graph prints no layer reports), False runs eagerly (the
-    `--no-graph` flag), True insists (and raises on the CPU)."""
+    `--no-graph` flag), True insists (and raises on the CPU).  The big-t
+    presets (`cifar_bigt`, `lola_large_bigt`, `cryptonets_bigt`) encode on
+    the host, so their graph holds the layers; a signature whose reckoned
+    pool does not fit the card's free memory runs eagerly, as the printed
+    decision says (`RecordGraph`)."""
     if graph is None:
         fac = split_at_encrypt(head)[0].factory
         graph = fac.device.type == "cuda" and not verbose

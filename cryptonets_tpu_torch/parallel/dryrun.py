@@ -8,8 +8,8 @@ The JAX package vmaps the forward over the record axis and lets GSPMD
 shard it; here each rank runs its own block of records through
 `nn/forward.EncryptedForward`: one record at a time, or with `batched`
 as one record batch, the layers under `torch.func.vmap` (one launch a
-kernel for the block).  A limb group always loops over its records: the
-collectives of `limbs.py` do not run under vmap.  The record axis shards over
+kernel for the block, and on a limb group one collective a cross-limb
+operation for the block: `limbs.py`).  The record axis shards over
 `batch`: the ranks of a batch group talk only where outputs are assembled
 or verdicts gathered (and at the two barriers that bound a timed window).
 The RNS limbs shard over `limb`: the ranks of a limb group run the same
@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device, synchronize
 from ..nn.forward import EncryptedForward, split_at_encrypt
+from .limbs import all_gather_cat
 from .mesh import make_mesh, mesh_shape, shard_ciphertext_data
 
 
@@ -159,9 +160,9 @@ def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None,
     group's window, from a barrier of every rank before the forward to one
     after every rank's forward has synchronised (on one rank the two are
     the same).  `batched`: the block runs as one record batch, the layers
-    under `torch.func.vmap` (the warm-up too), on a rank without a limb
-    shard only: collectives do not run under vmap, so a limb group loops
-    over its records."""
+    under `torch.func.vmap` (the warm-up too); on a limb group each
+    cross-limb operation is one collective for the batch, and every rank
+    of the group must hold the same batch size."""
     b = mesh.batch_index()
     parts = mesh.shape["batch"]
     if len(recs) % parts:
@@ -183,8 +184,10 @@ def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None,
             .to(fac.device).contiguous() for d in inputs])
     shard = fac.shard
     if batched and shard is not None:
-        raise ValueError("a limb group loops over its records: the "
-                         "collectives do not run under vmap")
+        sizes = all_gather_cat(torch.tensor([len(mats)]), shard.group, 0)
+        if len(set(sizes.tolist())) != 1:
+            raise ValueError(f"the ranks of a limb group hold batches of "
+                             f"{sizes.tolist()} records: one size for all")
     if batched:
         cols = _stacked(mats)
         _, (_, _, dim, scale) = fwd.slot_ints(raws[0])
@@ -270,14 +273,15 @@ def _world() -> int:
 
 
 def sharded_rank(n_records: int, inputs_path: str | None = None, device=None,
-                 batch: int | None = None) -> dict:
+                 batch: int | None = None, batched: bool = False) -> dict:
     """One rank of the tiny LoLa dry run over the mesh of `batch` (None:
     the reference's factoring of the world size, `make_mesh`): its block
     of `records_for(n_records)` on its block of the limbs, encrypted by
     the rank or read from `inputs_path` (`torch.save` of the global
     batch's input columns, encrypted once), through
-    `run_sharded_forward`; then the global output batch assembled from
-    every rank's block (`global_ciphertext_batch`, both axes).  Returns
+    `run_sharded_forward` (`batched`: as one record batch); then the
+    global output batch assembled from every rank's block
+    (`global_ciphertext_batch`, both axes).  Returns
     its records (start, stop), limbs [lo, hi), output columns and the
     global first column, on the CPU."""
     from .distributed import global_ciphertext_batch
@@ -292,7 +296,7 @@ def sharded_rank(n_records: int, inputs_path: str | None = None, device=None,
         return rh, rr
 
     res = run_sharded_forward(mesh, head, fac, records_for(n_records), build_raw,
-                              inputs=inputs)
+                              inputs=inputs, batched=batched)
     whole = global_ciphertext_batch(res["outputs"][0], mesh, batch_axis=0,
                                     limb_axis=4)
     return dict(res, inputs=None, outputs=[o.cpu() for o in res["outputs"]],

@@ -21,11 +21,19 @@ devices are synchronised (the reference's `_build`): that fills the
 factory's lazily built caches (stacked Galois keys, masks, the
 contraction's weights) before two streams can read them.
 
-A stage on another device than the factory's gets a factory of the same
-parameters there, holding the key set moved by `KeySet.to`, and its
-layers are prepared again for it.  A stage's output crosses to the next
-stage's card on the producing stage's stream, after its work, so the
-copy reads finished data and the consumer waits for it by the event.
+Each stage holds only the keys its own layers use, as the reference's
+stage holds only what its own program references: at the first record
+the layers run once on the head's factory with a key set that records
+every lookup (`KeySet.recording`), which gives each layer's Galois
+elements and whether it relinearizes; each stage then gets a factory of
+the same parameters on its device holding the union of its layers' keys
+(`KeySet.select`: no secret or public key, a missing key raises naming
+the stage and the Galois element), and its layers are prepared again on
+it.  `stage_key_bytes()` gives each stage's key bytes.  A stage's output
+crosses to the next stage's card on the producing stage's stream, after
+its work, so the copy reads finished data and the consumer waits for it
+by the event; the last stage's output goes back to the head's factory
+(which holds the secret key) the same way.
 
 Use `PipelineForward(head, n_stages=...)` like `EncryptedForward`; use
 `run_stream(n)` to pull n records with cross-record overlap.
@@ -69,20 +77,58 @@ class PipelineForward:
             raise ValueError(f"{S} stages > {len(devices)} devices")
         self.groups = _groups(self.layers, S)
         self.devices = devices[:S]
-        fac = self.encrypt_layer.factory
-        self.factories = []
-        for group, dev in zip(self.groups, self.devices):
-            f = fac.to(dev)
-            for layer in group:
-                layer.factory = f
-                if f is not fac:       # its prepared state, again on f
-                    layer.layer_prepared = False
-                    layer.prepare()
-                    layer.layer_prepared = True
-            self.factories.append(f)
+        self.factories = None      # the stages' factories, from the first record
+        self.layer_keys = None     # what each layer looked up, from the same
         self.streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
                         for dev in self.devices]
         self._warm = False
+
+    def _plan(self, enc: HEMatrix) -> None:
+        """Run the layers once on the head's factory over `enc` with a key
+        set that records its lookups (the layers' `apply`, which is what a
+        stage runs), then give each stage a factory on its device that
+        holds the union of its layers' keys and prepare the stage's layers
+        on it."""
+        fac = self.encrypt_layer.factory
+        full = fac.keys
+        # every factory the layers use (the head's, or an earlier
+        # pipeline's stages) reads through a recording view
+        owners = list({id(f): f for f in [fac] + [l.factory for l in self.layers]}.values())
+        saved = [f.keys for f in owners]
+        seen: set = set()
+        for f in owners:
+            f.keys = f.keys.recording(seen)[0]
+        self.layer_keys = []
+        try:
+            m = enc
+            for layer in self.layers:
+                seen.clear()
+                m = layer.apply(m)
+                self.layer_keys.append(frozenset(seen))
+        finally:
+            for f, keys in zip(owners, saved):
+                f.keys = keys
+        self.factories = []
+        i = 0
+        for s, (group, dev) in enumerate(zip(self.groups, self.devices)):
+            used = frozenset().union(*self.layer_keys[i:i + len(group)])
+            i += len(group)
+            keys = full.select(
+                galois=[g for g in used if isinstance(g, int)],
+                relin="relin" in used,
+                keep=[n for n in used if isinstance(n, str) and n != "relin"],
+                owner=f"pipeline stage {s}")
+            f = fac.to(dev, keys=keys)
+            for layer in group:
+                layer.factory = f      # its prepared state, again on f
+                layer.layer_prepared = False
+                layer.prepare()
+                layer.layer_prepared = True
+            self.factories.append(f)
+
+    def stage_key_bytes(self) -> list[int]:
+        """Bytes of the keys each stage holds (after the first record)."""
+        return [f.keys.nbytes() for f in self.factories]
 
     @property
     def reader(self):
@@ -93,11 +139,10 @@ class PipelineForward:
         `ready` (an event or None) has passed; returns (its output, on the
         next stage's device, and the event that marks it done)."""
         dev, stream = self.devices[s], self.streams[s]
-        last = s + 1 == len(self.groups)
         if stream is None:
             for layer in self.groups[s]:
                 m = layer.forward(m)
-            return (m if last else self._to_stage(s + 1, m)), None
+            return self._to_next(s, m), None
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
@@ -105,28 +150,34 @@ class PipelineForward:
                 v.data.record_stream(stream)
             for layer in self.groups[s]:
                 m = layer.forward(m)
-            if not last:         # a copy to another card runs on this stream
-                m = self._to_stage(s + 1, m)
+            m = self._to_next(s, m)  # a copy to another card runs on this stream
             done = torch.cuda.Event()
             done.record(stream)
         return m, done
 
-    def _to_stage(self, s: int, m: HEMatrix) -> HEMatrix:
-        """m as a matrix of stage s's factory, its data on that stage's
-        device.  A copy between cards runs on the current stream of the
-        source card, after the work queued there."""
-        fac = self.factories[s]
+    def _to_next(self, s: int, m: HEMatrix) -> HEMatrix:
+        """Stage s's output as a matrix of the next stage's factory (the
+        head's after the last stage)."""
+        if s + 1 < len(self.factories):
+            return self._to_factory(self.factories[s + 1], m)
+        return self._to_factory(self.encrypt_layer.factory, m)
+
+    @staticmethod
+    def _to_factory(fac, m: HEMatrix) -> HEMatrix:
+        """m as a matrix of `fac`, its data on fac's device.  A copy between
+        cards runs on the current stream of the source card, after the
+        work queued there."""
         if m.factory is fac:
             return m
-        dev = self.devices[s]
-        return HEMatrix(fac, [HEVector(fac, data=v.data.to(dev), dim=v.dim,
+        return HEMatrix(fac, [HEVector(fac, data=v.data.to(fac.device), dim=v.dim,
                                        scale=v.scale, fmt=v.fmt, is_signed=v.is_signed)
                               for v in m.vectors], m.fmt)
 
     def _submit(self, enc: HEMatrix) -> HEMatrix:
         """Queue one encrypted record through every stage without waiting;
-        the output may be read on the current stream of the last device."""
-        m = self._to_stage(0, enc)
+        the output, a matrix of the head's factory, may be read on the
+        current stream of that factory's device."""
+        m = self._to_factory(self.factories[0], enc)
         ready = None
         src = enc.vectors[0].data.device
         if src.type == "cuda":
@@ -135,7 +186,7 @@ class PipelineForward:
         for s in range(len(self.groups)):
             m, ready = self._stage(s, m, ready)
         if ready is not None:
-            consumer = torch.cuda.current_stream(self.devices[-1])
+            consumer = torch.cuda.current_stream(self.encrypt_layer.factory.device)
             consumer.wait_event(ready)
             for v in m.vectors:
                 v.data.record_stream(consumer)
@@ -148,13 +199,15 @@ class PipelineForward:
 
     def __call__(self):
         """Encrypt the reader's next record and queue it; None when the
-        reader is exhausted.  The first record runs through every stage
-        once, synchronised, before it is queued."""
+        reader is exhausted.  The first record runs through the layers
+        once on the head's factory (`_plan`) and through every stage once,
+        synchronised, before it is queued."""
         raw = self.reader.get_next()
         if raw is None:
             return None
         enc = self._fwd.encrypt(raw)
         if not self._warm:
+            self._plan(enc)
             self._submit(enc)
             self._synchronize()
             self._warm = True

@@ -259,9 +259,8 @@ def test_sharded_forward_batched_equals_loop():
     """`run_sharded_forward(batched=True)` on one rank (the record batch
     of `scripts/torch_weak_scaling.py --batch`): the block's outputs on
     the same input ciphertexts bit-equal to the loop over the records,
-    every record held to the Raw oracle inside; a limb shard refuses the
-    batch (its collectives do not run under vmap)."""
-    from cryptonets_tpu_torch.parallel.limbs import LimbShard
+    every record held to the Raw oracle inside (a limb group's batch:
+    `tests/test_torch_limb_batch.py`)."""
     from cryptonets_tpu_torch.parallel.mesh import make_mesh
 
     def build_raw():
@@ -274,7 +273,3 @@ def test_sharded_forward_batched_equals_loop():
     batch = dryrun.run_sharded_forward(make_mesh(), head, fac, recs, build_raw,
                                        inputs=loop["inputs"], batched=True)
     assert all(torch.equal(a, b) for a, b in zip(loop["outputs"], batch["outputs"]))
-    fac.shard = LimbShard(0, 2, 4, None)
-    with pytest.raises(ValueError, match="vmap"):
-        dryrun.run_sharded_forward(make_mesh(), head, fac, recs, build_raw,
-                                   batched=True)

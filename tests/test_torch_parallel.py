@@ -223,12 +223,14 @@ def _stream(stages):
     reader.set_source_records(dryrun.records_for(3, seed=29))
     pipe = PipelineForward(head, n_stages=stages, devices=["cpu"] * stages)
     assert len(pipe.groups) == stages
+    outs = pipe.run_stream(5)
     for f, d in zip(pipe.factories, pipe.devices):
-        assert f is fac and d == torch.device("cpu") and f.device == d
-        assert f.keys.relin.k0.device == d
+        assert f is not fac and d == torch.device("cpu") and f.device == d
+        assert all(sk.k0.device == d for sk in f.keys.galois.values())
     assert all(layer.factory is f for g, f in zip(pipe.groups, pipe.factories)
                for layer in g)
-    return pipe.run_stream(5)
+    assert all(out.factory is fac for out in outs)
+    return outs
 
 
 def test_pipeline_one_and_three_stages(raw_outputs):
@@ -240,28 +242,25 @@ def test_pipeline_one_and_three_stages(raw_outputs):
         np.testing.assert_allclose(got[: len(want)], want, atol=1e-9)
 
 
-def test_pipeline_stages_on_factories_of_their_own(monkeypatch, raw_outputs):
-    """The path of stages on other cards, on the CPU: `CrtBfvFactory.to`
-    made to build a factory wherever it is asked (as for another card), so
-    stages 1 and 2 get factories of their own, holding the same keys, and
-    their layers are prepared again for them; the records cross to them
-    and decrypt to the Raw oracle's values, bit-equal to one stage."""
-    from cryptonets_tpu_torch.api import factory as factory_mod
-
+def test_pipeline_stages_on_factories_of_their_own(raw_outputs):
+    """Every stage gets a factory of its own (as on another card), holding
+    its part of the head's keys, and its layers are prepared again for
+    it; the records cross to them and back to the head's factory, and
+    decrypt to the Raw oracle's values, bit-equal to one stage."""
     one = _stream(1)
-    monkeypatch.setattr(factory_mod, "canonical", lambda device: object())
     head, fac, reader = dryrun.build_tiny_lola(encrypt=True, device="cpu")
     reader.set_source_records(dryrun.records_for(3, seed=29))
     pipe = PipelineForward(head, n_stages=3, devices=["cpu"] * 3)
-    assert len({id(f) for f in pipe.factories}) == 3
+    outs = pipe.run_stream(5)
+    assert len({id(f) for f in pipe.factories} | {id(fac)}) == 4
     for f in pipe.factories:
-        assert torch.equal(f.keys.relin.k0, fac.keys.relin.k0)
+        for g, sk in f.keys.galois.items():
+            assert torch.equal(sk.k0, fac.keys.galois[g].k0)
     dense = pipe.groups[2][-1]
     assert dense.factory is pipe.factories[2]
     assert dense.weights_matrix.factory is pipe.factories[2]
-    outs = pipe.run_stream(5)
     for a, b, want in zip(one, outs, raw_outputs):
-        assert b.factory is pipe.factories[2]
+        assert b.factory is fac
         assert torch.equal(a.vectors[0].data, b.vectors[0].data)
         got = np.asarray(b.get_column(0).decrypt(), float)
         np.testing.assert_allclose(got[: len(want)], want, atol=1e-9)
