@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,bigt,lola,
+    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,fused,bigt,lola,
                            cryptonets,cryptonets_matmul,cryptonets_bigt,
                            lola_small,caltech,lola_packed,lola_large,cifar,
                            lola_dense,cifar_bigt,lola_large_bigt,serve,
@@ -25,7 +25,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      LoLa's and LoLaSmall's conv, Dense(10) and Dense(100) of CryptoNets,
      from raw and from prepared weights, the convs of LoLaLarge, CIFAR and
      LoLaDense at n = 16384, each with an input row of q - 1, the preparation timed apart, and
-     what the compiler made of each kernel instance); `bigt`: the C++
+     what the compiler made of each kernel instance); `fused`: K6, the
+     modular multiply-accumulate (`kernels/modmac.cu`), in every form of
+     its call sites (LoLa's hoisted babies, one and a chunk of 16, with
+     the gather and the accumulator; a stacked key switch; CIFAR's giant
+     chunk read through strides; LoLaLarge's stacked and looped group
+     switch), and K7, the fast base conversion (`kernels/bconv.cu`: q ->
+     Bsk, B -> q, a group extension, a mod-down), each with edge residues,
+     bit-equal to its twin, timed beside its byte bound and the twin's
+     time; `bigt`: the C++
      host NTT of the plain primes of 2**31 and above (built from the
      checkout with `c++`) bit-equal to its exact object-int twin at
      n = 16384 on LoLaDense's primes, and the two-plane decrypt on the
@@ -149,9 +157,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      synthetic images against the CPU run of the same parameters;
  18. launch shapes: every path records the shape of every kernel launch
      of its first record (batch), and after the paths a fresh process
-     (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5 and K4
-     (on the path's own weights) bit-equal to their plain versions at
-     each, with edge rows, and times each beside its bound (the two-rank
+     (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5, K4
+     (on the path's own weights), K6 and K7 (their operands' layouts,
+     strides included; K7 on the path's own table) bit-equal to their
+     plain versions at each, with edge rows, and times each beside its
+     bound (the two-rank
      `parallel` runs' rank 0 sends its shapes back to this process).
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
@@ -182,7 +192,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
-PHASES = ("build", "ntt", "mmntt", "contract", "bigt", "lola", "cryptonets",
+PHASES = ("build", "ntt", "mmntt", "contract", "fused", "bigt", "lola", "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
           "lola_large_bigt", "serve", "basic", "op_budgets", "parallel",
@@ -850,17 +860,253 @@ def bigt_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- fused kernels (K6, K7)
+FUSED_KERNELS = ("mod_mac", "fast_bconv")
+FUSED_LAUNCHES = 10   # timed launches a shape (a big-t record has 10**5)
+
+
+def _layout(x) -> tuple | None:
+    """(shape, strides) of a view, or None."""
+    return None if x is None else (tuple(x.shape), tuple(x.stride()))
+
+
+def _distinct(layout) -> int:
+    """Elements a view reads once each: its sizes over the dims whose
+    stride is not 0 (a broadcast dim reads the same elements again)."""
+    if layout is None:
+        return 0
+    return int(np.prod([s for s, st in zip(*layout) if st != 0], dtype=np.int64))
+
+
+def _strided(layout, mods, gen, dev, values=None) -> torch.Tensor:
+    """A tensor laid out as `layout` records (the strides reproduced, the
+    dims of stride 0 broadcast) holding `values`, or residues of the chain
+    `mods` (limbs at dim -2) with the edges: every row's coefficients 0
+    and 1 at 0 and q - 1, the first index of dim 0 at q - 1 throughout."""
+    shape, stride = layout
+    compact = tuple(1 if st == 0 else s for s, st in zip(shape, stride))
+    if values is None:
+        q = torch.tensor(mods, dtype=torch.int64, device=dev).view(-1, 1)
+        values = _residues(compact, mods, gen, dev)
+        values[..., 0] = 0
+        values[..., 1] = (q - 1).view(-1).to(torch.int32)
+        values[0] = (q - 1).to(torch.int32)
+    x = torch.empty_strided(compact, tuple(st or 1 for st in stride),
+                            dtype=values.dtype, device=dev)
+    x.copy_(values)
+    return x.expand(shape)
+
+
+def fused_bound(nbytes: int, products: int, outputs: int) -> dict:
+    """The least time the card could take for a sum of `products` modular
+    products into `outputs` residues moving `nbytes`: each input read once
+    (a broadcast or gathered operand's distinct elements), each output
+    written once, at 3.35 TB/s; one 32 x 32 -> 64 bit product (two 32-bit
+    multiplies) a term and one reduction (two) an output on the integer
+    pipe."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * (products + outputs) / INT32_MUL_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=1e3 * t_bytes, int32_ops_ms=1e3 * t_ops,
+                bytes=nbytes)
+
+
+def mac_spec(a, b, acc, perm, chain) -> dict:
+    """A K6 launch as a picklable case: the layouts of its operands in the
+    kernel's form, the gather's row count, the chain's moduli."""
+    return dict(kind="mod_mac", a=_layout(a), b=[_layout(x) for x in b],
+                acc=[_layout(x) for x in acc],
+                perm=None if perm is None else int(perm.shape[0]),
+                mods=tuple(chain.moduli))
+
+
+def bconv_spec(y, c, chain) -> dict:
+    """A K7 launch as a case: y's layout, the table's layout and the table
+    itself (read to the host by `shape_cases`, after the run), the
+    targets' moduli."""
+    return dict(kind="fast_bconv", y=_layout(y), c=_layout(c), table=c,
+                mods=tuple(chain.moduli))
+
+
+def _spec_key(spec) -> tuple:
+    """What tells two K6 or K7 launches apart for the check: the layouts
+    and moduli (not a table's values)."""
+    if spec["kind"] == "mod_mac":
+        return ("mod_mac", spec["a"], tuple(spec["b"]), tuple(spec["acc"]),
+                spec["perm"], spec["mods"])
+    return ("fast_bconv", spec["y"], spec["c"], spec["mods"])
+
+
+def fused_case(spec, gen, dev, where: str, plain: bool = False,
+               timed: bool = True) -> dict:
+    """K6 or K7 at one launch `spec` (`mac_spec`, `bconv_spec`): operands
+    laid out as recorded, with edge residues (K7's y over [0, 2**31 - 1),
+    any residue of a 31-bit source), the kernel bit-equal to its twin on
+    the card; then timed (events and profiler device time) beside its
+    bound, and the twin timed when `plain`."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import bconv as K7
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    mods = spec["mods"]
+    chain = get_mod_chain(mods, dev)
+    if spec["kind"] == "mod_mac":
+        a = _strided(spec["a"], mods, gen, dev)
+        b = tuple(_strided(x, mods, gen, dev) for x in spec["b"])
+        acc = tuple(None if x is None else _strided(x, mods, gen, dev)
+                    for x in spec["acc"])
+        N = a.shape[-1]
+        perm = None if spec["perm"] is None else torch.stack([
+            torch.randperm(N, generator=gen, device=dev)
+            for _ in range(spec["perm"])])
+        args = (a, b, chain, acc, perm)
+        kernel, twin = K6._launch, K6.mod_mac_plain
+        Z, C = b[0].shape[0], len(b)
+        J, R1, RA, RB, L, _ = a.shape
+        outputs = Z * R1 * RA * RB * C * L * N
+        nbytes = 4 * (_distinct(spec["a"]) + sum(map(_distinct, spec["b"]))
+                      + sum(map(_distinct, spec["acc"])) + outputs + 4 * L)
+        nbytes += 0 if perm is None else 8 * perm.numel()
+        bound = fused_bound(nbytes, outputs * J, outputs)
+    else:
+        Lf = spec["y"][0][-2]
+        y = _strided(spec["y"], [2**31 - 1] * Lf, gen, dev)
+        c = _strided(spec["c"], None, gen, dev,
+                     values=torch.as_tensor(spec["table"]).to(dev))
+        args = (y, c, chain)
+        kernel, twin = K7._launch, K7.fast_bconv_plain
+        RA, RB, _, N = y.shape
+        outputs = RA * RB * len(mods) * N
+        nbytes = 4 * (_distinct(spec["y"]) + outputs + 4 * len(mods)) + 8 * c.numel()
+        bound = fused_bound(nbytes, outputs * Lf, outputs)
+    out, ref = kernel(*args), twin(*args)
+    torch.cuda.synchronize()
+    err = int((out.long() - ref.long()).abs().max())
+    del out, ref
+    if err:
+        raise SystemExit(f"{spec['kind']} disagrees with its twin at {where}: "
+                         f"{spec}: max error {err}")
+    e = dict(where=where, shape=[list(x) for x in (
+        [spec["a"][0]] + [x[0] for x in spec["b"]] if spec["kind"] == "mod_mac"
+        else [spec["y"][0], spec["c"][0]])], max_abs_err=err, **bound)
+    if spec["kind"] == "mod_mac":
+        e.update(gather=spec["perm"] is not None,
+                 acc=sum(x is not None for x in spec["acc"]))
+    if timed:
+        e["ms"] = event_ms(lambda: kernel(*args), launches=FUSED_LAUNCHES, repeats=3)
+        e["device_ms"] = device_ms(lambda: kernel(*args), f"{spec['kind']}_kernel",
+                                   launches=FUSED_LAUNCHES)
+    if plain:
+        e["plain_ms"] = event_ms(lambda: twin(*args), launches=2, repeats=3, warmup=1)
+    return e
+
+
+def fused_phase(dev) -> list[dict]:
+    """K6 and K7 bit-equal to their twins on the card in every form their
+    call sites take, at the main paths' shapes, with edge residues, each
+    timed beside its bound and the twin's time (every shape a path
+    launches them at is checked after the paths, `launch_shape_phase`)."""
+    from cryptonets_tpu_torch.crypto.bfv import BFVParams, get_mod_chain
+    from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q16 = default_coeff_modulus_128(16384)
+    lola = BFVParams(8192, CONFIGS["lola"]["plain_primes"][0], ks_alpha=1, device=dev)
+    large = BFVParams(16384, CONFIGS["lola_large"]["plain_primes"][0],
+                      coeff_modulus=q16[:11], n_special=3, device=dev)
+
+    def z(*shape):          # a layout only: the cases make their own data
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    mac = []
+    # LoLa's hoisted babies: dhat [J = 7 groups, P = 4, F = 1, k = 7, N],
+    # the keys of 63 babies, c0_hat's gathered accumulator
+    J, P, k, N = 7, 4, 7, 8192
+    a = z(J, P, 1, k, N).reshape(J, 1, P, k, N).unsqueeze(2)
+    keys = z(63, J, k, N)
+    c0 = z(P, 1, k, N).reshape(1, 1, P, k, N)
+    for B, where in ((1, "LoLa hoisted baby (one)"),
+                     (16, "LoLa hoisted babies (a chunk of 16)")):
+        mac.append((where, mac_spec(
+            a, [keys[:B, :, None]] * 2,
+            [c0.expand(B, -1, -1, -1, -1).unsqueeze(2), None], z(B, N).long(),
+            lola.chain_q)))
+    # LoLa's relinearisation: the stacked groups, both keys, no gather
+    mac.append(("LoLa key switch (stacked, J = 7)", mac_spec(
+        a, [keys[0].reshape(1, J, 1, k, N)] * 2, [None, None], None, lola.chain_q)))
+    # CIFAR's giant chunk: bab_hat [P = 3, g = 64, F = 2, 2, 13, N] chained,
+    # one flip a launch, the second onto the first
+    P3, g, L13, N16 = 3, 64, 13, 16384
+    bab = z(P3, g, 2, 2, L13, N16)
+    forms = z(P3, g, 2, L13, N16)
+    x = bab[:, :, 1].transpose(0, 1).unsqueeze(2)
+    mac.append(("CIFAR giant chunk (g = 64, second flip)", mac_spec(
+        x, [forms[:, :, 1].transpose(0, 1)[None]], [z(1, P3, 2, L13, N16).unsqueeze(2)],
+        None, get_mod_chain(q16[:13], dev))))
+    # LoLaLarge's ladders: the groups stacked (J = 4 over Q*P, 14 limbs)
+    # and looped (J = 1 onto the accumulator), 16 rows of the P = 3 primes
+    R = 48
+    aq = z(4, R, 14, N16).reshape(4, 1, R, 14, N16).unsqueeze(2)
+    kq = z(4, 14, N16).reshape(1, 4, 1, 14, N16)
+    mac.append(("LoLaLarge key switch (stacked groups, J = 4)", mac_spec(
+        aq, [kq] * 2, [None, None], None, large.chain_qp)))
+    acc = z(R, 2, 14, N16)[:, 0].reshape(1, 1, R, 14, N16).unsqueeze(2)
+    mac.append(("LoLaLarge key switch (looped, J = 1)", mac_spec(
+        aq[:1], [kq[:, :1]] * 2, [acc, acc], None, large.chain_qp)))
+    bconv = [
+        ("LoLa square: q -> Bsk", bconv_spec(
+            z(1, 2, 7, N), lola.punct_q_to_bsk, lola.chain_bsk)),
+        ("LoLa square: Bsk -> q (B -> q)", bconv_spec(
+            z(1, 2, len(lola.B_list), N), lola.punct_B_to_q, lola.chain_q)),
+        ("LoLaLarge ladder: group extension (alpha = 3 -> Q*P)", bconv_spec(
+            z(1, R, 11, N16)[:, :, 3:6], large.ks_grp_conv[3:6], large.chain_qp)),
+        ("LoLaLarge mod-down: sp -> q", bconv_spec(
+            z(1, R * 2, 3, N16), large.ks_punct_sp_to_q, large.chain_q)),
+    ]
+    entries = {}
+    for name, cases in (("mod_mac", mac), ("fast_bconv", bconv)):
+        entries[name] = [fused_case(spec, gen, dev, where, plain=True)
+                         for where, spec in cases]
+        for e in entries[name]:
+            log(f"{name} {e['where']} {e['shape']}: bit-equal to twin, edges "
+                f"too; events {e['ms']:.4f} / device {e['device_ms']:.4f} / "
+                f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
+                f"({e['bytes'] / 1e6:.2f} MB) / plain {e['plain_ms']:.3f} ms")
+    # the kernels line's shape: the main path's (LoLa's chunk of babies,
+    # LoLa's square)
+    main = {"mod_mac": entries["mod_mac"][1], "fast_bconv": entries["fast_bconv"][0]}
+    keep = ("where", "shape", "ms", "device_ms", "bound_ms", "bound_by", "plain_ms")
+    return [
+        dict(name=name, route="cuda",
+             source=f"cryptonets_tpu_torch/kernels/{src}", replaces=replaces,
+             max_abs_err=max(e["max_abs_err"] for e in entries[name]),
+             ms=main[name]["ms"], device_ms=main[name]["device_ms"],
+             plain_ms=main[name]["plain_ms"],
+             **{k: main[name][k] for k in ("bound_ms", "bound_by", "bytes_bound_ms",
+                                           "int32_ops_ms")},
+             # no PyTorch call computes a modular sum of products
+             library_ms=None, shape=main[name]["shape"],
+             by_shape=[{k: e[k] for k in keep} for e in entries[name]])
+        for name, src, replaces in (
+            ("mod_mac", "modmac.cu", "cryptonets_tpu/crypto/bfv.py:1118"),
+            ("fast_bconv", "bconv.cu", "cryptonets_tpu/crypto/bfv.py:952"))]
+
+
 # ---------------------------------------------------------------- slices
 BUTTERFLY_KERNELS = ("ntt_forward", "ntt_inverse")
 MATMUL_KERNELS = ("matmul_ntt_forward", "matmul_ntt_inverse")
 
 
 def _count_tables() -> tuple:
+    from cryptonets_tpu_torch.kernels import bconv as K7
     from cryptonets_tpu_torch.kernels import matmul_ntt as M
+    from cryptonets_tpu_torch.kernels import modmac as K6
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
 
-    return K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES
+    return K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES
 
 
 def kernel_counts() -> dict:
@@ -885,7 +1131,8 @@ def check_launches(where: str, launched: dict, expect, absent=()) -> None:
 
 class LaunchShapes:
     """Within `with`, records every kernel launch by shape: K1/K2 and K5
-    with their tables, K4 with its weights and moduli.  A path's own
+    with their tables, K4 with its weights and moduli, K6 and K7 by the
+    layouts of their operands (`mac_spec`, `bconv_spec`).  A path's own
     launch shapes, read off its run for the kernel check that follows the
     paths (`launch_shape_phase`)."""
 
@@ -893,13 +1140,17 @@ class LaunchShapes:
         self.ntt = {}        # (shape, id(tables)) -> (tables, {kernel names})
         self.mmntt = {}      # the same for K5
         self.contract = {}   # (M, O, shape, moduli) -> weights
+        self.fused = {}      # `_spec_key` -> K6 or K7 spec
 
     def __enter__(self):
+        from cryptonets_tpu_torch.kernels import bconv as K7
         from cryptonets_tpu_torch.kernels import matmul_ntt as M
+        from cryptonets_tpu_torch.kernels import modmac as K6
         from cryptonets_tpu_torch.kernels import modmatmul as MM
         from cryptonets_tpu_torch.kernels import ntt as K
 
-        self._orig = orig = (K._launch, M._launch, MM._launch)
+        self._orig = orig = (K._launch, M._launch, MM._launch, K6._launch,
+                             K7._launch)
 
         def tables_launch(seen, launch):
             def wrapped(name, x, tab, *tables):
@@ -914,17 +1165,30 @@ class LaunchShapes:
             self.contract.setdefault(key, w)
             return orig[2](w, x, q_list)
 
+        def mac_launch(a, b, chain, acc, perm):
+            spec = mac_spec(a, b, acc, perm, chain)
+            self.fused.setdefault(_spec_key(spec), spec)
+            return orig[3](a, b, chain, acc, perm)
+
+        def bconv_launch(y, c, chain):
+            spec = bconv_spec(y, c, chain)
+            self.fused.setdefault(_spec_key(spec), spec)
+            return orig[4](y, c, chain)
+
         K._launch = tables_launch(self.ntt, orig[0])
         M._launch = tables_launch(self.mmntt, orig[1])
         MM._launch = contract_launch
+        K6._launch, K7._launch = mac_launch, bconv_launch
         return self
 
     def __exit__(self, *exc):
+        from cryptonets_tpu_torch.kernels import bconv as K7
         from cryptonets_tpu_torch.kernels import matmul_ntt as M
+        from cryptonets_tpu_torch.kernels import modmac as K6
         from cryptonets_tpu_torch.kernels import modmatmul as MM
         from cryptonets_tpu_torch.kernels import ntt as K
 
-        K._launch, M._launch, MM._launch = self._orig
+        K._launch, M._launch, MM._launch, K6._launch, K7._launch = self._orig
 
 
 # the single-image paths: (title, builder, timed records after one
@@ -1136,7 +1400,8 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
         check_launches(f"{title} record {i}", launched,
-                       BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                       MATMUL_KERNELS)
         if raw_layers is not None:
             by_layer = layer_gate(title, which, [type(l).__name__ for l in fwd.layers],
                                   kept[1:], raw_layers)
@@ -1188,7 +1453,8 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
 def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
     """The launch shapes a path recorded as picklable cases of the fresh
     process's check: K1/K2 and K5 by shape and moduli, K4 with the
-    path's weights reduced mod each modulus."""
+    path's weights reduced mod each modulus, K6 and K7 by their operands'
+    layouts (K7 with the path's table)."""
     from cryptonets_tpu_torch.kernels import modmatmul as MM
 
     cases = []
@@ -1202,6 +1468,10 @@ def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
                    else MM.reduce_weights(w, mods))
         cases.append(dict(kind="contract", where=where, shape=shape, mods=mods,
                           reduced=reduced))
+    for spec in rec.fused.values():
+        table = spec.get("table")
+        cases.append(dict(spec, where=where, **(
+            {} if table is None else {"table": table.cpu().numpy()})))
     return cases
 
 
@@ -1217,7 +1487,8 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     cases, done = [], set()
     for where, rec in recorded.items():
         for c in (rec if isinstance(rec, list) else shape_cases(where, rec)):
-            key = (c["kind"], c["shape"], c["mods"]) + (
+            key = _spec_key(c) if c["kind"] in FUSED_KERNELS else (
+                c["kind"], c["shape"], c["mods"]) + (
                 (c["reduced"].shape[0],) if c["kind"] == "contract" else ())
             if key not in done:
                 done.add(key)
@@ -1225,7 +1496,7 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     paths = ", ".join(recorded)
     recorded.clear()
     torch.cuda.empty_cache()
-    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",)
+    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS
     shapes, err = {name: [] for name in names}, dict.fromkeys(names, 0)
     for c0 in range(0, len(cases), SHAPE_CHUNK):
         out = _shape_process(cases[c0:c0 + SHAPE_CHUNK])
@@ -1233,8 +1504,8 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
             shapes[name] += out["shapes"][name]
             err[name] = max(err[name], out["err"][name])
     counts = {kind: sum(c["kind"] == kind for c in cases)
-              for kind in ("ntt", "mmntt", "contract")}
-    log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4) bit-equal "
+              for kind in ("ntt", "mmntt", "contract") + FUSED_KERNELS}
+    log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4, K6, K7) bit-equal "
         f"to the plain versions, edge rows too, each timed with the "
         f"profiler's device time")
     return shapes, err
@@ -1293,13 +1564,20 @@ def launch_shapes_main() -> int:
     cases = pickle.loads(sys.stdin.buffer.read())
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
-    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",)
+    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS
     err = dict.fromkeys(names, 0)
     shapes = {name: [] for name in names}
     instances = {}
     keep = ("ms", "device_ms", "bound_ms", "bound_by")  # the rest is in the log
-    for c in sorted(cases, key=lambda c: (c["kind"], c["shape"][-1], c["shape"])):
-        shape, mods, where = c["shape"], c["mods"], c["where"]
+    for c in sorted(cases, key=lambda c: (c["kind"], c["shape"][-1], c["shape"])
+                    if "shape" in c else (c["kind"], 0, ())):
+        mods, where = c["mods"], c["where"]
+        if c["kind"] in FUSED_KERNELS:
+            e = fused_case(c, gen, dev, where)
+            err[c["kind"]] = max(err[c["kind"]], e["max_abs_err"])
+            shapes[c["kind"]].append({k: e[k] for k in ("where", "shape") + keep})
+            continue
+        shape = c["shape"]
         if c["kind"] == "ntt":
             tab = get_ntt_context(shape[-1], mods).tables(dev)
             _, _, entries = ntt_shape_case(shape, tab, gen, err,
@@ -1371,9 +1649,10 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
                                 (preset, ntt_impl), f" ({preset}, {ntt_impl} NTT)")
     records, raws = cryptonets_data(batch)
     if ntt_impl == "matmul":
-        expect = (MATMUL_KERNELS + ("mod_contract",), ())
+        expect = (MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS, ())
     else:
-        expect = (BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+        expect = (BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                  MATMUL_KERNELS)
 
     reset_kernel_counts()
     torch.cuda.synchronize()
@@ -1483,10 +1762,10 @@ def slice_c_phase(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     head_r.prepare_network()
     raws = [head_r.get_next().get_column(0).decrypt() for _ in records]
     expect = {
-        "butterfly": (BUTTERFLY_KERNELS + conv,
+        "butterfly": (BUTTERFLY_KERNELS + conv + FUSED_KERNELS,
                       MATMUL_KERNELS + (() if conv else ("mod_contract",))),
         # the slot encode and decode over Z_t stay on the butterfly NTT
-        "matmul": (MATMUL_KERNELS + BUTTERFLY_KERNELS + conv,
+        "matmul": (MATMUL_KERNELS + BUTTERFLY_KERNELS + conv + FUSED_KERNELS,
                    () if conv else ("mod_contract",)),
     }
     runs, exact = {}, {}
@@ -1648,7 +1927,8 @@ def serve_phase(dev, shapes: LaunchShapes | None = None) -> dict:
                for a, b in zip(same.vectors, res_c.vectors)):
         raise SystemExit("serve: the server's output ciphertexts differ from "
                          "the client's own run on the same input")
-    check_launches("serve", launched, BUTTERFLY_KERNELS + ("mod_contract",),
+    check_launches("serve", launched,
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
                    MATMUL_KERNELS)
     out.update(budget=res_c.get_column(0).noise_budget(), launches=launched,
                per_record=per_record, galois_keys=len(fac_s.keys.galois))
@@ -1684,7 +1964,7 @@ def basic_phase(dev, shapes: LaunchShapes | None = None) -> dict:
             or not np.array_equal(res["elementwise"], v * v[::-1])):
         raise SystemExit(f"basic: wrong results {res}")
     launched = kernel_counts()
-    check_launches("basic", launched, BUTTERFLY_KERNELS,
+    check_launches("basic", launched, BUTTERFLY_KERNELS + FUSED_KERNELS,
                    MATMUL_KERNELS + ("mod_contract",))
     log(f"basic example (default preset): norm^2 385, sum 55, elementwise "
         f"{res['elementwise'].tolist()} exactly; keygen "
@@ -1743,7 +2023,8 @@ def op_budgets_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         log(f"op budgets {name}: " + ", ".join(f"{k} {v}" for k, v in row.items())
             + f"; the reference {ref} ({rows[name]['seconds']:.2f} s)")
     launched = kernel_counts()
-    check_launches("op_budgets", launched, BUTTERFLY_KERNELS, MATMUL_KERNELS)
+    check_launches("op_budgets", launched, BUTTERFLY_KERNELS + FUSED_KERNELS,
+                   MATMUL_KERNELS)
     log(f"op budgets: {len(rows)} presets, kernel launches {launched}")
     if bad:
         raise SystemExit(f"op_budgets: {bad} at 0 bits or more than 3 bits "
@@ -1775,7 +2056,8 @@ def parallel_rank(per_rank: int) -> dict:
                                          batch=dist.get_world_size())
     launched = kernel_counts()
     check_launches(f"parallel rank {rank}", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   MATMUL_KERNELS)
     verdict.update(rank=rank, exact=True, launches=launched,
                    device=torch.cuda.get_device_name(torch.cuda.current_device()))
     gathered = [None] * dist.get_world_size() if rank == 0 else None
@@ -1811,7 +2093,8 @@ def parallel_limb_rank(inputs_path: str, batched: bool) -> dict:
                                        batched=batched)
     launched = kernel_counts()
     check_launches(f"parallel (c) rank {rank}", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   MATMUL_KERNELS)
     outputs = [global_ciphertext_batch(o, mesh, batch_axis=0, limb_axis=4).cpu()
                for o in res["outputs"]]
     verdict = {k: res[k] for k in dryrun.SUMMARY}
@@ -1864,7 +2147,8 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         dist.destroy_process_group()
     launched = kernel_counts()
     check_launches("parallel (one rank)", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   MATMUL_KERNELS)
     out["one_rank"] = dict(mesh=res["mesh"], backend=backend,
                            records=PARALLEL_RECORDS, window_s=res["window_s"],
                            records_per_s=PARALLEL_RECORDS / res["window_s"],
@@ -2017,7 +2301,8 @@ def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         dt = time.perf_counter() - t0
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
         check_launches(f"pipeline {S} stages", launched,
-                       BUTTERFLY_KERNELS + ("mod_contract",), MATMUL_KERNELS)
+                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                       MATMUL_KERNELS)
         decoded[S] = [o.get_column(0).decrypt() for o in outs]
         for i, (enc, raw) in enumerate(zip(decoded[S], raws)):
             if enc.shape != raw.shape or not np.allclose(enc, raw, rtol=1e-9, atol=0):
@@ -2099,7 +2384,7 @@ def bigt62_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         }
         row = op_budgets(fac)
     launched = kernel_counts()
-    check_launches("bigt62", launched, BUTTERFLY_KERNELS,
+    check_launches("bigt62", launched, BUTTERFLY_KERNELS + FUSED_KERNELS,
                    MATMUL_KERNELS + ("mod_contract",))
     budgets = {}
     for name, (vec, want) in results.items():
@@ -2171,7 +2456,7 @@ def _graph_spec(which: str, count: int):
     from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
     from cryptonets_tpu_torch.models import lola_mnist as LM
 
-    conv = BUTTERFLY_KERNELS + ("mod_contract",)
+    conv = BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS
     if which == "cryptonets":
         records, _ = cryptonets_data(8192)
         pools = [records[:8192], records[8192:]]
@@ -2179,7 +2464,8 @@ def _graph_spec(which: str, count: int):
                 pools, conv)
     if which == "caltech":
         recs = synthetic_feature_records(count, caltech101.N_FEATURES, seed=6)
-        return "Caltech-101", caltech101.build, [[r] for r in recs], BUTTERFLY_KERNELS
+        return ("Caltech-101", caltech101.build, [[r] for r in recs],
+                BUTTERFLY_KERNELS + FUSED_KERNELS)
     if which == "cifar":
         return ("CIFAR", lola_cifar.build,
                 [[r] for r in synthetic_cifar_records(count, seed=4)], conv)
@@ -2537,8 +2823,10 @@ def main() -> int:
     if args.launch_shapes:
         return launch_shapes_main()
     import cryptonets_tpu_torch  # noqa: F401  (fails outside the checkout)
+    from cryptonets_tpu_torch.kernels import bconv as K7
     from cryptonets_tpu_torch.kernels import build as B
     from cryptonets_tpu_torch.kernels import matmul_ntt as M
+    from cryptonets_tpu_torch.kernels import modmac as K6
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
     from cryptonets_tpu_torch.runtime import hostcrypto
@@ -2548,22 +2836,22 @@ def main() -> int:
     log(f"card: {card}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    # the host runtime (c++) builds beside the three nvcc runs
+    # the host runtime (c++) builds beside the five nvcc runs
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(lambda: (hostcrypto.build(), time.perf_counter() - t0))
-        B.build_sources([B.source("ntt.cu"), B.source("modmatmul.cu"),
-                         B.source("matmul_ntt.cu")])
+        B.build_sources([B.source(name) for name in (
+            "ntt.cu", "modmatmul.cu", "matmul_ntt.cu", "modmac.cu", "bconv.cu")])
         host_lib, host_s = host.result()
     hostcrypto.get_lib()
-    K.build()
-    MM.build()
-    M.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s, the three sources "
+    for kernel_module in (K, MM, M, K6, K7):
+        kernel_module.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s, the five sources "
         f"in parallel (nvcc {B.BUILD_SECONDS}); host runtime {host_lib.name} "
         f"({host_s:.2f} s)")
     kernels = []
     for phase, run in (("ntt", kernel_phase), ("mmntt", mmntt_phase),
-                       ("contract", lambda d: [contract_phase(d)])):
+                       ("contract", lambda d: [contract_phase(d)]),
+                       ("fused", fused_phase)):
         if phase in phases:
             t0 = time.perf_counter()
             kernels += run(dev)

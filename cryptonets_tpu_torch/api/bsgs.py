@@ -26,10 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..crypto.modular import add_mod, mod_sum
+from ..crypto.modular import add_mod
+from ..kernels.modmac import mod_mac
 from ..utils.opcount import OPS
 
-BABY_CHUNK = 16  # babies gathered per step (bounds the int64 temporaries)
+BABY_CHUNK = 16  # babies a K6 launch (bounds the twin's int64 temporaries)
 
 
 def _choose_g(row: int, F: int, cap: int = 256) -> int:
@@ -172,10 +173,11 @@ def _hoisted_babies_hat(fac, ub, g):
     one decomposition of c1 + NTT (base-2^dbc digits, or RNS groups
     extended to Q*P with kp = k), then per baby a gather by the
     automorphism permutation and the switch-key inner product over the J
-    components.  Returns bab_hat [P, g, F, 2, k, N]."""
+    components, in one K6 launch a chunk of babies (`mod_mac` with the
+    gather: dhat is read in place, never gathered into a tensor).
+    Returns bab_hat [P, g, F, 2, k, N]."""
     bfv0 = fac.bfv[0]
     p = bfv0.p
-    cq = p.chain_q
     c0, c1 = ub[..., 0, :, :], ub[..., 1, :, :]           # [P, F, k, N]
     c0_hat = p.ntt_q.forward(c0)
     c1_hat = p.ntt_q.forward(c1)
@@ -185,17 +187,16 @@ def _hoisted_babies_hat(fac, ub, g):
     else:
         dhat = p.ntt_q.forward(bfv0._decompose_digits(c1_all))  # [kD, P, F, k, N]
     perms, k0s, k1s = fac.stacked_baby_rotations(g)       # keys [g-1, J, k, N]
+    J, P, F, L, N = dhat.shape
+    a = dhat.reshape(J, 1, P * F, L, N)
+    c0 = c0_hat.reshape(1, 1, P * F, L, N)
     rots = []
     for b0 in range(0, g - 1, BABY_CHUNK):
         perm = perms[b0 : b0 + BABY_CHUNK]                # [B, N]
-        kshape = (perm.shape[0], k0s.shape[1], 1, 1, *k0s.shape[2:])
-        dp = dhat[..., perm].movedim(-2, 0)               # [B, J, P, F, k, N]
-        t0 = mod_sum(cq.mont_mul(dp, k0s[b0 : b0 + BABY_CHUNK].reshape(kshape)),
-                     cq.q, dim=1)
-        t1 = mod_sum(cq.mont_mul(dp, k1s[b0 : b0 + BABY_CHUNK].reshape(kshape)),
-                     cq.q, dim=1)
-        c0r = add_mod(c0_hat[..., perm].movedim(-2, 0), t0, cq.q)
-        rots.append(torch.stack([c0r, t1], dim=-3))       # [B, P, F, 2, k, N]
+        keys = tuple(k[b0 : b0 + BABY_CHUNK, :, None] for k in (k0s, k1s))
+        acc = (c0.expand(perm.shape[0], -1, -1, -1, -1), None)
+        out = mod_mac(a, keys, p.chain_q, acc, perm)      # [B, 1, P F, 2, k, N]
+        rots.append(out.reshape(perm.shape[0], P, F, 2, L, N))
     base = torch.stack([c0_hat, c1_hat], dim=-3)[None]
     return torch.cat([base, *rots], dim=0).movedim(0, 1)  # [P, g, F, 2, k, N]
 
@@ -239,11 +240,17 @@ def bsgs_matvec(form: BsgsDenseForm, data):
         bab_hat = _chained_babies_hat(fac, ub, g)
 
     def chunk_acc(a):
-        """Giant chunk a -> coefficient-domain acc [P, 2, k, N]."""
+        """Giant chunk a -> coefficient-domain acc [P, 2, k, N]: the sum
+        over the g F babies of bab_hat times the chunk's diagonal forms,
+        K6 over the g babies where they lie in bab_hat (one launch a flip
+        f, the second accumulating onto the first)."""
         forms = _encode_diag_chunk(fac, form.chunk(a), form.t_col)  # [P, g, F, k, N]
-        prod = p.chain_q.mont_mul(bab_hat, forms[:, :, :, None])
-        acc_hat = mod_sum(prod.reshape(prod.shape[0], g * F, *prod.shape[3:]),
-                          q, dim=1)
+        acc_hat = None
+        for f in range(F):
+            x = bab_hat[:, :, f].transpose(0, 1)              # [g, P, 2, k, N]
+            w = forms[:, :, f].transpose(0, 1)[None]          # [1, g, P, k, N]
+            acc_hat = mod_mac(x, (w,), p.chain_q,
+                              None if acc_hat is None else (acc_hat[None],))[0, :, :, 0]
         return p.ntt_q.inverse(acc_hat)
 
     if len(form.active) > max(4, G // 4):

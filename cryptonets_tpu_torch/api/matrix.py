@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..crypto.modular import add_mod, mod_sum, mul_const_mod
+from ..kernels.modmac import mod_mac
 from ..utils.opcount import OPS
 from .vector import DENSE, SPARSE, HEVector
 
@@ -228,15 +229,20 @@ class HEMatrix:
                 part = mod_sum(mul_const_mod(A, w[None, :, None, None], q),
                                q, dim=1)
             else:
-                W = self._stacked_mult_forms()[:, c0:c1, :, None]
-                # summed in the NTT domain, one inverse NTT at the end
-                part = mod_sum(bfv0.p.chain_q.mont_mul(
-                    bfv0.p.ntt_q.forward(v.data[:, c0:c1, None]), W), q, dim=1)
+                # summed in the NTT domain by K6 over the columns, each
+                # block of the forms a row z of the launch, accumulated
+                # piece by piece; one inverse NTT at the end
+                W = self._stacked_mult_forms()[:, c0:c1]          # [P, c, C, k, N]
+                x = bfv0.p.ntt_q.forward(v.data[:, c0:c1]).transpose(0, 1)
+                part = mod_mac(x, (W.permute(2, 1, 0, 3, 4),), bfv0.p.chain_q,
+                               None if acc is None else (acc,))
+                acc = part[..., 0, :, :]                          # [C, P, s, k, N]
+                continue
             acc = part if acc is None else add_mod(acc, part, q)
         if self.is_encrypted and v.is_encrypted:
             acc = bfv0.relinearize(acc, f.keys)
         elif not self.is_encrypted:
-            acc = bfv0.p.ntt_q.inverse(acc)
+            acc = bfv0.p.ntt_q.inverse(acc.transpose(0, 1).contiguous())
         return HEVector(f, data=acc, dim=col0.dim, scale=col0.scale * v.scale,
                         fmt=DENSE, is_signed=col0.is_signed)
 
@@ -276,17 +282,18 @@ class HEMatrix:
                 parts.append(sums[:, :, 0])
                 continue
             # row r's sum times the unit mask of slot r, the rows added in
-            # the NTT domain: one inverse NTT at the end
-            m = masks[:, r0:r1, None, None]                # [P, r, 1, 1, k, N]
-            part = mod_sum(chain.mont_mul(ntt.forward(sums), m), q, dim=1)
-            acc = part if acc is None else add_mod(acc, part, q)
+            # the NTT domain by K6, piece onto piece: one inverse NTT at
+            # the end
+            x = ntt.forward(sums[:, :, 0]).transpose(0, 1)  # [r, P, s, k, N]
+            m = masks[:, r0:r1].transpose(0, 1)[None]       # [1, r, P, k, N]
+            acc = mod_mac(x, (m,), chain, None if acc is None else (acc[None],))[0, :, :, 0]
         scale = row0.scale * v.scale
         if not force_dense:
             data = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
             return HEVector(f, data=data, dim=R, scale=scale, fmt=SPARSE,
                             is_signed=row0.is_signed)
         OPS.count("plain_multiplication", R)      # the unit masks
-        return HEVector(f, data=ntt.inverse(acc), dim=R, scale=scale,
+        return HEVector(f, data=ntt.inverse(acc[:, None]), dim=R, scale=scale,
                         fmt=DENSE, is_signed=row0.is_signed)
 
     def add(self, other: "HEMatrix") -> "HEMatrix":

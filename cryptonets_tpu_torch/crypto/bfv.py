@@ -20,7 +20,10 @@ switching with `n_special` special primes (keys mod Q*P, groups extended
 to Q*P, rounded division by P), stacked over the groups or looped over
 them.  The ciphertext NTTs come from the context `ntt_impl` names
 ("butterfly" or "matmul", `crypto/ntt.py`); keys are NTT-domain values, so
-a key set belongs to the ordering it was made under.
+a key set belongs to the ordering it was made under.  The key switches'
+inner products run through K6 (`kernels/modmac.py` `key_inner_product`)
+and every fast base conversion, the group extension included, through K7
+(`kernels/bconv.py` `fast_bconv`).
 
 The data limbs may be sharded over the ranks of a mesh's `limb` axis
 (`BFVParams.narrow` with a `parallel/limbs.LimbShard`, `KeySet.narrow`):
@@ -43,15 +46,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.bconv import fast_bconv
+from ..kernels.modmac import key_inner_product
 from . import sampling
 from .hostmath import CRT, modinv
 from .modular import (
     RES,
     add_mod,
     as_res,
-    mod_sum,
     mont_mul,
     mont_precompute_host,
+    mont_table,
     mul_const_mod,
     neg_mod,
     sub_mod,
@@ -82,7 +87,8 @@ def _mul32(a, c):
 
 class ModChain:
     """Constants of one base of moduli on one device: the modulus column
-    and Montgomery constants, shaped [L, 1] against [..., L, N] residues."""
+    and Montgomery constants, shaped [L, 1] against [..., L, N] residues,
+    and the fused kernels' table of them (`mont`, int32 [L, 4])."""
 
     def __init__(self, moduli, device):
         self.moduli = tuple(int(m) for m in moduli)
@@ -90,6 +96,7 @@ class ModChain:
         self.q = _col(self.moduli, device)
         self.r_mod = _col([c["r_mod"] for c in mont], device)
         self.r_inv = _col([c["r_inv"] for c in mont], device)
+        self.mont = mont_table(self.moduli, device)
 
     def __len__(self):
         return len(self.moduli)
@@ -743,7 +750,7 @@ class BFV:
         xs = mul_const_mod(x, p.gt_mod_q, cq.q)            # |gamma*t*x|_q
         y = mul_const_mod(xs, p.inv_punct_q, cq.q)
         conv = as_res(self._limb_sum(                      # [..., 2, N]
-            self._fast_bconv(y, p.punct_q_to_tg, ctg), ctg.q))
+            fast_bconv(y, p.punct_q_to_tg, ctg), ctg.q))
         s = mul_const_mod(conv, p.neg_qinv_tg, ctg.q)
         s_t, s_g = s[..., 0, :], s[..., 1, :]
         t = p.t
@@ -775,8 +782,8 @@ class BFV:
         yx = mul_const_mod(x, p.inv_punct_q, cq.q)
         # conv_y over {m2, gamma}; conv_x over {m2}
         conv_y = as_res(self._limb_sum(                    # [..., 2, N]
-            self._fast_bconv(y, p.punct_q_to_g2, p.chain_g2), p.chain_g2.q))
-        conv_x_m2 = as_res(self._limb_sum(self._fast_bconv(
+            fast_bconv(y, p.punct_q_to_g2, p.chain_g2), p.chain_g2.q))
+        conv_x_m2 = as_res(self._limb_sum(fast_bconv(
             yx, p.punct_q_to_g2[:, :1], p.big_m2_chain), m2))[..., 0, :]
         # gamma plane: s_g = V mod gamma, V = Z - e  (g t x = 0 mod g)
         s_g = mul_const_mod(conv_y[..., 1, :], p.big_neg_qinv_g, g)
@@ -881,13 +888,6 @@ class BFV:
             p.chain_q.mont_mul(p.ntt_q.forward(a), pt_hat_mont))
 
     # ------------------------------------------------------------- multiply
-    def _fast_bconv(self, y, punct, to_chain: ModChain):
-        """y [..., Lf, N] (already * inv_punct) -> [..., Lt, N] =
-        sum_i y_i * |punct_i|_m mod m, over the source limbs y holds (out
-        of sharded base q: this rank's, for `_limb_sum`)."""
-        terms = mul_const_mod(y[..., :, None, :], punct, to_chain.q[None])
-        return mod_sum(terms, to_chain.q, dim=-3)
-
     def _lift_to_bsk(self, x_q):
         """BEHZ input lift with m_tilde correction: x (base q, [..., k, N])
         -> |x|_q (+ small q-multiple) in base Bsk [..., k+1, N]."""
@@ -896,7 +896,7 @@ class BFV:
         mt = p.m_tilde
         xt = mul_const_mod(x_q, p.mtilde_mod_q, cq.q)      # |m_tilde x|_q
         y = mul_const_mod(xt, p.inv_punct_q, cq.q)
-        conv = as_res(self._limb_sum(self._fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
+        conv = as_res(self._limb_sum(fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
         # residue mod m_tilde: the low 16 bits of the wrap-around sum
         conv_mt = self._limb_sum(
             ((wide(y)[..., :, None, :] * p.punct_q_to_mtilde) % mt).sum(dim=-3) % mt, mt)
@@ -930,7 +930,7 @@ class BFV:
         tc_q = mul_const_mod(c_q, p.t_mod_q, cq.q)
         tc_bsk = mul_const_mod(c_bsk, p.t_mod_bsk, cb.q)
         y = mul_const_mod(tc_q, p.inv_punct_q, cq.q)
-        u = as_res(self._limb_sum(self._fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
+        u = as_res(self._limb_sum(fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
         fl = mul_const_mod(sub_mod(tc_bsk, u, cb.q), p.qinv_mod_bsk, cb.q)
 
         # Shenoy-Kumaresan back-conversion Bsk -> q (each rank its own q
@@ -938,8 +938,8 @@ class BFV:
         nB = len(p.B_list)
         y_B, y_msk = fl[..., :nB, :], fl[..., nB, :]
         z = mul_const_mod(y_B, p.inv_punct_B, p.chain_B.q)
-        conv_q = self._fast_bconv(z, p.punct_B_to_q, cq)
-        conv_msk = self._fast_bconv(z, p.punct_B_to_msk, p.msk_chain)
+        conv_q = fast_bconv(z, p.punct_B_to_q, cq)
+        conv_msk = fast_bconv(z, p.punct_B_to_msk, p.msk_chain)
         alpha = mul_const_mod(
             sub_mod(conv_msk, y_msk[..., None, :], p.msk_chain.q),
             p.Binv_mod_msk, p.msk_chain.q,
@@ -976,15 +976,12 @@ class BFV:
         """The digit key switch one digit at a time: the sums of the
         stacked form with one digit's NTT and products live at once."""
         p = self.p
-        cq = p.chain_q
-        t0 = t1 = None
+        t_hat = None
         for d in range(p.k * p.digits_per_limb):
             dhat = p.ntt_q.forward(self._digit(poly, d))
-            m0 = cq.mont_mul(dhat, keys.k0[d])
-            m1 = cq.mont_mul(dhat, keys.k1[d])
-            t0 = m0 if t0 is None else add_mod(t0, m0, cq.q)
-            t1 = m1 if t1 is None else add_mod(t1, m1, cq.q)
-        return p.ntt_q.inverse(torch.stack([t0, t1], dim=-3))
+            t_hat = key_inner_product(dhat[None], keys.k0[d:d + 1],
+                                      keys.k1[d:d + 1], p.chain_q, t_hat)
+        return p.ntt_q.inverse(t_hat)
 
     def _switch_key_inner(self, poly, keys: SwitchKeys):
         """Key switch of poly [..., L, N] -> two polys [..., 2, L, N] in
@@ -1002,17 +999,7 @@ class BFV:
         if stacked > self.digit_stack_bytes:
             return self._switch_key_digits_accumulated(poly, keys)
         dhat = p.ntt_q.forward(self._decompose_digits(poly))  # [kD, ..., k, N]
-        return p.ntt_q.inverse(self._key_inner_product(dhat, keys, cq))
-
-    @staticmethod
-    def _key_inner_product(dhat, keys: SwitchKeys, chain: ModChain):
-        """sum_j dhat[j] * (k0[j], k1[j]) over the stacked components
-        (digits or groups): [J, ..., L, N] -> [..., 2, L, N], NTT domain."""
-        kshape = (keys.k0.shape[0],) + (1,) * (dhat.dim() - 3) + tuple(keys.k0.shape[1:])
-        return torch.stack([
-            mod_sum(chain.mont_mul(dhat, k.reshape(kshape)), chain.q, dim=0)
-            for k in keys
-        ], dim=-3)
+        return p.ntt_q.inverse(key_inner_product(dhat, keys.k0, keys.k1, cq))
 
     def _switch_key_inner_hybrid(self, poly, keys: SwitchKeys):
         """RNS-group key switch of poly [..., k, N] (every limb): each
@@ -1027,17 +1014,14 @@ class BFV:
         stacked = 4 * p.ks_omega * (poly.numel() // p.k) * kp
         if stacked > self.group_stack_bytes:
             y = mul_const_mod(poly, p.ks_inv_punct_grp, p.chain_q_full.q)
-            t0 = t1 = None
+            t_hat = None
             for gi in range(p.ks_omega):
                 dhat = p.ntt_qp.forward(self._group_extend(y, gi))
-                m0 = cqp.mont_mul(dhat, keys.k0[gi])
-                m1 = cqp.mont_mul(dhat, keys.k1[gi])
-                t0 = m0 if t0 is None else add_mod(t0, m0, cqp.q)
-                t1 = m1 if t1 is None else add_mod(t1, m1, cqp.q)
-            t_hat = torch.stack([t0, t1], dim=-3)
+                t_hat = key_inner_product(dhat[None], keys.k0[gi:gi + 1],
+                                          keys.k1[gi:gi + 1], cqp, t_hat)
         else:
             dhat = p.ntt_qp.forward(self._group_decompose(poly))  # [omega, ..., kp, N]
-            t_hat = self._key_inner_product(dhat, keys, cqp)
+            t_hat = key_inner_product(dhat, keys.k0, keys.k1, cqp)
         tt = p.ntt_qp.inverse(t_hat)                              # [..., 2, kp, N]
         if p.n_special == 0:
             return tt
@@ -1047,7 +1031,7 @@ class BFV:
         csp = p.chain_sp
         z = add_mod(t_sp, p.ks_phalf_sp, csp.q)
         y2 = mul_const_mod(z, p.ks_inv_punct_sp, csp.q)
-        conv = self._fast_bconv(y2, p.ks_punct_sp_to_q, cq)
+        conv = fast_bconv(y2, p.ks_punct_sp_to_q, cq)
         num = sub_mod(add_mod(t_q, p.ks_phalf_q, cq.q), conv, cq.q)
         return mul_const_mod(num, p.ks_pinv_q, cq.q)
 
@@ -1056,9 +1040,7 @@ class BFV:
         to the chain Q*P (this rank's limbs of it): [..., kp, N]."""
         p = self.p
         i0, i1 = p.ks_groups[gi]
-        qp = p.chain_qp.q
-        terms = mul_const_mod(y[..., i0:i1, None, :], p.ks_grp_conv[i0:i1], qp[None])
-        return mod_sum(terms, qp, dim=-3) if i1 - i0 > 1 else terms[..., 0, :, :]
+        return fast_bconv(y[..., i0:i1, :], p.ks_grp_conv[i0:i1], p.chain_qp)
 
     def _group_decompose(self, poly):
         """poly [..., k, N] (every limb) -> per-group base extensions

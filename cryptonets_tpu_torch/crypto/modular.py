@@ -15,6 +15,7 @@ against the operands (a `[L, 1]` column for `[..., L, N]` residues).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .hostmath import modinv
@@ -61,6 +62,20 @@ def mul_const_mod(x, w, q):
 def mont_precompute_host(q: int) -> dict:
     """Host: Montgomery constants for modulus q with R = 2**32."""
     return {"r_mod": R_MONT % q, "r_inv": modinv(R_MONT % q, q)}
+
+
+def mont_table(moduli, device) -> torch.Tensor:
+    """int32 [L, 4] (uint32 bits) a modulus: q, -q^-1 mod 2**32, R**2 mod
+    q, 0 — what the CUDA kernels' Montgomery reduction (`kernels/
+    montgomery.cuh`) reads.  Raises for a modulus that is even or not
+    below 2**31."""
+    rows = []
+    for q in (int(m) for m in moduli):
+        if not 2 < q < 1 << 31 or q % 2 == 0:
+            raise ValueError(f"the fused kernels need odd moduli below 2**31: {q}")
+        rows.append([q, -modinv(q, R_MONT) % R_MONT, R_MONT * R_MONT % q, 0])
+    table = np.array(rows, np.uint32).reshape(-1, 4).view(np.int32)
+    return torch.from_numpy(table).to(device)
 
 
 def mont_mul(a, b, q, r_inv):

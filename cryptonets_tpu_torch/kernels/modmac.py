@@ -1,0 +1,234 @@
+"""K6: the modular multiply-accumulate over a stacked axis (`modmac.cu`)
+and its plain PyTorch twin.
+
+    out[z, r1, r2, c, l, n] = ( acc_c[z, r1, r2, l, src(n)]
+        + sum_j a[j, r1, r2, l, src(n)] * b_c[z, j, r1, l, n] * R^-1 ) mod q_l
+
+with R = 2**32, `b_c` in Montgomery form, one or two of them (the two keys
+of a switch read `a` once), `src(n)` the identity or a gather `perm[z, n]`
+(an NTT-domain automorphism) and `acc_c` optional.  `mod_mac` is the entry
+point; `key_inner_product` is its form for the key switch.  A tensor on
+the CPU goes to the twin (`mod_sum(mont_mul(...))` with the gathers and
+`add_mod`); a CUDA tensor goes to the kernel, built from `modmac.cu` at
+first use (`kernels/build.py`).  A build or launch failure raises: nothing
+falls back to the twin.  `LAUNCHES` counts kernel launches.  Operands are
+read through their strides (the last one 1), so a caller passes views: the
+stacked axis where it lies, keys broadcast by `expand`.  A tensor inside
+`torch.func.vmap` goes through the operator `cryptonets_torch::mod_mac`,
+whose vmap rule folds the record axis of `a` and `acc` into the rows (no
+copy); batched keys or gathers are refused.
+
+Replaces the XLA fusions of the key-switch inner product and the BSGS
+multiply-accumulates; see `modmac.cu` for the design.  No PyTorch call
+computes a modular sum of products (`torch.einsum` on int64 would pass
+2**63 and has no modulus), so there is no library counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..crypto.modular import add_mod, mod_sum, mont_mul
+from .batching import LIB, handle, is_batched, lookup
+from .build import load_library, source
+
+_SRC = source("modmac.cu")
+
+LAUNCHES = {"mod_mac": 0}
+
+
+# ------------------------------------------------------------ plain twin
+def mod_mac_plain(a, b, chain, acc, perm) -> torch.Tensor:
+    """The multiply-accumulate in plain PyTorch (int64 arithmetic), on the
+    kernel's form: a [J, R1, RA, RB, L, N], each of b [Z, J, R1, L, N],
+    acc [Z, R1, RA, RB, L, N] or None, perm [Z, N] -> [Z, R1, RA, RB, C,
+    L, N]."""
+    if perm is None:
+        ag = a[None]                                      # [1, J, R1, RA, RB, L, N]
+    else:
+        ag = a[..., perm].movedim(-2, 0)                  # [Z, J, R1, RA, RB, L, N]
+    outs = []
+    for c, bc in enumerate(b):
+        s = mod_sum(mont_mul(ag, bc[:, :, :, None, None], chain.q, chain.r_inv),
+                    chain.q, dim=1)                       # [Z, R1, RA, RB, L, N]
+        if acc[c] is not None:
+            ac = acc[c]
+            if perm is not None:     # acc[z, ..., perm[z, n]]
+                idx = perm.view(perm.shape[0], *(1,) * (ac.dim() - 2), -1)
+                ac = torch.gather(ac, -1, idx.expand(ac.shape))
+            s = add_mod(ac, s, chain.q)
+        outs.append(s)
+    return torch.stack(outs, dim=-3)
+
+
+# ------------------------------------------------------------------ build
+@functools.lru_cache(maxsize=None)
+def build() -> ctypes.CDLL:
+    """Compile `modmac.cu` (once per source content) and load it."""
+    lib = load_library(_SRC)
+    lib.mod_mac.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    lib.mod_mac.restype = ctypes.c_int
+    lib.mod_mac_param_count.restype = ctypes.c_int
+    lib.mod_mac_error_string.argtypes = [ctypes.c_int]
+    lib.mod_mac_error_string.restype = ctypes.c_char_p
+    if lib.mod_mac_param_count() != _PARAMS:
+        raise RuntimeError("modmac.cu's parameter block does not match modmac.py")
+    return lib
+
+
+_PARAMS = 40
+
+
+# ----------------------------------------------------------------- launch
+def check(a, b, chain, acc, perm) -> None:
+    """Raise unless the operands fit the kernel's form (see
+    `mod_mac_plain`): int32 residues, the last stride 1, N a power of two,
+    one chain table row a limb, perm int64 [Z, N] contiguous."""
+    if a.dim() != 6 or not 1 <= len(b) <= 2 or len(acc) != len(b):
+        raise ValueError(f"mod_mac needs a [J, R1, RA, RB, L, N] and one or "
+                         f"two keys: {tuple(a.shape)}, {len(b)} keys")
+    J, R1, RA, RB, L, N = a.shape
+    Z = b[0].shape[0]
+    if N & (N - 1) or N == 0:
+        raise ValueError(f"mod_mac needs N a power of two: {N}")
+    if tuple(chain.mont.shape) != (L, 4) or chain.mont.device != a.device:
+        raise ValueError(f"the chain's table does not fit {L} limbs on {a.device}")
+    for x in (a, *b, *(c for c in acc if c is not None)):
+        if x.dtype != torch.int32 or x.stride(-1) != 1 or x.device != a.device:
+            raise ValueError("mod_mac takes int32 residues on one device, "
+                             "each with its last stride 1")
+    for bc in b:
+        if tuple(bc.shape) != (Z, J, R1, L, N):
+            raise ValueError(f"key {tuple(bc.shape)} does not fit a {tuple(a.shape)}")
+    for c in acc:
+        if c is not None and tuple(c.shape) != (Z, R1, RA, RB, L, N):
+            raise ValueError(f"accumulator {tuple(c.shape)} does not fit "
+                             f"a {tuple(a.shape)}")
+    if perm is not None and (perm.dtype != torch.int64 or not perm.is_contiguous()
+                             or tuple(perm.shape) != (Z, N)
+                             or perm.device != a.device):
+        raise ValueError(f"mod_mac's gather must be int64 [{Z}, {N}]")
+    if Z * R1 * RA * RB * L >= 1 << 31:
+        raise ValueError("mod_mac: too many rows for one launch")
+
+
+def _launch(a, b, chain, acc, perm) -> torch.Tensor:
+    check(a, b, chain, acc, perm)
+    J, R1, RA, RB, L, N = a.shape
+    Z, C = b[0].shape[0], len(b)
+    out = torch.empty((Z, R1, RA, RB, C, L, N), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    bs = list(b) + [None] * (2 - C)
+    accs = list(acc) + [None] * (2 - C)
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    def strides(x, dims):
+        return [0] * len(dims) if x is None else [x.stride(d) for d in dims]
+
+    v = [a.device.index, a.data_ptr(), ptr(bs[0]), ptr(bs[1]), ptr(accs[0]),
+         ptr(accs[1]), ptr(perm), out.data_ptr(), chain.mont.data_ptr(),
+         Z, R1, RA, RB, J, L, N.bit_length() - 1, C,
+         *strides(a, (0, 1, 2, 3, 4))]
+    for x in bs:
+        v += strides(x, (0, 1, 2, 3))
+    for x in accs:
+        v += strides(x, (0, 1, 2, 3, 4))
+    lib = build()
+    err = lib.mod_mac((ctypes.c_longlong * _PARAMS)(*v),
+                      torch._C._cuda_getCurrentRawStream(a.device.index))
+    if err != 0:
+        raise RuntimeError(f"mod_mac launch failed: {lib.mod_mac_error_string(err).decode()}")
+    LAUNCHES["mod_mac"] += 1
+    return out
+
+
+def _mod_mac6(a, b, chain, acc, perm) -> torch.Tensor:
+    """The kernel's form on any device: the kernel on CUDA, the twin on
+    the CPU."""
+    if a.device.type == "cpu":
+        return mod_mac_plain(a, b, chain, acc, perm)
+    if a.device.type != "cuda":
+        raise ValueError(f"no mod_mac for device {a.device}")
+    return _launch(a, b, chain, acc, perm)
+
+
+@torch.library.custom_op(f"{LIB}::mod_mac", mutates_args=())
+def _mac_op(a: torch.Tensor, b0: torch.Tensor, b1: Optional[torch.Tensor],
+            acc0: Optional[torch.Tensor], acc1: Optional[torch.Tensor],
+            perm: Optional[torch.Tensor], chain: int) -> torch.Tensor:
+    """The multiply-accumulate of tensors that are not batched, the chain
+    by handle."""
+    b = (b0,) if b1 is None else (b0, b1)
+    return _mod_mac6(a, b, lookup(chain), (acc0, acc1)[: len(b)], perm)
+
+
+@torch.library.register_vmap(_mac_op)
+def _mac_vmap(info, in_dims, a, b0, b1, acc0, acc1, perm, chain):
+    """The records are more rows: a's and acc's record axis joins ra (a
+    view where the strides allow, as they do for a record batch's
+    stacked tensors); the output's record axis is ra's."""
+    a_dim, b0_dim, b1_dim, c0_dim, c1_dim, p_dim, _ = in_dims
+    if any(d is not None for d in (b0_dim, b1_dim, p_dim)):
+        raise ValueError("mod_mac batches its data and accumulators only, "
+                         "not its keys or gathers")
+    B = info.batch_size
+
+    def fold(x, d, at):
+        """[..., RA, ...] with the records at d -> RA * B rows at `at`."""
+        if x is None:
+            return None
+        x = x.unsqueeze(at).expand(*x.shape[:at], B, *x.shape[at:]) if d is None \
+            else x.movedim(d, at)
+        return x.flatten(at, at + 1)
+
+    RA = a.shape[2 + (a_dim is not None and a_dim <= 2)]
+    out = _mac_op(fold(a, a_dim, 2), b0, b1, fold(acc0, c0_dim, 2),
+                  fold(acc1, c1_dim, 2), perm, chain)
+    return out.unflatten(2, (B, RA)), 2
+
+
+def mod_mac(a, b, chain, acc=None, perm=None) -> torch.Tensor:
+    """sum_j a[j] * b_c[j] * R^-1 (+ acc_c) mod q for each key b_c.
+
+    a:     int32 [J, R1, R2, L, N] residues (any strides, the last 1).
+    b:     one or two int32 [Z, J, R1, L, N] (Montgomery form; `expand` to
+           broadcast), a tuple.
+    chain: the `ModChain` of the L limbs (`chain.mont`, `chain.q`).
+    acc:   None, or a tuple of one entry a key, each None or int32
+           [Z, R1, R2, L, N] added to that output (gathered through perm;
+           `expand` to share one over z).
+    perm:  None, or int64 [Z, N]: out[..., n] reads a[..., perm[z, n]].
+    Returns int32 [Z, R1, R2, C, L, N], C = len(b)."""
+    b = tuple(b)
+    acc = (None,) * len(b) if acc is None else tuple(acc)
+    a6 = a.unsqueeze(2)
+    acc6 = tuple(None if c is None else c.unsqueeze(2) for c in acc)
+    if any(x is not None and is_batched(x) for x in (a, *b, *acc, perm)):
+        pad = (None,) * (2 - len(b))
+        out = _mac_op(a6, b[0], *(b[1:] + pad), *(acc6 + pad), perm,
+                      handle(chain))
+    else:
+        out = _mod_mac6(a6, b, chain, acc6, perm)
+    return out.squeeze(2)
+
+
+def key_inner_product(dhat, k0, k1, chain, acc=None) -> torch.Tensor:
+    """The key switch's inner product over the stacked components (digits
+    or groups): dhat [J, ..., L, N] (NTT domain) and keys [J, L, N] ->
+    [..., 2, L, N] = sum_j dhat[j] * (k0[j], k1[j]) * R^-1, plus acc
+    [..., 2, L, N] when given (the loops over the components)."""
+    J, L, N = dhat.shape[0], dhat.shape[-2], dhat.shape[-1]
+    lead = dhat.shape[1:-2]
+    a = dhat.reshape(J, 1, -1, L, N)
+    keys = tuple(k.reshape(1, J, 1, L, N) for k in (k0, k1))
+    if acc is not None:
+        acc = tuple(acc[..., c, :, :].reshape(1, 1, -1, L, N) for c in (0, 1))
+    out = mod_mac(a, keys, chain, acc)                    # [1, 1, R, 2, L, N]
+    return out.reshape(*lead, 2, L, N)

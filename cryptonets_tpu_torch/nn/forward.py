@@ -53,12 +53,13 @@ import torch
 
 from ..api.matrix import HEMatrix
 from ..api.vector import HEVector
-from ..kernels import matmul_ntt, modmatmul, ntt
+from ..kernels import bconv, matmul_ntt, modmac, modmatmul, ntt
 from ..utils.opcount import OPS
 from .layers import EncryptLayer
 from .network import Layer
 
-_LAUNCH_TABLES = (ntt.LAUNCHES, modmatmul.LAUNCHES, matmul_ntt.LAUNCHES)
+_LAUNCH_TABLES = (ntt.LAUNCHES, modmatmul.LAUNCHES, matmul_ntt.LAUNCHES,
+                  modmac.LAUNCHES, bconv.LAUNCHES)
 # a capture goes ahead when its reckoned pool is at most this share of the
 # card's free memory (the allocator's cache emptied), else the record runs
 # eagerly: a capture that runs out of memory half-way fails the run.  The

@@ -27,9 +27,12 @@ memory of each stage, then profiles one more record with torch.profiler:
 device busy time (sum of kernel times), the device's idle share of the
 record's wall time (profiled and unprofiled), the kernel launch count,
 the launches of the hand-written kernels, the device time of the
-butterfly NTT kernels, of the four-step NTT kernels and of the
-contraction, and the kernels that take
-the most device time.  Writes the same JSON to
+butterfly NTT kernels, of the four-step NTT kernels, of the
+contraction, of the multiply-accumulate (K6) and of the base conversion
+(K7), and the kernels that take the most device time.  A profiled window
+with no device records is reported as empty and the record profiled
+again (up to `ATTEMPTS` windows; then the script fails): an empty window
+is never read as 0 busy ms.  Writes the same JSON to
 chiprun_out/torch_<network>[_<preset>][_matmul]_breakdown.json.  Fails
 without CUDA.
 """
@@ -47,6 +50,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+PROFILER_EMPTY = "the profiler recorded no device time"
+ATTEMPTS = 3    # profiled windows of one record before the script fails
 
 
 def staged_record(fwd, sync):
@@ -112,6 +118,36 @@ def staged_record(fwd, sync):
     return times, peaks
 
 
+def profiled_record(fwd, sync, counts):
+    """One record under torch.profiler: (wall seconds, [(kernel, device
+    ms, launches)] by device time, the hand kernels' launches, the window
+    it took), or None when every one of `ATTEMPTS` windows held no device
+    record.  An empty window is reported and taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(1, ATTEMPTS + 1):
+        sync()
+        before = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd().decrypt()
+            sync()
+            wall = time.perf_counter() - t0
+        hand = {k: v - before[k] for k, v in counts().items()}
+        kernels = sorted(
+            ((e.key, e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0),
+            key=lambda x: -x[1])
+        if kernels:
+            return wall, kernels, hand, window
+        print(f"torch_lola_breakdown: {PROFILER_EMPTY} in window {window} of "
+              f"{ATTEMPTS}: the window is empty, not 0 busy ms; profiling "
+              f"another record", file=sys.stderr)
+    return None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--network", default="LoLa",
@@ -134,12 +170,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_lola_breakdown: CUDA is not available", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     from cryptonets_tpu_torch.data.preprocess import (
         synthetic_cifar_records, synthetic_feature_records,
         synthetic_mnist_records)
+    from cryptonets_tpu_torch.kernels import bconv as K7
     from cryptonets_tpu_torch.kernels import matmul_ntt as M
+    from cryptonets_tpu_torch.kernels import modmac as K6
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
     from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
@@ -176,25 +212,14 @@ def main() -> int:
     peaks = {k: max(r[1][k] for r in runs) for k in runs[0][1]}
     total = [sum(r[0].values()) for r in runs]
 
-    sync()
-    counts = lambda: {**K.LAUNCHES, **MM.LAUNCHES, **M.LAUNCHES}  # noqa: E731
-    hand = counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fwd().decrypt()
-        sync()
-        wall = time.perf_counter() - t0
-    hand = {k: v - hand[k] for k, v in counts().items()}
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0),
-        key=lambda x: -x[1])
-    if not kernels:
-        print("torch_lola_breakdown: the profiler recorded no device time",
+    tables = (K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES)
+    profiled = profiled_record(
+        fwd, sync, lambda: {k: v for t in tables for k, v in t.items()})
+    if profiled is None:
+        print(f"torch_lola_breakdown: {PROFILER_EMPTY} in {ATTEMPTS} windows",
               file=sys.stderr)
         return 1
+    wall, kernels, hand, window = profiled
     busy_ms = sum(k[1] for k in kernels)
     result = {
         "card": torch.cuda.get_device_name(0),
@@ -206,6 +231,7 @@ def main() -> int:
         "record_s_median": statistics.median(total),
         "stage_s_median": stages,
         "profiled_record_wall_ms": 1e3 * wall,
+        "profiled_window": window,
         "device_busy_ms": busy_ms,
         # the profiler slows the host, so the idle share is given against
         # both the profiled wall time and the unprofiled median record
@@ -224,6 +250,11 @@ def main() -> int:
         # device ms of the four-step NTT kernels (K5) in the record
         "matmul_ntt_device_ms": sum(
             k[1] for k in kernels if "matmul_ntt_kernel" in k[0]),
+        # device ms of the multiply-accumulate (K6) and the base
+        # conversion (K7) in the record
+        "mod_mac_device_ms": sum(k[1] for k in kernels if "mod_mac_kernel" in k[0]),
+        "fast_bconv_device_ms": sum(
+            k[1] for k in kernels if "fast_bconv_kernel" in k[0]),
         "top_kernels_ms": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:12]
         ],

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu,
-modmatmul.cu and matmul_ntt.cu) against their plain versions, on the card.
+modmatmul.cu, matmul_ntt.cu, modmac.cu and bconv.cu) against their plain
+versions, on the card.
 Needs a CUDA device: skips without one.  On the card:
-`python -m pytest tests/test_torch_cuda.py -q -m cuda`
+`python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda`
 (chip_smoke.py runs the same comparison at the main path's shapes)."""
 
 import pytest
@@ -155,3 +156,77 @@ def test_cuda_matmul_ntt_all_residues_q_minus_1(n):
                        M.matmul_ntt_forward_plain(x, tab))
     assert torch.equal(M.matmul_ntt_inverse(x, tab),
                        M.matmul_ntt_inverse_plain(x, tab))
+
+
+def _edge_residues(shape, mods, gen):
+    """Residues [..., L, N] of `mods` with every row's first coefficient
+    0 and its second q - 1, and the first index of dim 0 at q - 1."""
+    q = torch.tensor(mods, dtype=torch.int64, device="cuda").view(-1, 1)
+    x = torch.randint(0, 1 << 62, shape, generator=gen, device="cuda") % q
+    x[..., 0] = 0
+    x[..., 1] = q.view(-1) - 1
+    x[0] = q - 1
+    return x.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,Z,R1,R2,L,N,gather,acc", [
+    (1, 1, 1, 1, 1, 2, False, False), (7, 1, 1, 4, 7, 8192, False, False),
+    (7, 3, 1, 4, 7, 8192, True, True), (30, 1, 3, 2, 2, 1024, False, True),
+    (64, 1, 3, 2, 13, 16384, False, False), (2, 16, 1, 5, 3, 64, True, False),
+])
+def test_cuda_mod_mac_matches_plain(J, Z, R1, R2, L, N, gather, acc):
+    """K6 against its twin: one and two keys, strided views (a transposed
+    stacked axis, keys broadcast by stride 0), the gather and the
+    accumulator, moduli from 17 to 31 bits, edge residues."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    mods = ntt_primes(64, 31, L - L // 2) + ntt_primes(64, 17, L // 2)
+    chain = get_mod_chain(mods, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(J + Z + L)
+    a = _edge_residues((R1, J, R2, L, N), mods, gen).transpose(0, 1)
+    keys = tuple(_edge_residues((Z, J, 1, L, N), mods, gen).expand(Z, J, R1, L, N)
+                 for _ in range(2))
+    accs = tuple(_edge_residues((Z, R1, R2, L, N), mods, gen) if acc else None
+                 for _ in range(2))
+    perm = (torch.stack([torch.randperm(N, generator=gen, device="cuda")
+                         for _ in range(Z)]) if gather else None)
+    for C in (1, 2):
+        a6 = a.unsqueeze(2)
+        acc6 = tuple(None if x is None else x.unsqueeze(2) for x in accs[:C])
+        before = K6.LAUNCHES["mod_mac"]
+        out = K6.mod_mac(a, keys[:C], chain, accs[:C], perm)
+        assert K6.LAUNCHES["mod_mac"] == before + 1
+        ref = K6.mod_mac_plain(a6, keys[:C], chain, acc6, perm).squeeze(2)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("RB,Lf,Lt,N", [(1, 1, 1, 2), (2, 7, 9, 8192),
+                                        (48, 3, 14, 16384), (5, 14, 2, 64),
+                                        (3, 32, 32, 1024)])
+def test_cuda_fast_bconv_matches_plain(RB, Lf, Lt, N):
+    """K7 against its twin: y over [0, 2**31 - 1) with its edges, a slice of
+    the source limbs read in place, a table sliced on its target axis,
+    targets from 17 to 31 bits."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import bconv as K7
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    mods = ntt_primes(64, 31, Lt - Lt // 2) + ntt_primes(64, 17, Lt // 2)
+    chain = get_mod_chain(mods, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(Lf * Lt)
+    y = _edge_residues((RB, Lf + 2, N), [2**31 - 1] * (Lf + 2), gen)[:, 1:Lf + 1]
+    q = torch.tensor(mods, dtype=torch.int64, device="cuda")
+    raw = torch.randint(0, 1 << 62, (Lf, Lt + 1, 1), generator=gen, device="cuda")
+    raw[:, 1:] %= q.view(1, -1, 1)
+    table = raw[:, 1:]                    # a slice on the target axis
+    table[0] = (q - 1).view(-1, 1)
+    before = K7.LAUNCHES["fast_bconv"]
+    out = K7.fast_bconv(y, table, chain)
+    assert K7.LAUNCHES["fast_bconv"] == before + 1
+    assert torch.equal(out, K7.fast_bconv_plain(y, table, chain))
