@@ -28,12 +28,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      what the compiler made of each kernel instance); `fused`: K6, the
      modular multiply-accumulate (`kernels/modmac.cu`), in every form of
      its call sites (LoLa's hoisted babies, one and a chunk of 16, with
-     the gather and the accumulator; a stacked key switch; CIFAR's giant
-     chunk read through strides; LoLaLarge's stacked and looped group
-     switch), and K7, the fast base conversion (`kernels/bconv.cu`: q ->
-     Bsk, B -> q, a group extension, a mod-down), each with edge residues,
-     bit-equal to its twin, timed beside its byte bound and the twin's
-     time; `bigt`: the C++
+     the gather by their NTT-domain automorphisms and the accumulator; a
+     stacked key switch; CIFAR's giant chunk read through strides;
+     LoLaLarge's stacked and looped group switch), and K7, the fast base
+     conversion (`kernels/bconv.cu`: q -> Bsk, Shenoy-Kumaresan's B ->
+     (q, m_sk) in one launch, a group extension, two mod-downs) on the
+     tables `BFVParams.bconv` prepares, each with edge residues, bit-equal
+     to its twin, timed beside its byte bound and the twin's time, with
+     its launch plan and what the compiler made of the kernel instance
+     (registers, spilled bytes, blocks an SM), and the host ms of one
+     launch of each; `bigt`: the C++
      host NTT of the plain primes of 2**31 and above (built from the
      checkout with `c++`) bit-equal to its exact object-int twin at
      n = 16384 on LoLaDense's primes, and the two-plane decrypt on the
@@ -159,9 +163,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of its first record (batch), and after the paths a fresh process
      (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5, K4
      (on the path's own weights), K6 and K7 (their operands' layouts,
-     strides included; K7 on the path's own table) bit-equal to their
-     plain versions at each, with edge rows, and times each beside its
-     bound (the two-rank
+     strides included; K6 on the path's own gathers, K7 on its own table)
+     bit-equal to their plain versions at each, with edge rows, and times
+     each beside its bound, K6's and K7's device over bound ms summed up
+     as the median and maximum over the launches of a million outputs or
+     more and over the rest, K6's gathered ones apart (the two-rank
      `parallel` runs' rank 0 sends its shapes back to this process).
 With no argument every phase runs, and only then are the result lines
 printed: a JSON object with one entry per kernel, the card line, and the
@@ -913,20 +919,40 @@ def fused_bound(nbytes: int, products: int, outputs: int) -> dict:
 
 
 def mac_spec(a, b, acc, perm, chain) -> dict:
-    """A K6 launch as a picklable case: the layouts of its operands in the
-    kernel's form, the gather's row count, the chain's moduli."""
+    """A K6 launch as a case: the layouts of its operands in the kernel's
+    form, the gather itself (read to the host by `shape_cases`, after the
+    run, as K7's table is: the path's own NTT-domain automorphisms), the
+    chain's moduli."""
     return dict(kind="mod_mac", a=_layout(a), b=[_layout(x) for x in b],
-                acc=[_layout(x) for x in acc],
-                perm=None if perm is None else int(perm.shape[0]),
+                acc=[_layout(x) for x in acc], perm=perm,
                 mods=tuple(chain.moduli))
 
 
 def bconv_spec(y, c, chain) -> dict:
-    """A K7 launch as a case: y's layout, the table's layout and the table
-    itself (read to the host by `shape_cases`, after the run), the
-    targets' moduli."""
-    return dict(kind="fast_bconv", y=_layout(y), c=_layout(c), table=c,
+    """A K7 launch as a case: y's layout, the layout of the prepared table
+    the kernel reads (its Montgomery form), the table's values (read to
+    the host by `shape_cases`, after the run), the targets' moduli."""
+    from cryptonets_tpu_torch.kernels.bconv import BconvTable
+
+    t = c if isinstance(c, BconvTable) else BconvTable.prepare(c, chain.moduli)
+    return dict(kind="fast_bconv", y=_layout(y), c=_layout(t.mont), table=t.c,
                 mods=tuple(chain.moduli))
+
+
+LARGE_OUTPUTS = 1 << 20   # a launch of a million outputs or more
+
+
+def ratio_summary(entries) -> dict:
+    """Device ms over bound ms of K6 or K7 launch cases: the median and the
+    maximum over the large ones (LARGE_OUTPUTS or more) and over the rest,
+    K6's gathered cases apart."""
+    groups = {}
+    for e in entries:
+        key = ("large" if e["outputs"] >= LARGE_OUTPUTS else "small") + (
+            ", gathered" if e.get("gather") else "")
+        groups.setdefault(key, []).append(e["device_ms"] / e["bound_ms"])
+    return {k: dict(cases=len(v), median=statistics.median(v), max=max(v))
+            for k, v in sorted(groups.items())}
 
 
 def _spec_key(spec) -> tuple:
@@ -934,7 +960,7 @@ def _spec_key(spec) -> tuple:
     and moduli (not a table's values)."""
     if spec["kind"] == "mod_mac":
         return ("mod_mac", spec["a"], tuple(spec["b"]), tuple(spec["acc"]),
-                spec["perm"], spec["mods"])
+                None if spec["perm"] is None else len(spec["perm"]), spec["mods"])
     return ("fast_bconv", spec["y"], spec["c"], spec["mods"])
 
 
@@ -942,9 +968,10 @@ def fused_case(spec, gen, dev, where: str, plain: bool = False,
                timed: bool = True) -> dict:
     """K6 or K7 at one launch `spec` (`mac_spec`, `bconv_spec`): operands
     laid out as recorded, with edge residues (K7's y over [0, 2**31 - 1),
-    any residue of a 31-bit source), the kernel bit-equal to its twin on
-    the card; then timed (events and profiler device time) beside its
-    bound, and the twin timed when `plain`."""
+    any residue of a 31-bit source; K6's gather the recorded one), the
+    kernel bit-equal to its twin on the card, with its launch plan and
+    kernel instance; then timed (events and profiler device time) beside
+    its bound, and the twin timed when `plain`."""
     from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
     from cryptonets_tpu_torch.kernels import bconv as K7
     from cryptonets_tpu_torch.kernels import modmac as K6
@@ -956,30 +983,32 @@ def fused_case(spec, gen, dev, where: str, plain: bool = False,
         b = tuple(_strided(x, mods, gen, dev) for x in spec["b"])
         acc = tuple(None if x is None else _strided(x, mods, gen, dev)
                     for x in spec["acc"])
-        N = a.shape[-1]
-        perm = None if spec["perm"] is None else torch.stack([
-            torch.randperm(N, generator=gen, device=dev)
-            for _ in range(spec["perm"])])
+        perm = None if spec["perm"] is None else torch.as_tensor(spec["perm"]).to(dev)
         args = (a, b, chain, acc, perm)
         kernel, twin = K6._launch, K6.mod_mac_plain
         Z, C = b[0].shape[0], len(b)
-        J, R1, RA, RB, L, _ = a.shape
+        J, R1, RA, RB, L, N = a.shape
         outputs = Z * R1 * RA * RB * C * L * N
         nbytes = 4 * (_distinct(spec["a"]) + sum(map(_distinct, spec["b"]))
                       + sum(map(_distinct, spec["acc"])) + outputs + 4 * L)
-        nbytes += 0 if perm is None else 8 * perm.numel()
+        nbytes += 0 if perm is None else 4 * perm.numel()   # an int32 index
         bound = fused_bound(nbytes, outputs * J, outputs)
+        pl = K6.plan_of(a, b, acc, None if perm is None else perm.to(torch.int32))
+        instance = K6.kernel_info(C, pl["RT"], pl["V"])
     else:
         Lf = spec["y"][0][-2]
         y = _strided(spec["y"], [2**31 - 1] * Lf, gen, dev)
-        c = _strided(spec["c"], None, gen, dev,
-                     values=torch.as_tensor(spec["table"]).to(dev))
+        vals = torch.as_tensor(spec["table"]).to(dev)
+        mont = K7.BconvTable.prepare(vals, mods).mont
+        c = K7.BconvTable(vals, _strided(spec["c"], None, gen, dev, values=mont))
         args = (y, c, chain)
         kernel, twin = K7._launch, K7.fast_bconv_plain
         RA, RB, _, N = y.shape
         outputs = RA * RB * len(mods) * N
-        nbytes = 4 * (_distinct(spec["y"]) + outputs + 4 * len(mods)) + 8 * c.numel()
+        nbytes = 4 * (_distinct(spec["y"]) + outputs + 4 * len(mods) + mont.numel())
         bound = fused_bound(nbytes, outputs * Lf, outputs)
+        pl = K7.plan_of(y, c)
+        instance = K7.kernel_info(Lf, pl["V"])
     out, ref = kernel(*args), twin(*args)
     torch.cuda.synchronize()
     err = int((out.long() - ref.long()).abs().max())
@@ -989,7 +1018,10 @@ def fused_case(spec, gen, dev, where: str, plain: bool = False,
                          f"{spec}: max error {err}")
     e = dict(where=where, shape=[list(x) for x in (
         [spec["a"][0]] + [x[0] for x in spec["b"]] if spec["kind"] == "mod_mac"
-        else [spec["y"][0], spec["c"][0]])], max_abs_err=err, **bound)
+        else [spec["y"][0], spec["c"][0]])], max_abs_err=err, outputs=outputs,
+        plan={k: pl[k] for k in ("V", "RT", "chunk", "grid") if k in pl},
+        instance={k: instance[k] for k in ("registers", "local_bytes", "blocks_per_sm")},
+        **bound)
     if spec["kind"] == "mod_mac":
         e.update(gather=spec["perm"] is not None,
                  acc=sum(x is not None for x in spec["acc"]))
@@ -997,9 +1029,39 @@ def fused_case(spec, gen, dev, where: str, plain: bool = False,
         e["ms"] = event_ms(lambda: kernel(*args), launches=FUSED_LAUNCHES, repeats=3)
         e["device_ms"] = device_ms(lambda: kernel(*args), f"{spec['kind']}_kernel",
                                    launches=FUSED_LAUNCHES)
+        e["ratio"] = e["device_ms"] / e["bound_ms"]
     if plain:
         e["plain_ms"] = event_ms(lambda: twin(*args), launches=2, repeats=3, warmup=1)
     return e
+
+
+def fused_host_ms(dev, lola, table, calls: int = 400) -> dict:
+    """Host ms of one K6 and one K7 launch (the wrapper's checks, launch
+    plan and ctypes call), from the host clock over `calls` back-to-back
+    calls at n = 4096, as `launcher_host_ms` times K3: K6 a key switch's
+    two keys on one limb, K7 LoLa's q -> Bsk on its own table `table`
+    (device work far shorter than the host's)."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import bconv as K7
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    n = 4096
+    chain = get_mod_chain(lola.q_list[:1], dev)
+    a = torch.zeros((1, 1, 1, 1, n), dtype=torch.int32, device=dev)
+    keys = (a.clone(), a.clone())
+    y = torch.zeros((1, len(lola.q_list), n), dtype=torch.int32, device=dev)
+    out = {}
+    for name, call in (("mod_mac", lambda: K6.mod_mac(a, keys, chain)),
+                       ("fast_bconv", lambda: K7.fast_bconv(y, table, lola.chain_bsk))):
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        out[name] = 1e3 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+    return out
 
 
 def fused_phase(dev) -> list[dict]:
@@ -1007,7 +1069,8 @@ def fused_phase(dev) -> list[dict]:
     call sites take, at the main paths' shapes, with edge residues, each
     timed beside its bound and the twin's time (every shape a path
     launches them at is checked after the paths, `launch_shape_phase`)."""
-    from cryptonets_tpu_torch.crypto.bfv import BFVParams, get_mod_chain
+    from cryptonets_tpu_torch.crypto.bfv import BFV, BFVParams, get_mod_chain
+    from cryptonets_tpu_torch.crypto.ntt import ntt_automorphism_perm
     from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
     from cryptonets_tpu_torch.models.presets import CONFIGS
 
@@ -1022,8 +1085,12 @@ def fused_phase(dev) -> list[dict]:
 
     mac = []
     # LoLa's hoisted babies: dhat [J = 7 groups, P = 4, F = 1, k = 7, N],
-    # the keys of 63 babies, c0_hat's gathered accumulator
+    # the keys of 63 babies, c0_hat's gathered accumulator, the gathers of
+    # babies 1..16 as `stacked_baby_rotations` builds them
     J, P, k, N = 7, 4, 7, 8192
+    perms = torch.from_numpy(np.stack([
+        ntt_automorphism_perm(N, BFV(lola).galois_elt_rows(b))
+        for b in range(1, 17)])).to(dev)
     a = z(J, P, 1, k, N).reshape(J, 1, P, k, N).unsqueeze(2)
     keys = z(63, J, k, N)
     c0 = z(P, 1, k, N).reshape(1, 1, P, k, N)
@@ -1031,7 +1098,7 @@ def fused_phase(dev) -> list[dict]:
                      (16, "LoLa hoisted babies (a chunk of 16)")):
         mac.append((where, mac_spec(
             a, [keys[:B, :, None]] * 2,
-            [c0.expand(B, -1, -1, -1, -1).unsqueeze(2), None], z(B, N).long(),
+            [c0.expand(B, -1, -1, -1, -1).unsqueeze(2), None], perms[:B],
             lola.chain_q)))
     # LoLa's relinearisation: the stacked groups, both keys, no gather
     mac.append(("LoLa key switch (stacked, J = 7)", mac_spec(
@@ -1057,13 +1124,15 @@ def fused_phase(dev) -> list[dict]:
         aq[:1], [kq[:, :1]] * 2, [acc, acc], None, large.chain_qp)))
     bconv = [
         ("LoLa square: q -> Bsk", bconv_spec(
-            z(1, 2, 7, N), lola.punct_q_to_bsk, lola.chain_bsk)),
-        ("LoLa square: Bsk -> q (B -> q)", bconv_spec(
-            z(1, 2, len(lola.B_list), N), lola.punct_B_to_q, lola.chain_q)),
+            z(1, 2, 7, N), lola.bconv["q_to_bsk"], lola.chain_bsk)),
+        ("LoLa square: B -> (q, m_sk), Shenoy-Kumaresan in one launch", bconv_spec(
+            z(1, 2, len(lola.B_list), N), lola.bconv["B_to_q_msk"], lola.chain_q_msk)),
         ("LoLaLarge ladder: group extension (alpha = 3 -> Q*P)", bconv_spec(
-            z(1, R, 11, N16)[:, :, 3:6], large.ks_grp_conv[3:6], large.chain_qp)),
+            z(1, R, 11, N16)[:, :, 3:6], large.bconv["groups"][1], large.chain_qp)),
         ("LoLaLarge mod-down: sp -> q", bconv_spec(
-            z(1, R * 2, 3, N16), large.ks_punct_sp_to_q, large.chain_q)),
+            z(1, R * 2, 3, N16), large.bconv["sp_to_q"], large.chain_q)),
+        ("lola_large_bigt mod-down: sp -> q (246 rows)", bconv_spec(
+            z(1, 246, 3, N16), large.bconv["sp_to_q"], large.chain_q)),
     ]
     entries = {}
     for name, cases in (("mod_mac", mac), ("fast_bconv", bconv)):
@@ -1073,11 +1142,15 @@ def fused_phase(dev) -> list[dict]:
             log(f"{name} {e['where']} {e['shape']}: bit-equal to twin, edges "
                 f"too; events {e['ms']:.4f} / device {e['device_ms']:.4f} / "
                 f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
-                f"({e['bytes'] / 1e6:.2f} MB) / plain {e['plain_ms']:.3f} ms")
+                f"({e['bytes'] / 1e6:.2f} MB; {e['ratio']:.2f}x) / plain "
+                f"{e['plain_ms']:.3f} ms; plan {e['plan']}, instance {e['instance']}")
     # the kernels line's shape: the main path's (LoLa's chunk of babies,
     # LoLa's square)
     main = {"mod_mac": entries["mod_mac"][1], "fast_bconv": entries["fast_bconv"][0]}
-    keep = ("where", "shape", "ms", "device_ms", "bound_ms", "bound_by", "plain_ms")
+    host = fused_host_ms(dev, lola, lola.bconv["q_to_bsk"])
+    log(f"host ms a launch: K6 {host['mod_mac']:.4f}, K7 {host['fast_bconv']:.4f}")
+    keep = ("where", "shape", "ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+            "plan", "instance")
     return [
         dict(name=name, route="cuda",
              source=f"cryptonets_tpu_torch/kernels/{src}", replaces=replaces,
@@ -1087,7 +1160,7 @@ def fused_phase(dev) -> list[dict]:
              **{k: main[name][k] for k in ("bound_ms", "bound_by", "bytes_bound_ms",
                                            "int32_ops_ms")},
              # no PyTorch call computes a modular sum of products
-             library_ms=None, shape=main[name]["shape"],
+             library_ms=None, shape=main[name]["shape"], launcher_host_ms=host[name],
              by_shape=[{k: e[k] for k in keep} for e in entries[name]])
         for name, src, replaces in (
             ("mod_mac", "modmac.cu", "cryptonets_tpu/crypto/bfv.py:1118"),
@@ -1469,9 +1542,9 @@ def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
         cases.append(dict(kind="contract", where=where, shape=shape, mods=mods,
                           reduced=reduced))
     for spec in rec.fused.values():
-        table = spec.get("table")
-        cases.append(dict(spec, where=where, **(
-            {} if table is None else {"table": table.cpu().numpy()})))
+        cases.append(dict(spec, where=where, **{
+            k: spec[k].cpu().numpy() for k in ("table", "perm")
+            if spec.get(k) is not None}))
     return cases
 
 
@@ -1575,7 +1648,8 @@ def launch_shapes_main() -> int:
         if c["kind"] in FUSED_KERNELS:
             e = fused_case(c, gen, dev, where)
             err[c["kind"]] = max(err[c["kind"]], e["max_abs_err"])
-            shapes[c["kind"]].append({k: e[k] for k in ("where", "shape") + keep})
+            shapes[c["kind"]].append({k: e[k] for k in ("where", "shape", "outputs")
+                                      + keep + ("gather", "plan", "instance") if k in e})
             continue
         shape = c["shape"]
         if c["kind"] == "ntt":
@@ -2244,7 +2318,9 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
             f"forward {lr['collectives_per_record']}"
             + (f" (one a cross-limb operation for the batch of {LIMB_RECORDS})"
                if batched else "")
-            + f"; launches per rank {lr['launches']}; card {card_line()}")
+            + f"; launches per rank {lr['launches']} (K6 / K7 "
+            f"{[(v['mod_mac'], v['fast_bconv']) for v in lr['launches']]}); "
+            f"card {card_line()}")
     loop, batch = out["limb_ranks"], out["limb_batch"]
     for k, n in loop["collectives_per_record"].items():
         if batch["collectives_per_record"][k] * LIMB_RECORDS != n:
@@ -2323,6 +2399,8 @@ def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
             f"{stage_bytes} ({out[f'stages_{S}']['stage_galois_keys']} Galois "
             f"keys) against the whole set's {whole} "
             f"({len(fac.keys.galois)}); kernel launches {launched}")
+        log(f"pipeline {S} stage(s): K6 / K7 launches {launched['mod_mac']} / "
+            f"{launched['fast_bconv']} over {1 + PIPELINE_RECORDS} records")
     if not all(np.array_equal(a, b) for a, b in
                zip(decoded[1], decoded[PIPELINE_STAGES])):
         raise SystemExit("pipeline: the staged run's decoded outputs differ "
@@ -2907,6 +2985,11 @@ def main() -> int:
         for k in kernels:
             k["launch_shapes"] = by_name[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], err[k["name"]])
+            if k["name"] in FUSED_KERNELS:
+                k["ratios"] = ratio_summary(k["launch_shapes"])
+                log(f"{k['name']} device / bound over the launch shapes: "
+                    + "; ".join(f"{g}: {r['cases']} cases, median {r['median']:.2f}x, "
+                                f"max {r['max']:.2f}x" for g, r in k["ratios"].items()))
         log(f"phase launch shapes: {time.perf_counter() - t0:.1f} s")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s, build included")
     if set(phases) != set(PHASES):

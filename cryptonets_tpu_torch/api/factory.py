@@ -391,9 +391,9 @@ class CrtBfvFactory:
         if cached is not None and cached[0] is self.keys:
             return cached[1]
         gs = [self.bfv[0].galois_elt_rows(b) for b in range(1, g)]
-        perms = torch.from_numpy(
+        perms = torch.from_numpy(                         # int32, as K6 reads it
             np.stack([ntt_automorphism_perm(self.n, ge) for ge in gs])
-        ).long().to(self.device)
+        ).to(self.device)
         k0s = torch.stack([self.keys.galois[ge].k0 for ge in gs])
         k1s = torch.stack([self.keys.galois[ge].k1 for ge in gs])
         self._stack_cache[("bsgs_baby", g)] = (self.keys, (perms, k0s, k1s))

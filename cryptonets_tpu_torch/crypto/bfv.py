@@ -23,7 +23,8 @@ them.  The ciphertext NTTs come from the context `ntt_impl` names
 a key set belongs to the ordering it was made under.  The key switches'
 inner products run through K6 (`kernels/modmac.py` `key_inner_product`)
 and every fast base conversion, the group extension included, through K7
-(`kernels/bconv.py` `fast_bconv`).
+(`kernels/bconv.py` `fast_bconv`) on the tables `BFVParams.bconv`
+prepares once.
 
 The data limbs may be sharded over the ranks of a mesh's `limb` axis
 (`BFVParams.narrow` with a `parallel/limbs.LimbShard`, `KeySet.narrow`):
@@ -46,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.bconv import fast_bconv
+from ..kernels.bconv import BconvTable, fast_bconv
 from ..kernels.modmac import key_inner_product
 from . import sampling
 from .hostmath import CRT, modinv
@@ -259,6 +260,33 @@ class BFVParams:
             self._init_digit_switching()
         if self.n_special:
             self._init_mod_down()
+        self.bconv = self._bconv_tables()
+
+    def _bconv_tables(self) -> dict:
+        """The fast base conversions' tables prepared once for K7
+        (`BconvTable`), over the limbs these tables cover, by name: q ->
+        Bsk; Shenoy-Kumaresan's B -> q and B -> m_sk as one table into
+        `chain_q_msk` (the q limbs, then m_sk: one launch); the decrypts'
+        q -> (t, gamma), q -> (m2, gamma) and q -> m2; each group's
+        extension q -> Q*P (`groups`, by group); the mod-down sp -> q."""
+        prep = BconvTable.prepare
+        self.chain_q_msk = get_mod_chain(tuple(self.limb_moduli) + (self.msk,),
+                                         self.device)
+        tables = {
+            "q_to_bsk": prep(self.punct_q_to_bsk, self.bsk_list),
+            "B_to_q_msk": prep(torch.cat([self.punct_B_to_q, self.punct_B_to_msk], 1),
+                               self.chain_q_msk.moduli)}
+        if self.gamma is not None:
+            tables["q_to_tg"] = prep(self.punct_q_to_tg, self.chain_tg.moduli)
+        if self.big_gamma is not None:
+            g2 = prep(self.punct_q_to_g2, self.chain_g2.moduli)
+            tables["q_to_g2"], tables["q_to_m2"] = g2, g2[:, :1]
+        if self.ks_hybrid:
+            grp = prep(self.ks_grp_conv, self.chain_qp.moduli)
+            tables["groups"] = [grp[i0:i1] for i0, i1 in self.ks_groups]
+        if self.n_special:
+            tables["sp_to_q"] = prep(self.ks_punct_sp_to_q, self.chain_q.moduli)
+        return tables
 
     def _init_gamma_decrypt(self, qs, aux):
         """Tables of the BEHZ gamma-correction decrypt (t < 2**31)."""
@@ -400,6 +428,7 @@ class BFVParams:
             p.ks_grp_conv, p.ks_pqt = targets(self.ks_grp_conv), targets(self.ks_pqt)
         else:
             p.ks_digit_w = targets(self.ks_digit_w)
+        p.bconv = p._bconv_tables()
         return p
 
     def _punct_matrix(self, punctured, to_chain: ModChain) -> torch.Tensor:
@@ -750,7 +779,7 @@ class BFV:
         xs = mul_const_mod(x, p.gt_mod_q, cq.q)            # |gamma*t*x|_q
         y = mul_const_mod(xs, p.inv_punct_q, cq.q)
         conv = as_res(self._limb_sum(                      # [..., 2, N]
-            fast_bconv(y, p.punct_q_to_tg, ctg), ctg.q))
+            fast_bconv(y, p.bconv["q_to_tg"], ctg), ctg.q))
         s = mul_const_mod(conv, p.neg_qinv_tg, ctg.q)
         s_t, s_g = s[..., 0, :], s[..., 1, :]
         t = p.t
@@ -782,9 +811,9 @@ class BFV:
         yx = mul_const_mod(x, p.inv_punct_q, cq.q)
         # conv_y over {m2, gamma}; conv_x over {m2}
         conv_y = as_res(self._limb_sum(                    # [..., 2, N]
-            fast_bconv(y, p.punct_q_to_g2, p.chain_g2), p.chain_g2.q))
+            fast_bconv(y, p.bconv["q_to_g2"], p.chain_g2), p.chain_g2.q))
         conv_x_m2 = as_res(self._limb_sum(fast_bconv(
-            yx, p.punct_q_to_g2[:, :1], p.big_m2_chain), m2))[..., 0, :]
+            yx, p.bconv["q_to_m2"], p.big_m2_chain), m2))[..., 0, :]
         # gamma plane: s_g = V mod gamma, V = Z - e  (g t x = 0 mod g)
         s_g = mul_const_mod(conv_y[..., 1, :], p.big_neg_qinv_g, g)
         # V' mod m2 = (g t conv_x - conv_y) * q^-1
@@ -896,7 +925,7 @@ class BFV:
         mt = p.m_tilde
         xt = mul_const_mod(x_q, p.mtilde_mod_q, cq.q)      # |m_tilde x|_q
         y = mul_const_mod(xt, p.inv_punct_q, cq.q)
-        conv = as_res(self._limb_sum(fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
+        conv = as_res(self._limb_sum(fast_bconv(y, p.bconv["q_to_bsk"], cb), cb.q))
         # residue mod m_tilde: the low 16 bits of the wrap-around sum
         conv_mt = self._limb_sum(
             ((wide(y)[..., :, None, :] * p.punct_q_to_mtilde) % mt).sum(dim=-3) % mt, mt)
@@ -930,16 +959,17 @@ class BFV:
         tc_q = mul_const_mod(c_q, p.t_mod_q, cq.q)
         tc_bsk = mul_const_mod(c_bsk, p.t_mod_bsk, cb.q)
         y = mul_const_mod(tc_q, p.inv_punct_q, cq.q)
-        u = as_res(self._limb_sum(fast_bconv(y, p.punct_q_to_bsk, cb), cb.q))
+        u = as_res(self._limb_sum(fast_bconv(y, p.bconv["q_to_bsk"], cb), cb.q))
         fl = mul_const_mod(sub_mod(tc_bsk, u, cb.q), p.qinv_mod_bsk, cb.q)
 
         # Shenoy-Kumaresan back-conversion Bsk -> q (each rank its own q
-        # limbs out of the replicated Bsk)
+        # limbs out of the replicated Bsk): B -> q and B -> m_sk in one
+        # conversion into (q, m_sk)
         nB = len(p.B_list)
         y_B, y_msk = fl[..., :nB, :], fl[..., nB, :]
         z = mul_const_mod(y_B, p.inv_punct_B, p.chain_B.q)
-        conv_q = fast_bconv(z, p.punct_B_to_q, cq)
-        conv_msk = fast_bconv(z, p.punct_B_to_msk, p.msk_chain)
+        conv = fast_bconv(z, p.bconv["B_to_q_msk"], p.chain_q_msk)
+        conv_q, conv_msk = conv[..., :-1, :], conv[..., -1:, :]
         alpha = mul_const_mod(
             sub_mod(conv_msk, y_msk[..., None, :], p.msk_chain.q),
             p.Binv_mod_msk, p.msk_chain.q,
@@ -1031,7 +1061,7 @@ class BFV:
         csp = p.chain_sp
         z = add_mod(t_sp, p.ks_phalf_sp, csp.q)
         y2 = mul_const_mod(z, p.ks_inv_punct_sp, csp.q)
-        conv = fast_bconv(y2, p.ks_punct_sp_to_q, cq)
+        conv = fast_bconv(y2, p.bconv["sp_to_q"], cq)
         num = sub_mod(add_mod(t_q, p.ks_phalf_q, cq.q), conv, cq.q)
         return mul_const_mod(num, p.ks_pinv_q, cq.q)
 
@@ -1040,7 +1070,7 @@ class BFV:
         to the chain Q*P (this rank's limbs of it): [..., kp, N]."""
         p = self.p
         i0, i1 = p.ks_groups[gi]
-        return fast_bconv(y[..., i0:i1, :], p.ks_grp_conv[i0:i1], p.chain_qp)
+        return fast_bconv(y[..., i0:i1, :], p.bconv["groups"][gi], p.chain_qp)
 
     def _group_decompose(self, poly):
         """poly [..., k, N] (every limb) -> per-group base extensions

@@ -6,12 +6,13 @@ and its plain PyTorch twin.
 
 with R = 2**32, `b_c` in Montgomery form, one or two of them (the two keys
 of a switch read `a` once), `src(n)` the identity or a gather `perm[z, n]`
-(an NTT-domain automorphism) and `acc_c` optional.  `mod_mac` is the entry
-point; `key_inner_product` is its form for the key switch.  A tensor on
-the CPU goes to the twin (`mod_sum(mont_mul(...))` with the gathers and
-`add_mod`); a CUDA tensor goes to the kernel, built from `modmac.cu` at
-first use (`kernels/build.py`).  A build or launch failure raises: nothing
-falls back to the twin.  `LAUNCHES` counts kernel launches.  Operands are
+(an NTT-domain automorphism, int32; an int64 one is narrowed) and `acc_c`
+optional.  `mod_mac` is the entry point; `key_inner_product` is its form
+for the key switch.  A tensor on the CPU goes to the twin
+(`mod_sum(mont_mul(...))` with the gathers and `add_mod`); a CUDA tensor
+goes to the kernel, built from `modmac.cu` at first use
+(`kernels/build.py`).  A build or launch failure raises: nothing falls
+back to the twin.  `LAUNCHES` counts kernel launches.  Operands are
 read through their strides (the last one 1), so a caller passes views: the
 stacked axis where it lies, keys broadcast by `expand`.  A tensor inside
 `torch.func.vmap` goes through the operator `cryptonets_torch::mod_mac`,
@@ -19,7 +20,8 @@ whose vmap rule folds the record axis of `a` and `acc` into the rows (no
 copy); batched keys or gathers are refused.
 
 Replaces the XLA fusions of the key-switch inner product and the BSGS
-multiply-accumulates; see `modmac.cu` for the design.  No PyTorch call
+multiply-accumulates; see `modmac.cu` for the design and `plan` for the
+launch: coefficients and rows a thread, the grid.  No PyTorch call
 computes a modular sum of products (`torch.einsum` on int64 would pass
 2**63 and has no modulus), so there is no library counterpart.
 """
@@ -28,6 +30,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import operator
+from types import MappingProxyType
 from typing import Optional
 
 import torch
@@ -50,6 +54,7 @@ def mod_mac_plain(a, b, chain, acc, perm) -> torch.Tensor:
     if perm is None:
         ag = a[None]                                      # [1, J, R1, RA, RB, L, N]
     else:
+        perm = perm.long()
         ag = a[..., perm].movedim(-2, 0)                  # [Z, J, R1, RA, RB, L, N]
     outs = []
     for c, bc in enumerate(b):
@@ -73,21 +78,88 @@ def build() -> ctypes.CDLL:
     lib.mod_mac.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.mod_mac.restype = ctypes.c_int
     lib.mod_mac_param_count.restype = ctypes.c_int
+    lib.mod_mac_threads.restype = ctypes.c_int
+    lib.mod_mac_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mod_mac_kernel_info.restype = ctypes.c_int
     lib.mod_mac_error_string.argtypes = [ctypes.c_int]
     lib.mod_mac_error_string.restype = ctypes.c_char_p
-    if lib.mod_mac_param_count() != _PARAMS:
+    if (lib.mod_mac_param_count(), lib.mod_mac_threads()) != (_PARAMS, THREADS):
         raise RuntimeError("modmac.cu's parameter block does not match modmac.py")
     return lib
 
 
-_PARAMS = 40
+_PARAMS = 50
+THREADS = 128            # a block (`kThreads`)
+ROWS_MAX = {1: 4, 2: 2}  # rows a thread by outputs (`modmac.cu`'s instances)
+MIN_THREADS = 1 << 15    # fewer rows a thread, then fewer coefficients, below this
+GRID_YZ = 65535          # the most blocks along grid y and z
+
+
+@functools.lru_cache(maxsize=None)
+def fast_div(d: int) -> tuple[int, int]:
+    """(mul, shift) with x // d == (umulhi(x, mul) + x) >> shift for every
+    0 <= x < 2**31 (`modmac.cu` `fdiv`)."""
+    shift = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - d) // d + 1, shift)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(Z, R1, RA, RB, L, N, C, vector: bool) -> MappingProxyType:
+    """The launch of one call: V coefficients (4 where every 16-byte
+    access is aligned, `vector`, else 1) and RT rows rb a thread, THREADS
+    threads a block, and the grid x = rbt + RBT ((l << log_tiles) |
+    tile), y = z R1 + r1, z = ra, with RBT = ceil(RB / RT) row tiles and
+    2**log_tiles coefficient tiles a row.  Where the grid would hold fewer
+    than MIN_THREADS threads, RT and then V shrink (a small launch is
+    launch latency either way)."""
+    V = 4 if vector and N % 4 == 0 else 1
+    RT = min(ROWS_MAX[C], 1 << (RB - 1).bit_length())
+    while True:
+        tiles = max(1, N // (V * THREADS))
+        RBT = -(-RB // RT)
+        grid = (RBT * L * tiles, Z * R1, RA)
+        if grid[0] * grid[1] * grid[2] * THREADS >= MIN_THREADS or (RT == 1 and V == 1):
+            break
+        if RT > 1:
+            RT //= 2
+        else:
+            V = 1
+    if grid[1] > GRID_YZ or grid[2] > GRID_YZ or grid[0] >= 1 << 31:
+        raise ValueError(f"mod_mac: too many rows for one launch: grid {grid}")
+    return MappingProxyType(dict(V=V, RT=RT, RBT=RBT, log_tiles=tiles.bit_length() - 1,
+                                 grid=grid))
+
+
+def _aligned(ptrs, strides) -> bool:
+    """16-byte accesses of 4 elements fall on 16-byte boundaries: every
+    address a multiple of 16 and every stride but the last of 4."""
+    return (functools.reduce(operator.or_, ptrs, 0) & 15
+            | functools.reduce(operator.or_, strides, 0) & 3) == 0
+
+
+KERNEL_INFO_KEYS = ("registers", "local_bytes", "threads", "shared_bytes",
+                    "blocks_per_sm")
+
+
+def kernel_info(C: int, RT: int, V: int) -> dict:
+    """What the compiler and the current card made of the instance with C
+    outputs, RT rows and V coefficients a thread: registers and local
+    (spilled) bytes a thread, threads and static shared bytes of a block,
+    resident blocks an SM."""
+    lib = build()
+    out = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = lib.mod_mac_kernel_info(C, RT, V, out)
+    if err != 0:
+        raise RuntimeError(f"mod_mac_kernel_info failed: "
+                           f"{lib.mod_mac_error_string(err).decode()}")
+    return dict(zip(KERNEL_INFO_KEYS, out))
 
 
 # ----------------------------------------------------------------- launch
 def check(a, b, chain, acc, perm) -> None:
     """Raise unless the operands fit the kernel's form (see
     `mod_mac_plain`): int32 residues, the last stride 1, N a power of two,
-    one chain table row a limb, perm int64 [Z, N] contiguous."""
+    one chain table row a limb, perm int32 or int64 [Z, N] contiguous."""
     if a.dim() != 6 or not 1 <= len(b) <= 2 or len(acc) != len(b):
         raise ValueError(f"mod_mac needs a [J, R1, RA, RB, L, N] and one or "
                          f"two keys: {tuple(a.shape)}, {len(b)} keys")
@@ -108,12 +180,33 @@ def check(a, b, chain, acc, perm) -> None:
         if c is not None and tuple(c.shape) != (Z, R1, RA, RB, L, N):
             raise ValueError(f"accumulator {tuple(c.shape)} does not fit "
                              f"a {tuple(a.shape)}")
-    if perm is not None and (perm.dtype != torch.int64 or not perm.is_contiguous()
+    if perm is not None and (perm.dtype not in (torch.int32, torch.int64)
+                             or not perm.is_contiguous()
                              or tuple(perm.shape) != (Z, N)
                              or perm.device != a.device):
-        raise ValueError(f"mod_mac's gather must be int64 [{Z}, {N}]")
-    if Z * R1 * RA * RB * L >= 1 << 31:
-        raise ValueError("mod_mac: too many rows for one launch")
+        raise ValueError(f"mod_mac's gather must be int32 or int64 [{Z}, {N}]")
+
+
+def _operands(a, b, acc, perm):
+    """The addresses and the strides but the last of a, the two keys and
+    the two accumulators (0 and zeros for an absent one), and the plan
+    (`plan`) with 16-byte accesses where the keys, the gather and, without
+    a gather, a and acc allow."""
+    J, R1, RA, RB, L, N = a.shape
+    C = len(b)
+    ops = (a, *b, *(None,) * (2 - C), *acc, *(None,) * (2 - C))
+    ptrs = [0 if x is None else x.data_ptr() for x in ops]
+    sts = [(0,) * (5 if i in (0, 3, 4) else 4) if x is None else x.stride()[:-1]
+           for i, x in enumerate(ops)]
+    vec = [1, 2] if perm is not None else [0, 1, 2, 3, 4]
+    vector = _aligned([ptrs[i] for i in vec] + ([perm.data_ptr()] if perm is not None else []),
+                      [s for i in vec for s in sts[i]] + ([N] if perm is not None else []))
+    return ptrs, sts, plan(b[0].shape[0], R1, RA, RB, L, N, C, vector)
+
+
+def plan_of(a, b, acc, perm) -> MappingProxyType:
+    """`plan` for these operands (the kernel's form, an int32 gather)."""
+    return _operands(a, b, acc, perm)[2]
 
 
 def _launch(a, b, chain, acc, perm) -> torch.Tensor:
@@ -123,23 +216,14 @@ def _launch(a, b, chain, acc, perm) -> torch.Tensor:
     out = torch.empty((Z, R1, RA, RB, C, L, N), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    bs = list(b) + [None] * (2 - C)
-    accs = list(acc) + [None] * (2 - C)
-
-    def ptr(x):
-        return 0 if x is None else x.data_ptr()
-
-    def strides(x, dims):
-        return [0] * len(dims) if x is None else [x.stride(d) for d in dims]
-
-    v = [a.device.index, a.data_ptr(), ptr(bs[0]), ptr(bs[1]), ptr(accs[0]),
-         ptr(accs[1]), ptr(perm), out.data_ptr(), chain.mont.data_ptr(),
-         Z, R1, RA, RB, J, L, N.bit_length() - 1, C,
-         *strides(a, (0, 1, 2, 3, 4))]
-    for x in bs:
-        v += strides(x, (0, 1, 2, 3))
-    for x in accs:
-        v += strides(x, (0, 1, 2, 3, 4))
+    if perm is not None and perm.dtype != torch.int32:
+        perm = perm.to(torch.int32)
+    ptrs, sts, pl = _operands(a, b, acc, perm)
+    v = [a.device.index, *ptrs[:3], *ptrs[3:], 0 if perm is None else perm.data_ptr(),
+         out.data_ptr(), chain.mont.data_ptr(),
+         R1, RA, RB, J, L, N.bit_length() - 1, C,
+         pl["V"], pl["RT"], pl["log_tiles"], pl["RBT"], *fast_div(pl["RBT"]),
+         *fast_div(R1), *pl["grid"], *sts[0], *sts[1], *sts[2], *sts[3], *sts[4]]
     lib = build()
     err = lib.mod_mac((ctypes.c_longlong * _PARAMS)(*v),
                       torch._C._cuda_getCurrentRawStream(a.device.index))
@@ -204,7 +288,8 @@ def mod_mac(a, b, chain, acc=None, perm=None) -> torch.Tensor:
     acc:   None, or a tuple of one entry a key, each None or int32
            [Z, R1, R2, L, N] added to that output (gathered through perm;
            `expand` to share one over z).
-    perm:  None, or int64 [Z, N]: out[..., n] reads a[..., perm[z, n]].
+    perm:  None, or int32 [Z, N]: out[..., n] reads a[..., perm[z, n]]
+           (int64 is narrowed at each call).
     Returns int32 [Z, R1, R2, C, L, N], C = len(b)."""
     b = tuple(b)
     acc = (None,) * len(b) if acc is None else tuple(acc)

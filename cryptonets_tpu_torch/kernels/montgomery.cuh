@@ -26,11 +26,4 @@ __device__ __forceinline__ uint64_t lazy_add(uint64_t s, uint64_t p,
   return s >= qR ? s - qR : s;
 }
 
-// (a + b) mod q for a, b in [0, q)
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  const uint32_t s = a + b;   // < 2**32
-  return s >= q ? s - q : s;
-}
-
 }  // namespace mont

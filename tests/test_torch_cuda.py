@@ -169,16 +169,32 @@ def _edge_residues(shape, mods, gen):
     return x.to(torch.int32)
 
 
+def _gather(kind, Z, N, gen):
+    """Z gathers of N: NTT-domain automorphisms by 3^b (as the hoisted
+    babies gather, int32) or random permutations (int64)."""
+    from cryptonets_tpu_torch.crypto.ntt import ntt_automorphism_perm
+
+    if kind == "real":
+        return torch.stack([torch.from_numpy(ntt_automorphism_perm(N, pow(3, b, 2 * N)))
+                            for b in range(1, Z + 1)]).to("cuda")
+    return torch.stack([torch.randperm(N, generator=gen, device="cuda") for _ in range(Z)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("J,Z,R1,R2,L,N,gather,acc", [
     (1, 1, 1, 1, 1, 2, False, False), (7, 1, 1, 4, 7, 8192, False, False),
-    (7, 3, 1, 4, 7, 8192, True, True), (30, 1, 3, 2, 2, 1024, False, True),
-    (64, 1, 3, 2, 13, 16384, False, False), (2, 16, 1, 5, 3, 64, True, False),
+    (7, 3, 1, 4, 7, 8192, "random", True), (30, 1, 3, 2, 2, 1024, False, True),
+    (64, 1, 3, 2, 13, 16384, False, False), (2, 16, 1, 5, 3, 64, "random", False),
+    (7, 16, 1, 4, 7, 8192, "real", True), (1, 1, 1, 3, 7, 4096, "real", True),
+    (4, 1, 1, 47, 14, 16384, False, True), (1, 15, 1, 9, 3, 16384, "real", False),
 ])
 def test_cuda_mod_mac_matches_plain(J, Z, R1, R2, L, N, gather, acc):
     """K6 against its twin: one and two keys, strided views (a transposed
-    stacked axis, keys broadcast by stride 0), the gather and the
-    accumulator, moduli from 17 to 31 bits, edge residues."""
+    stacked axis, keys broadcast by stride 0), the gather (random, int64,
+    or the NTT-domain automorphisms the path gathers by, int32) and the
+    accumulator, moduli from 17 to 31 bits, edge residues; the edge
+    shapes of the launch plan (N = 4096 and 16384, J = 1, Z = 1, odd row
+    counts that leave a row tile part full)."""
     from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
     from cryptonets_tpu_torch.kernels import modmac as K6
 
@@ -192,8 +208,7 @@ def test_cuda_mod_mac_matches_plain(J, Z, R1, R2, L, N, gather, acc):
                  for _ in range(2))
     accs = tuple(_edge_residues((Z, R1, R2, L, N), mods, gen) if acc else None
                  for _ in range(2))
-    perm = (torch.stack([torch.randperm(N, generator=gen, device="cuda")
-                         for _ in range(Z)]) if gather else None)
+    perm = _gather(gather, Z, N, gen) if gather else None
     for C in (1, 2):
         a6 = a.unsqueeze(2)
         acc6 = tuple(None if x is None else x.unsqueeze(2) for x in accs[:C])
@@ -207,17 +222,21 @@ def test_cuda_mod_mac_matches_plain(J, Z, R1, R2, L, N, gather, acc):
 @pytest.mark.cuda
 @pytest.mark.parametrize("RB,Lf,Lt,N", [(1, 1, 1, 2), (2, 7, 9, 8192),
                                         (48, 3, 14, 16384), (5, 14, 2, 64),
-                                        (3, 32, 32, 1024)])
+                                        (3, 32, 32, 1024), (3, 1, 1024, 4096),
+                                        (7, 13, 2, 16384), (246, 3, 11, 16384)])
 def test_cuda_fast_bconv_matches_plain(RB, Lf, Lt, N):
     """K7 against its twin: y over [0, 2**31 - 1) with its edges, a slice of
-    the source limbs read in place, a table sliced on its target axis,
-    targets from 17 to 31 bits."""
+    the source limbs read in place, a table sliced on its target axis, as
+    given and prepared (`BconvTable`), targets from 17 to 31 bits; the
+    plan's edges (Lf above the 16 held in registers, 1024 targets in
+    chunks, one target, N = 4096 and 16384, 246 rows)."""
     from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
     from cryptonets_tpu_torch.kernels import bconv as K7
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
-    mods = ntt_primes(64, 31, Lt - Lt // 2) + ntt_primes(64, 17, Lt // 2)
+    small = min(Lt // 2, 8)
+    mods = ntt_primes(64, 31, Lt - small) + ntt_primes(64, 17, small)
     chain = get_mod_chain(mods, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(Lf * Lt)
     y = _edge_residues((RB, Lf + 2, N), [2**31 - 1] * (Lf + 2), gen)[:, 1:Lf + 1]
@@ -226,7 +245,80 @@ def test_cuda_fast_bconv_matches_plain(RB, Lf, Lt, N):
     raw[:, 1:] %= q.view(1, -1, 1)
     table = raw[:, 1:]                    # a slice on the target axis
     table[0] = (q - 1).view(-1, 1)
-    before = K7.LAUNCHES["fast_bconv"]
-    out = K7.fast_bconv(y, table, chain)
-    assert K7.LAUNCHES["fast_bconv"] == before + 1
-    assert torch.equal(out, K7.fast_bconv_plain(y, table, chain))
+    for c in (table, K7.BconvTable.prepare(table, mods)):
+        before = K7.LAUNCHES["fast_bconv"]
+        out = K7.fast_bconv(y, c, chain)
+        assert K7.LAUNCHES["fast_bconv"] == before + 1
+        assert torch.equal(out, K7.fast_bconv_plain(y, table, chain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mod_mac", "fast_bconv"])
+def test_cuda_fused_kernels_at_the_largest_values(kind):
+    """K6 and K7 where every lazy sum is largest: K6 with every residue,
+    key and accumulator at q - 1 over J = 64 terms, gathered and not; K7
+    with y at 2**31 - 1 and every table entry at m - 1, the prepared
+    table; each against its twin."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import bconv as K7
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    mods = ntt_primes(4096, 31, 3) + ntt_primes(4096, 17, 1)
+    chain = get_mod_chain(mods, "cuda")
+    q = torch.tensor(mods, dtype=torch.int32, device="cuda").view(-1, 1)
+    if kind == "mod_mac":
+        J, R, N = 64, 5, 4096
+        row = (q - 1).expand(len(mods), N).contiguous()
+        a = row.expand(J, 1, R, len(mods), N).contiguous()
+        keys = (row.expand(1, J, 1, len(mods), N),) * 2         # stride 0 over J
+        acc = (row.expand(1, 1, R, len(mods), N),) * 2
+        for perm in (None, _gather("real", 1, N, None)):
+            out = K6.mod_mac(a, keys, chain, acc, perm)
+            ref = K6.mod_mac_plain(a.unsqueeze(2), keys, chain,
+                                   tuple(x.unsqueeze(2) for x in acc), perm).squeeze(2)
+            assert torch.equal(out, ref)
+    else:
+        Lf, N = 16, 4096
+        y = torch.full((3, Lf, N), 2**31 - 1, dtype=torch.int32, device="cuda")
+        c = (q.long() - 1).view(1, -1, 1).expand(Lf, -1, 1).contiguous()
+        table = K7.BconvTable.prepare(c, mods)
+        out = K7.fast_bconv(y, table, chain)
+        assert torch.equal(out, K7.fast_bconv_plain(y, c, chain))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernels_under_vmap():
+    """K6 (the gather and an accumulator batched) and K7 (the merged
+    Shenoy-Kumaresan table) under `torch.func.vmap` equal the loop over
+    the records, on the card."""
+    from cryptonets_tpu_torch.crypto.bfv import BFVParams, get_mod_chain
+    from cryptonets_tpu_torch.kernels import bconv as K7
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    N, J, R, B = 8192, 7, 4, 5
+    mods = ntt_primes(N, 31, 7)
+    chain = get_mod_chain(mods, "cuda")
+    A = _edge_residues((B, J, R, 7, N), mods, gen)
+    C = _edge_residues((B, R, 7, N), mods, gen)
+    keys = tuple(_edge_residues((16, J, 1, 7, N), mods, gen) for _ in range(2))
+    perm = _gather("real", 16, N, None)
+
+    def mac(a, c):
+        return K6.mod_mac(a.reshape(J, 1, R, 7, N), keys, chain,
+                          (c[None, None].expand(16, -1, -1, -1, -1), None), perm)
+
+    loop = torch.stack([mac(A[i], C[i]) for i in range(B)])
+    assert torch.equal(torch.func.vmap(mac)(A, C), loop)
+
+    p = BFVParams(N, ntt_primes(N, 20, 1)[0], mods, device="cuda")
+    Y = _edge_residues((B, 2, len(p.B_list), N), list(p.B_list), gen)
+
+    def conv(y):
+        return K7.fast_bconv(y, p.bconv["B_to_q_msk"], p.chain_q_msk)
+
+    assert torch.equal(torch.func.vmap(conv)(Y), torch.stack([conv(y) for y in Y]))

@@ -3,13 +3,16 @@ a stacked axis) and K7 (`kernels/bconv.py` `fast_bconv`, the RNS fast base
 conversion) on the CPU, where each wrapper runs its plain twin, against
 the JAX package's own expressions on the same numpy inputs: K6 in every
 form its call sites use (the stacked key switch for J in {1, 2, 7}, the
-BSGS giant chunk read through strides, the hoisted babies' gather with
-its accumulator, the accumulated loop over the components), K7 against
-the reference's `BFV._fast_bconv` for q -> Bsk, B -> q, B -> m_sk and
-sp -> q and against its group extension at alpha = 3.  The inputs hold
-the edge residues 0 and q - 1 on the largest 31-bit NTT primes.  Both
-operators under `torch.func.vmap` equal the loop over the records, and
-each call site dispatches through the wrappers."""
+BSGS giant chunk read through strides, the hoisted babies' gather, int32
+or int64, with its accumulator, the accumulated loop over the
+components), K7 against the reference's `BFV._fast_bconv` for q -> Bsk,
+B -> q, B -> m_sk, Shenoy-Kumaresan's merged B -> (q, m_sk) and sp -> q,
+the kernel's arithmetic on the prepared Montgomery table too, and
+against its group extension at alpha = 3.  The inputs hold the edge
+residues 0 and q - 1 on the largest 31-bit NTT primes.  Both operators
+under `torch.func.vmap` equal the loop over the records, and each call
+site dispatches through the wrappers.  The wrappers' launch plans cover
+each output once: the kernels' index arithmetic replayed in numpy."""
 
 import numpy as np
 import pytest
@@ -112,10 +115,12 @@ def test_giant_chunk_strided_bit_equal():
     np.testing.assert_array_equal(_np(acc), np.asarray(want))
 
 
-def test_hoisted_babies_gather_bit_equal():
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_hoisted_babies_gather_bit_equal(dtype):
     """The hoisted babies' gather and inner product with c0_hat's gathered
     accumulator, a chunk of B babies in one call, against the reference's
-    scanned `body` (`cryptonets_tpu/api/bsgs.py:219-229`)."""
+    scanned `body` (`cryptonets_tpu/api/bsgs.py:219-229`); the gather as
+    the factory keeps it (int32) and widened (int64)."""
     from cryptonets_tpu.crypto.ntt import ntt_automorphism_perm
 
     rng = np.random.default_rng(7)
@@ -128,7 +133,7 @@ def test_hoisted_babies_gather_bit_equal():
     keys = tuple(_t(k)[:, :, None] for k in (k0s, k1s))
     out = modmac.mod_mac(_t(dhat).reshape(J, 1, P * F, L, N), keys,
                          get_mod_chain(mods, "cpu"), acc,
-                         torch.from_numpy(perms.astype(np.int64)))
+                         torch.from_numpy(perms.astype(dtype)))
     out = out.reshape(B, P, F, 2, L, N)
     cq = JaxChain(mods)
     jd, jc0 = jnp.asarray(dhat), jnp.asarray(c0_hat)
@@ -172,8 +177,9 @@ def test_mod_mac_refusals():
     with pytest.raises(ValueError, match="last stride"):
         wide = torch.zeros((2, 1, 1, 1, 2, 2 * N), dtype=torch.int32)
         modmac.check(wide[..., ::2], (k,), chain, (None,), None)
+    modmac.check(a, (k,), chain, (None,), torch.zeros((1, N), dtype=torch.int32))
     with pytest.raises(ValueError, match="gather must be"):
-        modmac.check(a, (k,), chain, (None,), torch.zeros((1, N), dtype=torch.int32))
+        modmac.check(a, (k,), chain, (None,), torch.zeros((1, N), dtype=torch.int16))
     with pytest.raises(ValueError, match="odd moduli below"):
         get_mod_chain([(1 << 31) + 11], "cpu")
     a = a.squeeze(2)
@@ -192,23 +198,58 @@ def params():
     return jp, tp
 
 
-@pytest.mark.parametrize("conv", ["q_to_bsk", "B_to_q", "B_to_msk", "sp_to_q"])
+def _kernel_arithmetic(y, table, moduli):
+    """`bconv.cu`'s sum on the prepared table, in numpy: the products y_i
+    (c_i R mod m) summed lazily below m 2**32, then one REDC."""
+    mont = table.mont.numpy().view(np.uint32).astype(np.uint64)      # [Lf, Lt]
+    q = np.array(moduli, np.uint64)
+    qinv = np.array([-pow(int(m), -1, 1 << 32) % (1 << 32) for m in moduli], np.uint64)
+    qR = q << np.uint64(32)
+    yv = y.astype(np.uint64)[..., :, None, :]                        # [..., Lf, 1, N]
+    s = np.zeros(yv.shape[:-3] + (len(moduli), y.shape[-1]), np.uint64)
+    for i in range(y.shape[-2]):
+        s = s + yv[..., i, :, :] * mont[i][:, None]
+        s = np.where(s >= qR[:, None], s - qR[:, None], s)
+    m = ((s & np.uint64(0xFFFFFFFF)) * qinv[:, None]) & np.uint64(0xFFFFFFFF)
+    t = (s + m * q[:, None]) >> np.uint64(32)
+    return np.where(t >= q[:, None], t - q[:, None], t).astype(np.uint32)
+
+
+@pytest.mark.parametrize("conv", ["q_to_bsk", "B_to_q", "B_to_msk", "B_to_q_msk",
+                                  "sp_to_q"])
 def test_fast_bconv_bit_equal(params, conv):
     """K7 (`fast_bconv`, which every conversion of `crypto/bfv.py` calls)
     against the reference's `BFV._fast_bconv` on y over the source base,
-    edges included."""
+    edges included, with the bare int64 table and with the prepared one
+    (`BFVParams.bconv`); the kernel's arithmetic on the prepared Montgomery
+    table gives the same residues.  Shenoy-Kumaresan's merged conversion
+    into (q, m_sk), one call, equals the reference's two."""
     jp, tp = params
     src, table, chain = {
         "q_to_bsk": ("q_list", "punct_q_to_bsk", "chain_bsk"),
         "B_to_q": ("B_list", "punct_B_to_q", "chain_q"),
         "B_to_msk": ("B_list", "punct_B_to_msk", "msk_chain"),
+        "B_to_q_msk": ("B_list", None, "chain_q_msk"),
         "sp_to_q": ("sp_list", "ks_punct_sp_to_q", "chain_q"),
     }[conv]
     y = _res(np.random.default_rng(3), (2, 3), getattr(tp, src))
-    out = bconv.fast_bconv(_t(y), getattr(tp, table), getattr(tp, chain))
-    want = JaxBFV(jp)._fast_bconv(jnp.asarray(y), getattr(jp, table), getattr(jp, chain))
-    assert out.shape[-2] == len(getattr(tp, chain))
-    np.testing.assert_array_equal(_np(out), np.asarray(want))
+    jb = JaxBFV(jp)
+    if table is None:
+        want = np.concatenate([
+            np.asarray(jb._fast_bconv(jnp.asarray(y), getattr(jp, t), getattr(jp, c)))
+            for t, c in (("punct_B_to_q", "chain_q"), ("punct_B_to_msk", "msk_chain"))], -2)
+    else:
+        want = np.asarray(jb._fast_bconv(jnp.asarray(y), getattr(jp, table),
+                                         getattr(jp, chain)))
+    prepared = tp.bconv.get(conv) or bconv.BconvTable.prepare(
+        getattr(tp, table), getattr(tp, chain).moduli)
+    tables = (prepared,) if table is None else (getattr(tp, table), prepared)
+    for c in tables:
+        out = bconv.fast_bconv(_t(y), c, getattr(tp, chain))
+        assert out.shape[-2] == len(getattr(tp, chain))
+        np.testing.assert_array_equal(_np(out), want)
+    np.testing.assert_array_equal(
+        _kernel_arithmetic(y, prepared, getattr(tp, chain).moduli), want)
 
 
 def test_group_extend_bit_equal(params):
@@ -334,7 +375,7 @@ def test_sites_dispatch_through_the_wrappers(counted):
         bfv, keys = fac.bfv[0], fac.keys
         ct = fac.get_encrypted_vector(vec).data[0]          # [C, 2, k, N]
         sq, d = _delta(counted, lambda: bfv.multiply(ct, ct))
-        assert d["fast_bconv"] == 5 and d["mod_mac"] == 0, d   # lift x2, floor, SK x2
+        assert d["fast_bconv"] == 4 and d["mod_mac"] == 0, d   # lift x2, floor, SK
         _, d = _delta(counted, lambda: bfv.relinearize(sq, keys))
         k7 = 0 if not bfv.p.ks_hybrid else bfv.p.ks_omega + (bfv.p.n_special > 0)
         assert d == {"mod_mac": 1, "fast_bconv": k7}, d
@@ -372,3 +413,106 @@ def test_sites_dispatch_through_the_wrappers(counted):
                   dim=3, scale=1.0, fmt=SPARSE, is_signed=True)
     _, d = _delta(counted, lambda: plain_cols.mul(sv))
     assert d["mod_mac"] == 1, d
+
+
+# ---------------------------------------------------------- launch plans
+def _fdiv(x, d):
+    """`modmac.cu` `fdiv` by the wrapper's (mul, shift) for d."""
+    mul, shift = modmac.fast_div(d)
+    return (((x * mul) >> 32) + x) >> shift
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 12, 13, 26, 48, 63, 104, 65535])
+def test_fast_div_equals_division(d):
+    """The multiply-high split of block indices equals x // d over the
+    grid's range, and at the top of the 31-bit range."""
+    x = np.concatenate([np.arange(1 << 20, dtype=np.uint64),
+                        (1 << 31) - 1 - np.arange(1 << 12, dtype=np.uint64)])
+    np.testing.assert_array_equal(_fdiv(x, d), x // np.uint64(d))
+
+
+# (Z, R1, RA, RB, L, N, C, vector): the fused phase's K6 launches (LoLa's
+# baby and chunk of 16, its stacked switch, CIFAR's giant chunk,
+# LoLaLarge's stacked and looped groups, cifar_bigt's stacked groups) and
+# the edges: N = 4096 and 2, Z = 1, an odd row count, a record batch,
+# unaligned operands
+MAC_SHAPES = [
+    (1, 1, 1, 4, 7, 8192, 2, True), (16, 1, 1, 4, 7, 8192, 2, True),
+    (1, 1, 1, 4, 7, 8192, 2, True), (1, 3, 1, 2, 13, 16384, 1, True),
+    (1, 1, 1, 48, 14, 16384, 2, True), (1, 1, 1, 48, 14, 16384, 2, True),
+    (1, 1, 1, 104, 14, 16384, 2, True), (15, 1, 1, 3, 3, 4096, 1, True),
+    (1, 1, 1, 1, 1, 2, 1, False), (3, 4, 5, 7, 2, 64, 2, True),
+    (16, 1, 8, 4, 7, 1024, 2, False)]
+
+
+@pytest.mark.parametrize("shape", MAC_SHAPES)
+def test_mod_mac_plan_covers_each_output_once(shape):
+    """`modmac.plan` replayed as `mod_mac_kernel` splits its block and
+    thread indices: every (z, r1, ra, rb, l, n) output is one thread's,
+    once, and a thread's V coefficients and RT rows stay in range."""
+    Z, R1, RA, RB, L, N, C, vector = shape
+    pl = modmac.plan(Z, R1, RA, RB, L, N, C, vector)
+    V, RT, RBT, lt = pl["V"], pl["RT"], pl["RBT"], pl["log_tiles"]
+    assert RT <= modmac.ROWS_MAX[C] and N % V == 0 and RBT == -(-RB // RT)
+    gx, gy, gz = pl["grid"]
+    bx, by, bz, tid = (a.ravel().astype(np.uint64) for a in np.meshgrid(
+        np.arange(gx), np.arange(gy), np.arange(gz), np.arange(modmac.THREADS),
+        indexing="ij"))
+    u = _fdiv(bx, RBT)
+    rbt, tile, l = bx - u * np.uint64(RBT), u & np.uint64((1 << lt) - 1), u >> np.uint64(lt)
+    z = _fdiv(by, R1)
+    r1 = by - z * np.uint64(R1)
+    n = (tile * np.uint64(modmac.THREADS) + tid) * np.uint64(V)
+    live = n < N
+    dims, count = (Z, R1, RA, RB, L, N // V), 0
+    for r in range(RT):
+        rb = rbt * np.uint64(RT) + np.uint64(r)
+        ok = live & (rb < RB)
+        idx = np.ravel_multi_index(tuple(x[ok].astype(np.int64) for x in
+                                         (z, r1, bz, rb, l, n // np.uint64(V))), dims)
+        count = count + np.bincount(idx, minlength=int(np.prod(dims)))
+    assert (count == 1).all()
+
+
+# (RA, RB, Lf, Lt, N, vector): the fused phase's K7 launches (LoLa's q ->
+# Bsk and merged B -> (q, m_sk), LoLaLarge's group extension and
+# mod-down, lola_large_bigt's mod-down), a record batch, and the edges:
+# N = 4096 and 2, one row, Lf = 1, the largest Lt, Lf above the
+# registers' 16, unaligned y
+BCONV_SHAPES = [
+    (1, 2, 7, 9, 8192, True), (1, 2, 8, 8, 8192, True), (1, 48, 3, 14, 16384, True),
+    (1, 96, 3, 11, 16384, True), (1, 246, 3, 11, 16384, True),
+    (16, 2, 7, 9, 8192, True), (1, 1, 1, 1, 2, False), (1, 3, 1, 1024, 4096, True),
+    (1, 5, 32, 32, 1024, True), (2, 7, 14, 2, 4096, False)]
+
+
+@pytest.mark.parametrize("shape", BCONV_SHAPES)
+def test_fast_bconv_plan_covers_each_output_once(shape):
+    """`bconv.plan` replayed as `fast_bconv_kernel` splits its indices:
+    every (ra, rb, l, n) output is one thread's, once; each block stages
+    its chunk's Lf x nt table entries once each, within the shared
+    table."""
+    RA, RB, Lf, Lt, N, vector = shape
+    pl = bconv.plan(RA, RB, Lf, Lt, N, vector)
+    V, lt, chunk, lc = pl["V"], pl["log_tiles"], pl["chunk"], pl["log_chunk_p2"]
+    assert chunk <= bconv.MAX_CHUNK and Lf * chunk <= bconv.MAX_TABLE and N % V == 0
+    gx, gy, gz = pl["grid"]
+    bx, by, bz, tid = (a.ravel() for a in np.meshgrid(
+        np.arange(gx), np.arange(gy), np.arange(gz), np.arange(bconv.THREADS),
+        indexing="ij"))
+    tile, rb = bx & ((1 << lt) - 1), bx >> lt
+    n = (tile * bconv.THREADS + tid) * V
+    live = n < N
+    dims, count = (RA, RB, Lt, N // V), 0
+    for t in range(chunk):
+        tt = bz * chunk + t
+        ok = live & (tt < Lt)
+        idx = np.ravel_multi_index((by[ok], rb[ok], tt[ok], n[ok] // V), dims)
+        count = count + np.bincount(idx, minlength=int(np.prod(dims)))
+    assert (count == 1).all()
+    for z in range(gz):                     # the staging loop of one block
+        nt = min(chunk, Lt - z * chunk)
+        e = np.arange(Lf << lc)
+        i, t = e >> lc, e & ((1 << lc) - 1)
+        slot = (i * nt + t)[t < nt]
+        assert sorted(slot) == list(range(Lf * nt)) and Lf * nt <= bconv.MAX_TABLE
