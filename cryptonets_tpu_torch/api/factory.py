@@ -36,6 +36,7 @@ from ..crypto.hostmath import CRT
 from ..crypto.ntt import get_ntt_context, ntt_automorphism_perm
 from ..crypto.primes import default_coeff_modulus_128
 from ..device import canonical, resolve_device
+from ..utils import trace
 
 # Columns per piece of the device encode + encrypt.  A piece holds a few
 # int64 temporaries of [piece, k, N] per plain prime (59 MB each at 128
@@ -173,6 +174,7 @@ class CrtBfvFactory:
         """[..., n] integer slot values -> index-mapped [P, ..., n] uint32
         buffers for the device-side encode (the only host work of encrypt)."""
         s64 = slotsets_int.astype(np.int64)
+        trace.count("host_encoded_slots", self.P * s64.size)
         bufs = np.empty((self.P,) + s64.shape, np.uint32)
         for pi, t in enumerate(self.plain_primes):
             # buffer[index_map[i]] = slot i, as a gather by the inverse map
@@ -185,62 +187,68 @@ class CrtBfvFactory:
         """Index-mapped slot values [P, C, n] (mod t_p) -> ciphertext data
         [P, C, 2, k, N]: the Z_t inverse NTT on the device, coefficients
         broadcast over the limbs (t < every q_i), then RLWE encryption, in
-        pieces of ENCRYPT_CHUNK columns."""
+        pieces of ENCRYPT_CHUNK columns; the device range `encrypt`."""
         if isinstance(bufs, np.ndarray):
             bufs = torch.from_numpy(
                 np.ascontiguousarray(bufs, np.uint32).view(np.int32))
-        bufs = bufs.to(self.device)
-        k = len(self.limb_moduli)
-        C = bufs.shape[1]
-        coeffs = self._plain_ntt.inverse(bufs.transpose(0, 1))  # [C, P, n]
-        out = torch.empty((self.P, C, 2, k, self.n), dtype=torch.int32,
-                          device=self.device)
-        for c0 in range(0, C, ENCRYPT_CHUNK):
-            piece = coeffs[c0 : c0 + ENCRYPT_CHUNK]
-            for pi in range(self.P):
-                out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
-                    self.keys,
-                    piece[:, pi, None, :].expand(len(piece), k, self.n),
-                    self._gen)
+        with trace.device_range("encrypt", "encrypt"):
+            bufs = bufs.to(self.device)
+            k = len(self.limb_moduli)
+            C = bufs.shape[1]
+            coeffs = self._plain_ntt.inverse(bufs.transpose(0, 1))  # [C, P, n]
+            out = torch.empty((self.P, C, 2, k, self.n), dtype=torch.int32,
+                              device=self.device)
+            for c0 in range(0, C, ENCRYPT_CHUNK):
+                piece = coeffs[c0 : c0 + ENCRYPT_CHUNK]
+                for pi in range(self.P):
+                    out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
+                        self.keys,
+                        piece[:, pi, None, :].expand(len(piece), k, self.n),
+                        self._gen)
         return out
 
     def _encode_slotsets_np(self, slotsets) -> np.ndarray:
         """[C, n] slot values (ints, signed ok) -> coefficient residues
         [P, C, k, N] uint32 on the host: the encoder's NTT over Z_t (the
         C++ 128-bit one for t >= 2**31), then every limb's own residue."""
-        return np.stack([
-            self.params[pi].plain_to_residues(self.encoders[pi].encode(slotsets))
-            for pi in range(self.P)
-        ])
+        trace.count("host_encoded_slots", self.P * np.asarray(slotsets).size)
+        with trace.span("slot_encode"):
+            return np.stack([
+                self.params[pi].plain_to_residues(self.encoders[pi].encode(slotsets))
+                for pi in range(self.P)
+            ])
 
     def _encrypt_all(self, res_all) -> torch.Tensor:
         """Coefficient residues [P, C, k, N] (uint32 numpy or int32
         tensor) -> ciphertext data [P, C, 2, k, N], in pieces of
-        ENCRYPT_CHUNK columns."""
+        ENCRYPT_CHUNK columns; the device range `encrypt`."""
         if isinstance(res_all, np.ndarray):
             res_all = torch.from_numpy(
                 np.ascontiguousarray(res_all, np.uint32).view(np.int32))
-        res_all = res_all.to(self.device)
-        C = res_all.shape[1]
-        out = torch.empty((self.P, C, 2) + tuple(res_all.shape[2:]),
-                          dtype=torch.int32, device=self.device)
-        for c0 in range(0, C, ENCRYPT_CHUNK):
-            for pi in range(self.P):
-                piece = res_all[pi, c0 : c0 + ENCRYPT_CHUNK]
-                out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
-                    self.keys, piece, self._gen)
+        with trace.device_range("encrypt", "encrypt"):
+            res_all = res_all.to(self.device)
+            C = res_all.shape[1]
+            out = torch.empty((self.P, C, 2) + tuple(res_all.shape[2:]),
+                              dtype=torch.int32, device=self.device)
+            for c0 in range(0, C, ENCRYPT_CHUNK):
+                for pi in range(self.P):
+                    piece = res_all[pi, c0 : c0 + ENCRYPT_CHUNK]
+                    out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
+                        self.keys, piece, self._gen)
         return out
 
     def _encrypt_slotsets(self, slotsets) -> torch.Tensor:
         """[C, n] slot values (ints, object ints allowed) -> ciphertext
         data [P, C, 2, k, N]: the device encode where the plain primes
         allow it and the values fit int64, else the host encode and
-        per-limb residues."""
+        per-limb residues.  The host's part is the span `slot_buffers` (the
+        device encode) or `slot_encode`."""
         ss = np.asarray(slotsets)
         if self._device_encode:
             try:
-                return self._encrypt_all_dev(
-                    self.encode_bufs(ss.astype(np.int64, copy=False)))
+                with trace.span("slot_buffers"):
+                    bufs = self.encode_bufs(ss.astype(np.int64, copy=False))
+                return self._encrypt_all_dev(bufs)
             except OverflowError:
                 pass
         return self._encrypt_all(self._encode_slotsets_np(ss))
@@ -291,8 +299,9 @@ class CrtBfvFactory:
         if self._device_decode_big:
             lo, m2 = self._decrypt_big_all(data)
             lo, m2 = lo.cpu().numpy(), m2.cpu().numpy()
-            return np.stack([self._decode_big_slots(lo[pi], m2[pi], pi)
-                             for pi in range(self.P)])
+            with trace.span("slot_decode"):
+                return np.stack([self._decode_big_slots(lo[pi], m2[pi], pi)
+                                 for pi in range(self.P)])
         return np.stack([
             self.encoders[pi].decode(self.bfv[pi].decrypt(self.keys, data[pi]))
             for pi in range(self.P)

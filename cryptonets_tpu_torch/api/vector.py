@@ -17,6 +17,7 @@ import torch
 
 from ..crypto.modular import add_mod, sub_mod
 from ..crypto.noise import invariant_noise_budget
+from ..utils import trace
 from ..utils.opcount import OPS
 
 DENSE = "dense"
@@ -422,12 +423,13 @@ class HEVector:
         slots_all = self._dec_slots
         if slots_all is None:
             slots_all = p.decrypt_slots(self.data)
-        if self.fmt == SPARSE:
-            return p.join_split_numbers([
-                slots_all[pi, :, 0][: self.dim]
-                for pi in range(p.P)
-            ])
-        return p.join_decoded_blocks(slots_all, self.dim)
+        with trace.span("join"):
+            if self.fmt == SPARSE:
+                return p.join_split_numbers([
+                    slots_all[pi, :, 0][: self.dim]
+                    for pi in range(p.P)
+                ])
+            return p.join_decoded_blocks(slots_all, self.dim)
 
     def decrypt(self) -> np.ndarray:
         """Float values (big ints / scale); float64 keeps 53 bits."""

@@ -42,6 +42,17 @@ record counts what an eager record counts, and the warm-up and capture
 count nothing.  Under vmap the layers count once for the B records; the
 batch adds the other B - 1 records' operation counts, while `LAUNCHES`
 keep the launches that ran (one for the B records).
+
+Tracing (`utils/trace.py`): a record is the span `record` (its sequence
+number an argument), and inside it the spans `reader`, `slot_buffers`
+(or `slot_encode` where the host encodes), `upload`, `replay`, `output`
+and, in the vector's decrypt, `join`.  Encrypt, every layer of a kind
+(`Layer.kind`) and decrypt with decode are device ranges, named
+`encrypt`, `<position>.<class>`, `decrypt`: inside a graph's capture
+their events become nodes of the graph, read after the replay's outputs
+reached the host.  A capture counts the graph's nodes from the graph
+itself (`trace.graph_node_types`), and every replay adds them to
+`count.graph_nodes`, as it adds its operation and launch counts.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import torch
 from ..api.matrix import HEMatrix
 from ..api.vector import HEVector
 from ..kernels import bconv, matmul_ntt, modmac, modmatmul, ntt
+from ..utils import trace
 from ..utils.opcount import OPS
 from .layers import EncryptLayer
 from .network import Layer
@@ -124,7 +136,10 @@ class RecordGraph:
     copies the values into the static inputs and replays; the outputs
     (`self.outputs`, whatever `fn` returned) are static tensors that the
     next replay overwrites.  The counts of the capture are added at each
-    replay (module docstring).  `capture_s` is the wall seconds of warm-up
+    replay (module docstring), the graph's nodes among them (`nodes`, by
+    type); `ranges` are the device ranges captured into it, which
+    `read_ranges` reads after a replay whose outputs reached the host.
+    `capture_s` is the wall seconds of warm-up
     and capture, `warm_s` of the warm-up alone; `pool_bytes` the device
     memory the capture took from the allocator; `warm_outputs` the
     warm-up's outputs (the eager run on the static inputs) where
@@ -164,13 +179,17 @@ class RecordGraph:
             return
         del warm_out
         reserved = torch.cuda.memory_reserved(dev)
-        self.graph = torch.cuda.CUDAGraph()
+        # kept after the capture, so that its nodes can be counted
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in generators:
             # fresh randomness at every replay: replaying one encryption's
             # noise for every record would be a silent security fault
             self.graph.register_generator_state(gen)
-        with torch.cuda.graph(self.graph):
+        with trace.capturing() as self.ranges, torch.cuda.graph(self.graph):
             self.outputs = fn(*inputs)
+        self.nodes = trace.graph_node_types(self.graph.raw_cuda_graph())
+        self.graph.instantiate()
+        trace.count("graph_captures")
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -178,11 +197,21 @@ class RecordGraph:
         _restore(before)
 
     def replay(self, *values):
-        for static, v in zip(self.inputs, values):
-            static.copy_(v)
-        self.graph.replay()
+        with trace.span("upload"):
+            for static, v in zip(self.inputs, values):
+                static.copy_(v)
+        with trace.span("replay"):
+            self.graph.replay()
         _add(self.delta)
+        trace.count("graph_replays")
+        trace.count("graph_nodes", self.nodes.total())
+        trace.count("graph_event_nodes", self.nodes["event_record"])
         return self.outputs
+
+    def read_ranges(self) -> None:
+        """The device ranges' ms of the last replay, whose outputs have
+        reached the host (`trace.read_ranges`)."""
+        trace.read_ranges(self.ranges)
 
 
 def _device_io(fac) -> bool:
@@ -210,6 +239,8 @@ class EncryptedForward:
         self.fuse_io = bool(fuse_io and self.graph and _device_io(fac))
         self._graphs: dict = {}
         self._meta: dict = {}
+        self.records = 0                  # records pulled: the trace's numbers
+        self._replayed = None             # a layers graph, until decrypt
         # signatures whose graph did not fit: the decision, printed once
         self.eager: dict = {}
         if self.graph:
@@ -239,18 +270,25 @@ class EncryptedForward:
         return dict(self._graphs)
 
     # ------------------------------------------------------ eager layers
+    def _range(self, i: int):
+        """The device range of layer i (`trace.device_range`)."""
+        layer = self.layers[i]
+        return trace.device_range(f"{i}.{type(layer).__name__}", layer.kind)
+
     def run_encrypted(self, m: HEMatrix) -> HEMatrix:
         """The layers above the EncryptLayer on an encrypted matrix,
         eagerly (each with its report in verbose mode, `Layer.forward`)."""
-        for layer in self.layers:
-            m = layer.forward(m)
+        for i, layer in enumerate(self.layers):
+            with self._range(i):
+                m = layer.forward(m)
         return m
 
     def _apply_layers(self, m: HEMatrix, key) -> HEMatrix:
-        """The layers' `apply` (what a graph or vmap traces), recording the
-        output's metadata under `key`."""
-        for layer in self.layers:
-            m = layer.apply(m)
+        """The layers' `apply` (what a graph or vmap traces), each in its
+        device range, recording the output's metadata under `key`."""
+        for i, layer in enumerate(self.layers):
+            with self._range(i):
+                m = layer.apply(m)
         self._meta[key] = ([(v.dim, v.scale, v.fmt, v.is_signed)
                             for v in m.vectors], m.fmt)
         return m
@@ -283,9 +321,10 @@ class EncryptedForward:
     def slot_bufs(self, raw):
         """Host side of the fused record: RawMatrix -> (index-mapped slot
         buffers [P, V*C, n] int32 tensor, (V, C, dim, scale))."""
-        ints, sig = self.slot_ints(raw)
-        bufs = self.factory.encode_bufs(ints)
-        return torch.from_numpy(bufs.view(np.int32)), sig
+        with trace.span("slot_buffers"):
+            ints, sig = self.slot_ints(raw)
+            bufs = self.factory.encode_bufs(ints)
+            return torch.from_numpy(bufs.view(np.int32)), sig
 
     def input_matrix(self, datas, dim: int, scale: float) -> HEMatrix:
         """The encrypted input matrix of a record from its columns' data
@@ -328,7 +367,9 @@ class EncryptedForward:
             m = self._apply_layers(
                 self.input_matrix([cols[:, i] for i in range(V)], dim, scale), key)
             datas = [v.data for v in m.vectors]
-            return datas, fac._decrypt_decode_all(torch.cat(datas, dim=1)), data
+            with trace.device_range("decrypt", "decrypt"):
+                slots = fac._decrypt_decode_all(torch.cat(datas, dim=1))
+            return datas, slots, data
 
         return forward
 
@@ -358,8 +399,11 @@ class EncryptedForward:
                 return self._output_matrix(key, datas,
                                            self._split_slots(slots, datas))
         datas, slots, _ = g.replay(bufs)
-        return self._output_matrix(key, [d.clone() for d in datas],
-                                   self._split_slots(slots, datas))
+        with trace.span("output"):
+            datas = [d.clone() for d in datas]
+            split = self._split_slots(slots, datas)      # waits for the replay
+        g.read_ranges()
+        return self._output_matrix(key, datas, split)
 
     @staticmethod
     def _split_slots(slots, datas) -> list:
@@ -396,19 +440,30 @@ class EncryptedForward:
             if g is None:
                 return self._output_matrix(key, warm)
         datas = g.replay(*[v.data for v in m.vectors])
-        return self._output_matrix(key, [d.clone() for d in datas])
+        with trace.span("output"):
+            datas = [d.clone() for d in datas]
+        self._replayed = g               # its ranges read once decrypted
+        return self._output_matrix(key, datas)
 
     def __call__(self):
         """Pull one record through encode, encrypt, the network, decrypt
         and decode."""
-        raw = self.reader.get_next()
-        if raw is None:
-            return None
-        if self.fuse_io:
-            return self._run_fused(raw)
-        enc = self.encrypt(raw)
-        out = self.run_graph(enc) if self.graph else self.run_encrypted(enc)
-        return self._decrypt_into(out)
+        self.records += 1
+        with trace.span("record", seq=self.records):
+            with trace.span("reader"):
+                raw = self.reader.get_next()
+            if raw is None:
+                return None
+            if self.fuse_io:
+                return self._run_fused(raw)
+            enc = self.encrypt(raw)
+            out = self.run_graph(enc) if self.graph else self.run_encrypted(enc)
+            with trace.device_range("decrypt", "decrypt"):
+                out = self._decrypt_into(out)
+            if self._replayed is not None:
+                self._replayed.read_ranges()
+                self._replayed = None
+            return out
 
     # -------------------------------------------------- the record batch
     def _vmapped_layers(self, cols, dim: int, scale: float, key) -> list:
@@ -456,7 +511,9 @@ class EncryptedForward:
                                         dim, scale, key)
             flat = torch.cat([o.movedim(0, 1).reshape(fac.P, B * o.shape[2], *o.shape[3:])
                               for o in outs], dim=1)
-            return outs, fac._decrypt_decode_all(flat), data
+            with trace.device_range("decrypt", "decrypt"):
+                slots = fac._decrypt_decode_all(flat)
+            return outs, slots, data
 
         return forward
 
@@ -492,11 +549,15 @@ class EncryptedForward:
                 outs, slots, _ = warm
         if g is not None:
             outs, slots, _ = g.replay(bufs)
-            outs = [o.clone() for o in outs]
         elif outs is None:
             outs, slots, _ = fn(bufs.to(fac.device))
+        with trace.span("output"):
+            if g is not None:
+                outs = [o.clone() for o in outs]
+            host = slots.cpu().numpy().astype(np.int64)
+        if g is not None:
+            g.read_ranges()
         per = [o.shape[2] for o in outs]
-        host = slots.cpu().numpy().astype(np.int64)
         # column i's B records lie in a row: record b's C_i columns from
         # B * (C_0 + ... + C_(i-1)) + b * C_i on
         starts = B * np.cumsum([0] + per[:-1])

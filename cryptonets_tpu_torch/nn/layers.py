@@ -5,12 +5,11 @@ DebugLayer."""
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..kernels.modmatmul import ContractCache
+from ..utils import trace
 from ..utils.opcount import OPS
 from .convolution import ConvolutionEngine
 from .network import Layer
@@ -29,6 +28,8 @@ class EncryptLayer(Layer):
 
 class SquareActivation(Layer):
     """x -> x^2 by an elementwise ciphertext multiply."""
+
+    kind = "square"
 
     def apply(self, m):
         return m.elementwise_multiply(m)
@@ -64,6 +65,13 @@ class PoolLayer(Layer):
         self._bias_forms: dict = {}
         self._gathers: dict = {}      # device index tensors and weights
         self._contract = ContractCache()
+
+    @property
+    def kind(self) -> str:
+        """"dense" where the kernel covers the input, else "conv"."""
+        e = self.engine
+        covers = all(k >= i for k, i in zip(e.kernel_shape, e.input_shape))
+        return "dense" if covers else "conv"
 
     def get_output_scale(self):
         if self.weights is None:
@@ -256,41 +264,47 @@ class PoolLayer(Layer):
 
 
 class TimingLayer(Layer):
-    """Pass-through with named start/stop counters (ref TimingLayer.cs)."""
+    """Pass-through with named start/stop counters (ref TimingLayer.cs):
+    a counter's start opens a device range of kind "timing" and its stop
+    closes it (`utils/trace.py`), so that inside a captured record graph
+    the counter times the device work of the layers between, on every
+    replay made while tracing is on.  `get_stats` gives each counter's mean
+    device ms a replay; outside a graph a counter is a profiler range only
+    and adds nothing to it."""
 
-    total_time_ms: dict = {}
-    n: dict = {}
-    start_time: dict = {}
+    counters: dict = {}       # counter -> its open range
+    names: dict = {}          # every counter of a TimingLayer, in order
 
     def __init__(self, source=None, start_counters=(), stop_counters=()):
         super().__init__(source)
         self.start_counters = list(start_counters)
         self.stop_counters = list(stop_counters)
+        for c in self.start_counters:
+            TimingLayer.names[c] = None
 
     @classmethod
     def reset(cls):
-        cls.total_time_ms.clear()
-        cls.n.clear()
-        cls.start_time.clear()
+        cls.counters.clear()
+        for c in cls.names:
+            trace.TABLE.pop(f"range_ms.{c}", None)
+            trace.TABLE.pop(f"range_n.{c}", None)
 
     @classmethod
     def get_stats(cls, multi_lines: bool = False) -> str:
         sep = "\n" if multi_lines else "\t"
-        return sep.join(
-            f"{k} {cls.total_time_ms[k] / cls.n[k]:0.2f}"
-            for k in cls.total_time_ms
-        )
+        t = trace.TABLE
+        return sep.join(f"{c} {t[f'range_ms.{c}'] / t[f'range_n.{c}']:0.2f}"
+                        for c in cls.names if t[f"range_n.{c}"])
 
     def apply(self, m):
-        now = time.time()
         for c in self.start_counters:
-            TimingLayer.start_time[c] = now
+            r = trace.device_range(c, "timing")
+            r.__enter__()
+            TimingLayer.counters[c] = r
         for c in self.stop_counters:
-            if c in TimingLayer.start_time:
-                ms = (now - TimingLayer.start_time[c]) * 1000.0
-                TimingLayer.total_time_ms[c] = (
-                    TimingLayer.total_time_ms.get(c, 0.0) + ms)
-                TimingLayer.n[c] = TimingLayer.n.get(c, 0) + 1
+            r = TimingLayer.counters.pop(c, None)
+            if r is not None:
+                r.__exit__(None, None, None)
         return m
 
 

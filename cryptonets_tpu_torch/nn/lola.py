@@ -23,6 +23,8 @@ class LLPoolLayer(Layer):
     weights it is a mean pool: the columns added, the scale multiplied by
     their count."""
 
+    kind = "conv"
+
     def __init__(self, source, input_shape, kernel_shape, stride=None,
                  padding=None, upper_padding=None, lower_padding=None,
                  map_count=None, weights=None, bias=None,
@@ -126,6 +128,8 @@ class LLPoolLayer(Layer):
 class LLVectorizeLayer(Layer):
     """Matrix of map columns -> one long dense vector via Stack."""
 
+    kind = "vectorize"
+
     def __init__(self, source=None, output_dim: int = -1):
         super().__init__(source)
         self.output_dim = output_dim
@@ -142,6 +146,8 @@ class LLVectorizeLayer(Layer):
 class LLDuplicateLayer(Layer):
     """Each column `count` times at the next power-of-two stride, in one
     ciphertext (ref `LLDuplicateLayer.cs`)."""
+
+    kind = "packing"
 
     def __init__(self, source=None, count: int = 1):
         super().__init__(source)
@@ -167,6 +173,8 @@ class LLPackedDenseLayer(Layer):
     stacked row i // packing_count, where its bias is added (ref
     `LLPackedDenseLayer.cs`).  Encrypted, one plaintext multiply over all
     stacked rows and one rotate-and-add ladder of length packing_shift."""
+
+    kind = "dense"
 
     def __init__(self, source, weights, bias, packing_count: int,
                  packing_shift: int, weights_scale: float = 1.0):
@@ -245,6 +253,8 @@ class LLInterleaveLayer(Layer):
     into one vector by `interleave(shift)` (ref `LLInterleaveLayer.cs`).
     Encrypted, one mask multiply over all columns."""
 
+    kind = "packing"
+
     def __init__(self, source, shift: int, selected_indices,
                  input_gross_dimension: int = -1):
         super().__init__(source)
@@ -290,6 +300,8 @@ class LLInterleavedDenseLayer(Layer):
     """Fully connected layer whose weight columns are scattered to the
     interleaved slot positions (ref `LLInterleavedDenseLayer.cs`): per-row
     dot products, one output ciphertext per row."""
+
+    kind = "dense"
 
     def __init__(self, source, weights, bias, shift: int, selected_indices,
                  weights_scale: float = 1.0):
@@ -349,6 +361,8 @@ class LLDenseLayer(Layer):
     takes BSGS from 128 outputs up, True forces it, False forces per-row
     dots; `bsgs_g` is the baby count (None: `api/bsgs.py` `_choose_g`).
     On the Raw backend it is a matrix product."""
+
+    kind = "dense"
 
     def __init__(self, source, weights, bias, weights_scale: float = 1.0,
                  input_format: str = "dense", force_dense_format: bool = False,
@@ -433,6 +447,8 @@ class LLPreConvLayer(Layer):
     selects; `corners_map` gives each corner's slot in the output,
     `hot_indices` marks those slots (the conv's bias goes there), and
     `rearrange_weights` moves a downstream dense layer's weights to them."""
+
+    kind = "packing"
 
     def __init__(self, source, input_shape, kernel_shape, stride=None,
                  padding=None, upper_padding=None, lower_padding=None,

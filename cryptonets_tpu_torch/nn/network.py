@@ -19,6 +19,10 @@ from ..utils.opcount import OPS
 
 
 class Layer:
+    # the kind of the layer's device range in a record (`utils/trace.py`
+    # KINDS); None takes no range
+    kind: str | None = None
+
     def __init__(self, source: "Layer | None" = None, factory=None):
         self.source = source
         self._factory = factory

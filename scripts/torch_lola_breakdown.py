@@ -19,11 +19,21 @@ stand-in weights and synthetic CIFAR records of seed 4; Caltech: `caltech101.bui
 record, seeded synthetic parameters and records of seed 6) under the
 NTT `--ntt` names and, for LoLaLarge, CIFAR and CryptoNets, the preset
 `--preset` names (`lola_large_bigt`, `cifar_bigt`, `cryptonets_bigt`:
-the reference's plain primes of 2**31 and above) and pulls records
-through the port's pipeline with a device synchronise after each stage: the reader and the
-slot buffers (both on the host), upload + encode + encrypt, each layer,
-and decrypt + decode.  Prints the median seconds and the peak device
-memory of each stage, then profiles one more record with torch.profiler:
+the reference's plain primes of 2**31 and above) and serves records as
+the model command lines do (`evaluation_forward`: one CUDA graph replay a
+record) with the port's tracing on (`utils/trace.py`, no profiler): the
+stages' host ms from the spans (reader, slot buffers or the host's slot
+encode, upload, replay, output, the host's slot decode, join; `record`
+around them) and the layers' device ms from the device ranges inside the
+graph (encrypt, each layer, decrypt + decode), each the median over the
+records, and what `trace.per_request` reads of the table over them
+(graph replays and nodes a record, and the graphs captured among them,
+which must be 0: one is a rebuild).  A network whose graph holds the
+layers only (the host encodes)
+has encrypt and decrypt outside it, so they read no device ms; one whose
+pool does not fit runs eagerly and reads none.  Prints them and the peak
+device memory the records held (`max_memory_reserved`, the graph's pool
+whole), then profiles one more record with torch.profiler:
 device busy time (sum of kernel times), the device's idle share of the
 record's wall time (profiled and unprofiled), the kernel launch count,
 the launches of the hand-written kernels, the device time of the
@@ -46,7 +56,6 @@ import statistics
 import sys
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -55,67 +64,19 @@ PROFILER_EMPTY = "the profiler recorded no device time"
 ATTEMPTS = 3    # profiled windows of one record before the script fails
 
 
-def staged_record(fwd, sync):
-    """One record through the pipeline; returns ({stage: seconds},
-    {stage: peak GiB allocated during the stage})."""
-    from cryptonets_tpu_torch.api.matrix import HEMatrix
-    from cryptonets_tpu_torch.api.vector import HEVector
-    from cryptonets_tpu_torch.nn.layers import TimingLayer
+def traced_record(fwd, trace):
+    """One record served with tracing on, decrypted: ({span: host ms},
+    {range: device ms}, {kind: device ms}) of it."""
+    before = trace.snapshot()
+    for v in fwd().vectors:
+        v.decrypt_full_precision()
+    d = {k: v - before.get(k, 0) for k, v in trace.snapshot().items()
+         if v != before.get(k, 0)}
 
-    fac = fwd.encrypt_layer.factory
-    times, peaks = {}, {}
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
 
-    def done(stage, t0):
-        sync()
-        times[stage] = time.perf_counter() - t0
-        peaks[stage] = torch.cuda.max_memory_allocated() / 2**30
-        torch.cuda.reset_peak_memory_stats()
-
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    raw = fwd.reader.get_next()
-    times["reader (host)"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ints, (V, C, dim, scale) = fwd.slot_ints(raw)
-    if fac._device_encode:
-        bufs = fac.encode_bufs(ints)
-        times["slot buffers (host)"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        data = fac._encrypt_all_dev(bufs)
-    else:
-        res = fac._encode_slotsets_np(ints)
-        times["slot encode, C++ NTT (host)"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        data = fac._encrypt_all(res)
-    data = data.reshape(fac.P, V, C, 2, -1, fac.n)
-    m = HEMatrix(fac, [HEVector(fac, data=data[:, i], dim=dim, scale=scale)
-                       for i in range(V)], "col")
-    del data
-    done("upload+encode+encrypt", t0)
-    for i, layer in enumerate(fwd.layers):
-        if isinstance(layer, TimingLayer):
-            continue
-        t0 = time.perf_counter()
-        m = layer.apply(m)
-        done(f"{i}:{type(layer).__name__}", t0)
-    t0 = time.perf_counter()
-    blocks = [v.data.shape[1] for v in m.vectors]
-    data = torch.cat([v.data for v in m.vectors], dim=1)
-    if fac._device_decode:
-        slots = fac._decrypt_decode_all(data).cpu().numpy()
-    else:
-        lo, m2 = fac._decrypt_big_all(data)
-        done("two-plane decrypt (device)", t0)
-        t0 = time.perf_counter()
-        lo, m2 = lo.cpu().numpy(), m2.cpu().numpy()
-        slots = np.stack([fac._decode_big_slots(lo[pi], m2[pi], pi)
-                          for pi in range(fac.P)])
-    for v, s in zip(m.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
-        v._dec_slots = s
-    m.decrypt()
-    done("decrypt+decode" if fac._device_decode else "join + decode, C++ NTT (host)", t0)
-    return times, peaks
+    return part("span_ms."), part("range_ms."), part("device_ms.")
 
 
 def profiled_record(fwd, sync, counts):
@@ -130,7 +91,8 @@ def profiled_record(fwd, sync, counts):
         before = counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fwd().decrypt()
+            for v in fwd().vectors:
+                v.decrypt_full_precision()
             sync()
             wall = time.perf_counter() - t0
         hand = {k: v - before[k] for k, v in counts().items()}
@@ -180,7 +142,8 @@ def main() -> int:
     from cryptonets_tpu_torch.kernels import ntt as K
     from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
     from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
-    from cryptonets_tpu_torch.nn.forward import EncryptedForward
+    from cryptonets_tpu_torch.nn.forward import evaluation_forward
+    from cryptonets_tpu_torch.utils import trace
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -205,12 +168,31 @@ def main() -> int:
         head, fac, _ = BUILDERS[args.network](True, records=records, device=dev,
                                               ntt_impl=args.ntt, **preset)
     head.prepare_network()
-    fwd = EncryptedForward(head)
-    staged_record(fwd, sync)  # warm-up: lazy forms and tables
-    runs = [staged_record(fwd, sync) for _ in range(args.records)]
-    stages = {k: statistics.median(r[0][k] for r in runs) for k in runs[0][0]}
-    peaks = {k: max(r[1][k] for r in runs) for k in runs[0][1]}
-    total = [sum(r[0].values()) for r in runs]
+    fwd = evaluation_forward(head, graph=True)
+    for v in fwd().vectors:   # warm-up: lazy forms and tables, the capture
+        v.decrypt_full_precision()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    trace.enable()
+    try:
+        before = trace.snapshot()
+        runs = [traced_record(fwd, trace) for _ in range(args.records)]
+        read = trace.per_request(
+            {k: v - before.get(k, 0) for k, v in trace.snapshot().items()},
+            args.records, args.records * per_record)
+    finally:
+        trace.enable(False)
+    if read["graph_captures"]:
+        print(f"torch_lola_breakdown: {read['graph_captures']} graph captures "
+              f"in the timed records: a rebuild", file=sys.stderr)
+    peak = torch.cuda.max_memory_reserved() / 2**30
+
+    def median(i):
+        return {k: statistics.median(r[i].get(k, 0.0) for r in runs)
+                for k in runs[0][i]}
+
+    stages, layers, kinds = median(0), median(1), median(2)
+    total = [r[0]["record"] / 1e3 + r[0].get("join", 0.0) / 1e3 for r in runs]
 
     tables = (K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES)
     profiled = profiled_record(
@@ -220,6 +202,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     wall, kernels, hand, window = profiled
+    g = next(iter(fwd.graphs().values()), None)
     busy_ms = sum(k[1] for k in kernels)
     result = {
         "card": torch.cuda.get_device_name(0),
@@ -229,7 +212,11 @@ def main() -> int:
         "images_per_record": per_record,
         "records": args.records,
         "record_s_median": statistics.median(total),
-        "stage_s_median": stages,
+        "graph_nodes": dict(g.nodes) if g is not None else None,
+        "stage_host_ms_median": stages,
+        "layer_device_ms_median": layers,
+        "kind_device_ms_median": kinds,
+        "read": read,
         "profiled_record_wall_ms": 1e3 * wall,
         "profiled_window": window,
         "device_busy_ms": busy_ms,
@@ -258,11 +245,13 @@ def main() -> int:
         "top_kernels_ms": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:12]
         ],
-        "stage_peak_mem_gib": peaks,
-        "peak_mem_gib": max(peaks.values()),
+        "peak_mem_gib": peak,
     }
     for k, v in stages.items():
-        print(f"{k:32s} {1e3 * v:10.3f} ms   peak {peaks.get(k, 0.0):6.2f} GiB")
+        print(f"host   {k:32s} {v:10.3f} ms")
+    for k, v in layers.items():
+        print(f"device {k:32s} {v:10.3f} ms")
+    print(f"peak {peak:.2f} GiB reserved")
     print(json.dumps(result))
     os.makedirs("chiprun_out", exist_ok=True)
     suffix = (f"_{args.preset}" if args.preset else "") + (
