@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,fused,bigt,lola,
+    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,fused,slotmap,
+                           bigt,lola,
                            cryptonets,cryptonets_matmul,cryptonets_bigt,
                            lola_small,caltech,lola_packed,lola_large,cifar,
                            lola_dense,cifar_bigt,lola_large_bigt,serve,
@@ -37,7 +38,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      to its twin, timed beside its byte bound and the twin's time, with
      its launch plan and what the compiler made of the kernel instance
      (registers, spilled bytes, blocks an SM), and the host ms of one
-     launch of each; `bigt`: the C++
+     launch of each; `slotmap`: the slot map (`kernels/slotmap.cu`, the
+     fused record's slot buffers) bit-equal to its twin at LoLa's,
+     CryptoNets' and LoLaSmall's batch shapes with int64's edges and
+     halves, timed beside its byte bound and the twin's time; `bigt`: the C++
      host NTT of the plain primes of 2**31 and above (built from the
      checkout with `c++`) bit-equal to its exact object-int twin at
      n = 16384 on LoLaDense's primes, and the two-plane decrypt on the
@@ -146,7 +150,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      warm-up and five timed records of each form, every record against
      the Raw oracle (LoLaDense's wrong records counted, ROADMAP.md §3) and
      the two forms' decryptions equal, the graph's launches a record
-     (replayed) equal to the eager record's, its outputs bit-equal to the
+     (replayed) equal to the eager record's but for the graph's one slot
+     map (the eager record makes its slot buffers on the host), its outputs bit-equal to the
      eager layers on its own input ciphertexts read from its static
      buffer, two replays of one record with different input ciphertexts
      and equal decoded slots, capture seconds, graph pool and peak GiB,
@@ -156,7 +161,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (`bench.py`'s BENCH_VMAP rows), the layers under `torch.func.vmap`,
      one graph replay a batch: every record against the Raw oracle and
      bit-equal to the eager layers on its input ciphertexts, ms a record,
-     launches a batch, peak and graph pool GiB;
+     launches a batch (one slot map), peak and graph pool GiB;
  17. `featurize`: the seeded AlexNet featurizer on the card for four
      synthetic images against the CPU run of the same parameters;
  18. launch shapes: every path records the shape of every kernel launch
@@ -164,6 +169,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (`--launch-shapes`, fed the shapes on stdin) holds K1/K2, K5, K4
      (on the path's own weights), K6 and K7 (their operands' layouts,
      strides included; K6 on the path's own gathers, K7 on its own table)
+     and the slot map (on the path's own index map and plain primes)
      bit-equal to their plain versions at each, with edge rows, and times
      each beside its bound, K6's and K7's device over bound ms summed up
      as the median and maximum over the launches of a million outputs or
@@ -198,7 +204,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
-PHASES = ("build", "ntt", "mmntt", "contract", "fused", "bigt", "lola", "cryptonets",
+PHASES = ("build", "ntt", "mmntt", "contract", "fused", "slotmap", "bigt", "lola",
+          "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
           "lola_large_bigt", "serve", "basic", "op_budgets", "parallel",
@@ -868,6 +875,8 @@ def bigt_phase(dev) -> dict:
 
 # ------------------------------------------------- fused kernels (K6, K7)
 FUSED_KERNELS = ("mod_mac", "fast_bconv")
+# the kernels whose launches are cases of their operands' layouts
+SPEC_KERNELS = FUSED_KERNELS + ("slot_map",)
 FUSED_LAUNCHES = 10   # timed launches a shape (a big-t record has 10**5)
 
 
@@ -956,8 +965,10 @@ def ratio_summary(entries) -> dict:
 
 
 def _spec_key(spec) -> tuple:
-    """What tells two K6 or K7 launches apart for the check: the layouts
-    and moduli (not a table's values)."""
+    """What tells two K6, K7 or slot-map launches apart for the check: the
+    layouts and moduli (not a table's or an index map's values)."""
+    if spec["kind"] == "slot_map":
+        return ("slot_map", spec["x"], len(spec["pos"]), spec["mods"])
     if spec["kind"] == "mod_mac":
         return ("mod_mac", spec["a"], tuple(spec["b"]), tuple(spec["acc"]),
                 None if spec["perm"] is None else len(spec["perm"]), spec["mods"])
@@ -1167,6 +1178,117 @@ def fused_phase(dev) -> list[dict]:
             ("fast_bconv", "bconv.cu", "cryptonets_tpu/crypto/bfv.py:952"))]
 
 
+def slotmap_spec(x, pos, primes) -> dict:
+    """A slot-map launch as a case: the values' layout, the index map (read
+    to the host by `shape_cases`, after the run), the plain primes."""
+    return dict(kind="slot_map", x=_layout(x), pos=pos,
+                mods=tuple(int(t) for t in primes))
+
+
+# int32 multiplies of one floor modulus in the slot map: the 64 x 64 high
+# product of the Barrett quotient (four) and the quotient times t (two)
+SLOTMAP_MULS = 6
+SLOTMAP_EDGES = (2.0**62, -2.0**62, 2.0**62 - 1024, -2.0**62 + 1024, 0.0, 1.0, -1.0)
+
+
+def slotmap_case(spec, gen, dev, where: str, plain: bool = False,
+                 timed: bool = True) -> dict:
+    """The slot map at one launch `spec` (`slotmap_spec`): values laid out
+    as recorded, integers of both signs below 2**40 with int64's edges
+    (+-2**62) in the first record's first column and halves in the last
+    one's last column, on the path's index map and primes; the kernel
+    bit-equal to its twin on the card, then timed (events and profiler
+    device time) beside its bound (each value read once, each buffer
+    position written once, the index map once; the floor moduli on the
+    integer pipe), and the twin timed when `plain`."""
+    from cryptonets_tpu_torch.kernels import slotmap as SM
+
+    shape, stride = spec["x"]
+    R, dim, V = shape
+    primes = spec["mods"]
+    vals = torch.randint(-2**40, 2**40, shape, generator=gen, device=dev).double()
+    edges = torch.tensor(SLOTMAP_EDGES, dtype=torch.float64, device=dev)[:dim]
+    vals[0, :len(edges), 0] = edges
+    halves = torch.arange(-20, 20, dtype=torch.float64, device=dev)[:dim] + 0.5
+    vals[-1, :len(halves), -1] = halves
+    x = torch.empty_strided(shape, stride, dtype=torch.float64, device=dev)
+    x.copy_(vals)
+    pos = torch.as_tensor(spec["pos"]).to(dev)
+    n = pos.shape[0]
+    out, ref = SM._launch(x, pos, primes), SM.slot_map_plain(x, pos, primes)
+    torch.cuda.synchronize()
+    err = int((out.long() - ref.long()).abs().max())
+    del out, ref
+    if err:
+        raise SystemExit(f"slot_map disagrees with its twin at {where}: "
+                         f"{shape}, n {n}, primes {primes}: max error {err}")
+    pl = SM.plan(R, dim, V, n)
+    outputs = len(primes) * R * V * pl["C"] * n
+    nbytes = 8 * R * dim * V + 4 * outputs + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = SLOTMAP_MULS * outputs / INT32_MUL_PER_S
+    e = dict(where=where, shape=[R, dim, V], n=n, primes=len(primes),
+             max_abs_err=err, outputs=outputs, plan=dict(pl),
+             instance={k: v for k, v in SM.kernel_info().items()
+                       if k in ("registers", "local_bytes", "blocks_per_sm")},
+             bound_ms=1e3 * max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             bytes_bound_ms=1e3 * t_bytes, int32_ops_ms=1e3 * t_ops, bytes=nbytes)
+    if timed:
+        e["ms"] = event_ms(lambda: SM._launch(x, pos, primes),
+                           launches=FUSED_LAUNCHES, repeats=3)
+        e["device_ms"] = device_ms(lambda: SM._launch(x, pos, primes),
+                                   "slot_map_kernel", launches=FUSED_LAUNCHES)
+        e["ratio"] = e["device_ms"] / e["bound_ms"]
+    if plain:
+        e["plain_ms"] = event_ms(lambda: SM.slot_map_plain(x, pos, primes),
+                                 launches=2, repeats=3, warmup=1)
+    return e
+
+
+def slotmap_phase(dev) -> list[dict]:
+    """The slot map bit-equal to its twin on the card at the benchmark
+    cells' shapes (LoLa's one image: [1, 169, 25] into 4 x 25 buffers;
+    CryptoNets' 8192 images: [1, 8192, 784] into 3 x 784) and LoLaSmall's
+    batch of 16, with edge values, each timed beside its bound and the
+    twin's time (every shape a path launches it at is checked after the
+    paths, `launch_shape_phase`)."""
+    from cryptonets_tpu_torch.crypto.encoder import BatchEncoder
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    entries = []
+    for where, R, dim, V, preset in (
+            ("LoLa, one image", 1, 169, 25, "lola"),
+            ("CryptoNets, 8192 images", 1, 8192, 784, "cryptonets"),
+            ("LoLaSmall, a batch of 16", 16, 169, 25, "lola_small")):
+        n, primes = CONFIGS[preset]["n"], CONFIGS[preset]["plain_primes"]
+        pos = torch.from_numpy(np.argsort(BatchEncoder(n, primes[0]).index_map)
+                               .astype(np.int32))
+        x = torch.empty((R, dim, V), dtype=torch.float64, device="meta")
+        e = slotmap_case(slotmap_spec(x, pos, primes), gen, dev, where, plain=True)
+        rows = e["outputs"] // (e["primes"] * e["n"])
+        log(f"slot_map {where} {e['shape']} -> [{e['primes']}, {rows}, {e['n']}]: "
+            f"bit-equal to twin, edges too; events {e['ms']:.4f} / device "
+            f"{e['device_ms']:.4f} / bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
+            f"({e['bytes'] / 1e6:.2f} MB; {e['ratio']:.2f}x) / plain "
+            f"{e['plain_ms']:.3f} ms; plan {e['plan']}, instance {e['instance']}")
+        entries.append(e)
+    main = entries[1]             # CryptoNets': the one far above launch latency
+    keep = ("where", "shape", "ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+            "plan", "instance")
+    return [dict(name="slot_map", route="cuda",
+                 source="cryptonets_tpu_torch/kernels/slotmap.cu",
+                 # none: the JAX package builds the buffers on the host
+                 replaces=None,
+                 max_abs_err=max(e["max_abs_err"] for e in entries),
+                 ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+                 **{k: main[k] for k in ("bound_ms", "bound_by", "bytes_bound_ms",
+                                         "int32_ops_ms")},
+                 library_ms=None, shape=main["shape"],
+                 by_shape=[{k: e[k] for k in keep} for e in entries])]
+
+
 # ---------------------------------------------------------------- slices
 BUTTERFLY_KERNELS = ("ntt_forward", "ntt_inverse")
 MATMUL_KERNELS = ("matmul_ntt_forward", "matmul_ntt_inverse")
@@ -1178,8 +1300,9 @@ def _count_tables() -> tuple:
     from cryptonets_tpu_torch.kernels import modmac as K6
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
+    from cryptonets_tpu_torch.kernels import slotmap as SM
 
-    return K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES
+    return K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES, SM.LAUNCHES
 
 
 def kernel_counts() -> dict:
@@ -1204,8 +1327,9 @@ def check_launches(where: str, launched: dict, expect, absent=()) -> None:
 
 class LaunchShapes:
     """Within `with`, records every kernel launch by shape: K1/K2 and K5
-    with their tables, K4 with its weights and moduli, K6 and K7 by the
-    layouts of their operands (`mac_spec`, `bconv_spec`).  A path's own
+    with their tables, K4 with its weights and moduli, K6, K7 and the slot
+    map by the layouts of their operands (`mac_spec`, `bconv_spec`,
+    `slotmap_spec`).  A path's own
     launch shapes, read off its run for the kernel check that follows the
     paths (`launch_shape_phase`)."""
 
@@ -1213,7 +1337,7 @@ class LaunchShapes:
         self.ntt = {}        # (shape, id(tables)) -> (tables, {kernel names})
         self.mmntt = {}      # the same for K5
         self.contract = {}   # (M, O, shape, moduli) -> weights
-        self.fused = {}      # `_spec_key` -> K6 or K7 spec
+        self.fused = {}      # `_spec_key` -> K6, K7 or slot-map spec
 
     def __enter__(self):
         from cryptonets_tpu_torch.kernels import bconv as K7
@@ -1221,9 +1345,10 @@ class LaunchShapes:
         from cryptonets_tpu_torch.kernels import modmac as K6
         from cryptonets_tpu_torch.kernels import modmatmul as MM
         from cryptonets_tpu_torch.kernels import ntt as K
+        from cryptonets_tpu_torch.kernels import slotmap as SM
 
         self._orig = orig = (K._launch, M._launch, MM._launch, K6._launch,
-                             K7._launch)
+                             K7._launch, SM._launch)
 
         def tables_launch(seen, launch):
             def wrapped(name, x, tab, *tables):
@@ -1248,10 +1373,15 @@ class LaunchShapes:
             self.fused.setdefault(_spec_key(spec), spec)
             return orig[4](y, c, chain)
 
+        def slotmap_launch(x, pos, primes):
+            spec = slotmap_spec(x, pos, primes)
+            self.fused.setdefault(_spec_key(spec), spec)
+            return orig[5](x, pos, primes)
+
         K._launch = tables_launch(self.ntt, orig[0])
         M._launch = tables_launch(self.mmntt, orig[1])
         MM._launch = contract_launch
-        K6._launch, K7._launch = mac_launch, bconv_launch
+        K6._launch, K7._launch, SM._launch = mac_launch, bconv_launch, slotmap_launch
         return self
 
     def __exit__(self, *exc):
@@ -1260,8 +1390,10 @@ class LaunchShapes:
         from cryptonets_tpu_torch.kernels import modmac as K6
         from cryptonets_tpu_torch.kernels import modmatmul as MM
         from cryptonets_tpu_torch.kernels import ntt as K
+        from cryptonets_tpu_torch.kernels import slotmap as SM
 
-        K._launch, M._launch, MM._launch, K6._launch, K7._launch = self._orig
+        (K._launch, M._launch, MM._launch, K6._launch, K7._launch,
+         SM._launch) = self._orig
 
 
 # the single-image paths: (title, builder, timed records after one
@@ -1377,6 +1509,8 @@ def bigt_graph_case(title: str, head, m, eager_out, refuse: bool = False) -> dic
     first_s = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in kernel_counts().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if launched["slot_map"]:
+        raise SystemExit(f"{title}: the layers-only graph launched the slot map")
     if fwd.eager:
         raise SystemExit(f"{title}: the graph was refused on this card: "
                          f"{list(fwd.eager.values())}")
@@ -1526,8 +1660,9 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
 def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
     """The launch shapes a path recorded as picklable cases of the fresh
     process's check: K1/K2 and K5 by shape and moduli, K4 with the
-    path's weights reduced mod each modulus, K6 and K7 by their operands'
-    layouts (K7 with the path's table)."""
+    path's weights reduced mod each modulus, K6, K7 and the slot map by
+    their operands' layouts (K7 with the path's table, the slot map with
+    its index map)."""
     from cryptonets_tpu_torch.kernels import modmatmul as MM
 
     cases = []
@@ -1543,7 +1678,7 @@ def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
                           reduced=reduced))
     for spec in rec.fused.values():
         cases.append(dict(spec, where=where, **{
-            k: spec[k].cpu().numpy() for k in ("table", "perm")
+            k: spec[k].cpu().numpy() for k in ("table", "perm", "pos")
             if spec.get(k) is not None}))
     return cases
 
@@ -1560,7 +1695,7 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     cases, done = [], set()
     for where, rec in recorded.items():
         for c in (rec if isinstance(rec, list) else shape_cases(where, rec)):
-            key = _spec_key(c) if c["kind"] in FUSED_KERNELS else (
+            key = _spec_key(c) if c["kind"] in SPEC_KERNELS else (
                 c["kind"], c["shape"], c["mods"]) + (
                 (c["reduced"].shape[0],) if c["kind"] == "contract" else ())
             if key not in done:
@@ -1569,7 +1704,7 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     paths = ", ".join(recorded)
     recorded.clear()
     torch.cuda.empty_cache()
-    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS
+    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + SPEC_KERNELS
     shapes, err = {name: [] for name in names}, dict.fromkeys(names, 0)
     for c0 in range(0, len(cases), SHAPE_CHUNK):
         out = _shape_process(cases[c0:c0 + SHAPE_CHUNK])
@@ -1577,8 +1712,9 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
             shapes[name] += out["shapes"][name]
             err[name] = max(err[name], out["err"][name])
     counts = {kind: sum(c["kind"] == kind for c in cases)
-              for kind in ("ntt", "mmntt", "contract") + FUSED_KERNELS}
-    log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4, K6, K7) bit-equal "
+              for kind in ("ntt", "mmntt", "contract") + SPEC_KERNELS}
+    log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4, K6, K7, the slot "
+        f"map) bit-equal "
         f"to the plain versions, edge rows too, each timed with the "
         f"profiler's device time")
     return shapes, err
@@ -1637,7 +1773,7 @@ def launch_shapes_main() -> int:
     cases = pickle.loads(sys.stdin.buffer.read())
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
-    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS
+    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + SPEC_KERNELS
     err = dict.fromkeys(names, 0)
     shapes = {name: [] for name in names}
     instances = {}
@@ -1645,6 +1781,12 @@ def launch_shapes_main() -> int:
     for c in sorted(cases, key=lambda c: (c["kind"], c["shape"][-1], c["shape"])
                     if "shape" in c else (c["kind"], 0, ())):
         mods, where = c["mods"], c["where"]
+        if c["kind"] == "slot_map":
+            e = slotmap_case(c, gen, dev, where)
+            err["slot_map"] = max(err["slot_map"], e["max_abs_err"])
+            shapes["slot_map"].append({k: e[k] for k in ("where", "shape", "outputs")
+                                       + keep + ("plan", "instance")})
+            continue
         if c["kind"] in FUSED_KERNELS:
             e = fused_case(c, gen, dev, where)
             err[c["kind"]] = max(err[c["kind"]], e["max_abs_err"])
@@ -2618,7 +2760,7 @@ def _profiled_ms(step) -> float | None:
     return busy / 1e3 if busy > 0 else None
 
 
-def graph_case(dev, which: str) -> dict:
+def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     """One path eager and under `graph=True` (the whole record in one
     graph where the factory encodes and decodes on the card, else the
     layers), one head and key set: a warm-up and GRAPH_TIMED timed records
@@ -2629,7 +2771,9 @@ def graph_case(dev, which: str) -> dict:
     two replays of one record with different input ciphertexts and equal
     decoded slots; capture seconds, graph memory, device busy time and
     idle share of one profiled graph record, a record's parts; budget >
-    0."""
+    0.  A fused graph's slot-map launch (on its static input) goes into
+    `shapes`: the eager record, whose launch shapes the path's own phase
+    records, makes its slot buffers on the host."""
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
     title, build, pools, kernels = _graph_spec(which, 3)
@@ -2659,6 +2803,12 @@ def graph_case(dev, which: str) -> dict:
             check_launches(f"{title} ({kind}) record {i}", launched, kernels,
                            MATMUL_KERNELS + (() if "mod_contract" in kernels
                                              else ("mod_contract",)))
+            # the fused graph makes its slot buffers on the card, the eager
+            # record on the host
+            want = int(kind == "graph" and graph.fuse_io)
+            if launched["slot_map"] != want:
+                raise SystemExit(f"{title} ({kind}) record {i}: {launched['slot_map']} "
+                                 f"slot-map launches, {want} expected")
             exact = _gate(f"{title} ({kind})", which, i, enc, raws[i % len(raws)])
             limit[kind] += not exact
             decs[kind].append(enc if exact else None)
@@ -2672,7 +2822,8 @@ def graph_case(dev, which: str) -> dict:
             peak_graph, first_graph = peak, first
         else:
             peak_eager = peak
-    if per["graph"] != per["eager"]:
+    if ({k: v for k, v in per["graph"].items() if k != "slot_map"}
+            != {k: v for k, v in per["eager"].items() if k != "slot_map"}):
         raise SystemExit(f"{title}: launches a graph record {per['graph']} "
                          f"differ from an eager record's {per['eager']}")
     if any(a is not None and b is not None and not np.array_equal(a, b)
@@ -2682,21 +2833,25 @@ def graph_case(dev, which: str) -> dict:
     if budget <= 0:
         raise SystemExit(f"{title} (graph): the noise budget is exhausted")
     log(f"{title}: {1 + GRAPH_TIMED} eager and {1 + GRAPH_TIMED} graph records "
-        f"exact, launches a record equal")
+        f"exact, launches a record equal but the graph's slot maps "
+        f"{per['graph']['slot_map']}")
 
     (key, g), = graph.graphs().items()
     graph.reader.set_source_records(_copies(pools[0]))
     raw0 = graph.reader.get_next()
+    if shapes is not None and graph.fuse_io:
+        spec = slotmap_spec(g.inputs[0], fac._slot_positions, fac.plain_primes)
+        shapes.fused.setdefault(_spec_key(spec), spec)
     if graph.fuse_io:
         datas, _, data = g.outputs
         outs, ins = [d.clone() for d in datas], data.clone()
         _, V, C, dim, scale = key
         cols = ins.reshape(fac.P, V, C, *ins.shape[2:]).unbind(1)
         ref = eager.run_encrypted(eager.input_matrix(list(cols), dim, scale))
-        bufs, _ = graph.slot_bufs(raw0)
-        g.replay(bufs)
+        x0, _ = graph.slot_values(raw0)
+        g.replay(x0)
         in1, s1 = g.outputs[2].clone(), g.outputs[1].clone()
-        g.replay(bufs)
+        g.replay(x0)
         fresh = not torch.equal(in1, g.outputs[2])
         same = torch.equal(s1, g.outputs[1])
     else:
@@ -2747,9 +2902,10 @@ def graph_case(dev, which: str) -> dict:
 def _record_parts(eager, graph, raw) -> dict:
     """Host-clock ms of one record's parts, the device synchronised
     between them: eager (encrypt with the slot encode, the layers, the
-    decrypt with the host decode and join) and under the graph (the host
-    slot buffers, the copy in and the replay, the decoded slots out and
-    the join; a layers-only graph: encrypt, replay, decrypt)."""
+    decrypt with the host decode and join) and under the graph (the
+    values handed over, the copy in and the replay with the slot map, the
+    decoded slots out and the join; a layers-only graph: encrypt, replay,
+    decrypt)."""
     def ms(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2763,7 +2919,7 @@ def _record_parts(eager, graph, raw) -> dict:
     _, out["eager decrypt + join"] = ms(lambda: eager._decrypt_into(o).decrypt())
     if graph.fuse_io:
         (key, g), = graph.graphs().items()
-        b, out["graph slot buffers"] = ms(lambda: graph.slot_bufs(raw)[0])
+        b, out["graph slot buffers"] = ms(lambda: graph.slot_values(raw)[0])
         r, out["graph copy + replay"] = ms(lambda: g.replay(b))
         _, out["graph slots out + join"] = ms(lambda: graph._output_matrix(
             key, [d.clone() for d in r[0]], graph._split_slots(r[1], r[0])).decrypt())
@@ -2778,12 +2934,12 @@ def graph_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     """Every path of GRAPH_PATHS eager and under a graph (`graph_case`),
     each path's graph and head freed before the next.  A graph launches
     the kernels at its eager record's shapes, which that path's own phase
-    records: `shapes` stays empty here."""
+    records, and the slot map, whose launches go into `shapes`."""
     reset_kernel_counts()
     out = {}
     for which in GRAPH_PATHS:
         t0 = time.perf_counter()
-        out[which] = graph_case(dev, which)
+        out[which] = graph_case(dev, which, shapes)
         torch.cuda.empty_cache()
         log(f"graph {which}: {time.perf_counter() - t0:.1f} s")
     return dict(launches=kernel_counts(), per_record=out["lola"]["per_record"],
@@ -2823,6 +2979,9 @@ def record_batch_phase(dev, shapes: LaunchShapes | None = None) -> dict:
             s = time.perf_counter() - s0
             launched = {k: v - before[k] for k, v in kernel_counts().items()}
             check_launches(f"{title} batch {i}", launched, kernels, MATMUL_KERNELS)
+            if launched["slot_map"] != 1:
+                raise SystemExit(f"{title} batch {i}: {launched['slot_map']} "
+                                 f"slot-map launches, one a batch expected")
             for r, (enc, raw) in enumerate(zip(encs, raws)):
                 _gate(f"{title} batch {i}", which, r, enc, raw)
             if i > 1:
@@ -2907,6 +3066,7 @@ def main() -> int:
     from cryptonets_tpu_torch.kernels import modmac as K6
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
+    from cryptonets_tpu_torch.kernels import slotmap as SM
     from cryptonets_tpu_torch.runtime import hostcrypto
 
     t_start = time.perf_counter()
@@ -2914,22 +3074,23 @@ def main() -> int:
     log(f"card: {card}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    # the host runtime (c++) builds beside the five nvcc runs
+    # the host runtime (c++) builds beside the six nvcc runs
     with ThreadPoolExecutor(1) as pool:
         host = pool.submit(lambda: (hostcrypto.build(), time.perf_counter() - t0))
         B.build_sources([B.source(name) for name in (
-            "ntt.cu", "modmatmul.cu", "matmul_ntt.cu", "modmac.cu", "bconv.cu")])
+            "ntt.cu", "modmatmul.cu", "matmul_ntt.cu", "modmac.cu", "bconv.cu",
+            "slotmap.cu")])
         host_lib, host_s = host.result()
     hostcrypto.get_lib()
-    for kernel_module in (K, MM, M, K6, K7):
+    for kernel_module in (K, MM, M, K6, K7, SM):
         kernel_module.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s, the five sources "
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s, the six sources "
         f"in parallel (nvcc {B.BUILD_SECONDS}); host runtime {host_lib.name} "
         f"({host_s:.2f} s)")
     kernels = []
     for phase, run in (("ntt", kernel_phase), ("mmntt", mmntt_phase),
                        ("contract", lambda d: [contract_phase(d)]),
-                       ("fused", fused_phase)):
+                       ("fused", fused_phase), ("slotmap", slotmap_phase)):
         if phase in phases:
             t0 = time.perf_counter()
             kernels += run(dev)
@@ -2985,7 +3146,7 @@ def main() -> int:
         for k in kernels:
             k["launch_shapes"] = by_name[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], err[k["name"]])
-            if k["name"] in FUSED_KERNELS:
+            if k["name"] in SPEC_KERNELS:
                 k["ratios"] = ratio_summary(k["launch_shapes"])
                 log(f"{k['name']} device / bound over the launch shapes: "
                     + "; ".join(f"{g}: {r['cases']} cases, median {r['median']:.2f}x, "

@@ -12,7 +12,10 @@ decode (forward NTT over Z_t) run on the device with the butterfly CUDA
 NTT, whichever NTT carries the ciphertext chain (`ntt_impl`): encode
 when every t is below 2**31 and below every limb (`_device_encode`: the
 coefficients then are the same residue on every limb), decode with the
-gamma decrypt when every t is below 2**31 (`_device_decode`).  Plain
+gamma decrypt when every t is below 2**31 (`_device_decode`).  The
+device encode's input, the index-mapped slot buffers, comes from the host
+(`encode_bufs`) or, for a fused record, from the reader's values through
+the `slot_map` kernel on the device (`slot_map`).  Plain
 primes of 2**31 to 2**62 (`_device_decode_big`) encode on the host (the
 C++ 128-bit NTT, per-limb residues) and decrypt on the device to two
 planes that the host joins exactly and decodes with the same C++ NTT.
@@ -36,6 +39,7 @@ from ..crypto.hostmath import CRT
 from ..crypto.ntt import get_ntt_context, ntt_automorphism_perm
 from ..crypto.primes import default_coeff_modulus_128
 from ..device import canonical, resolve_device
+from ..kernels import slotmap
 from ..utils import trace
 
 # Columns per piece of the device encode + encrypt.  A piece holds a few
@@ -128,8 +132,11 @@ class CrtBfvFactory:
         self._plain_ntt = get_ntt_context(n, ts) if self._device_decode else None
         self._index_map = torch.from_numpy(
             self.encoders[0].index_map).to(self.device)
-        # the index map depends on n only; its inverse permutation
+        # the index map depends on n only; its inverse permutation, and
+        # that on the device for the slot map of a fused record
         self._slot_of_position = np.argsort(self.encoders[0].index_map)
+        self._slot_positions = torch.from_numpy(
+            self._slot_of_position.astype(np.int32)).to(self.device)
         self._stack_cache: dict = {}
         self._mask_cache: dict = {}
 
@@ -183,6 +190,14 @@ class CrtBfvFactory:
                                self._slot_of_position, axis=-1)
         return bufs
 
+    def slot_map(self, values) -> torch.Tensor:
+        """The reader's scaled values [R, dim, V] float64 -> the index-mapped
+        slot buffers [P, R*V*C, n] int32 on the device: `encode_bufs` of
+        each record's slot values, in order, made by the `slot_map` kernel
+        (`kernels/slotmap.py`)."""
+        return slotmap.slot_map(values.to(self.device), self._slot_positions,
+                                self.plain_primes)
+
     def _encrypt_all_dev(self, bufs) -> torch.Tensor:
         """Index-mapped slot values [P, C, n] (mod t_p) -> ciphertext data
         [P, C, 2, k, N]: the Z_t inverse NTT on the device, coefficients
@@ -192,19 +207,31 @@ class CrtBfvFactory:
             bufs = torch.from_numpy(
                 np.ascontiguousarray(bufs, np.uint32).view(np.int32))
         with trace.device_range("encrypt", "encrypt"):
-            bufs = bufs.to(self.device)
-            k = len(self.limb_moduli)
-            C = bufs.shape[1]
-            coeffs = self._plain_ntt.inverse(bufs.transpose(0, 1))  # [C, P, n]
-            out = torch.empty((self.P, C, 2, k, self.n), dtype=torch.int32,
-                              device=self.device)
-            for c0 in range(0, C, ENCRYPT_CHUNK):
-                piece = coeffs[c0 : c0 + ENCRYPT_CHUNK]
-                for pi in range(self.P):
-                    out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
-                        self.keys,
-                        piece[:, pi, None, :].expand(len(piece), k, self.n),
-                        self._gen)
+            return self._encrypt_bufs(bufs.to(self.device))
+
+    def _encrypt_values_dev(self, values) -> torch.Tensor:
+        """The reader's scaled values [R, dim, V] float64 -> ciphertext
+        data [P, R*V*C, 2, k, N]: the slot map, then `_encrypt_all_dev`'s
+        work, both inside the device range `encrypt` (the slot map is the
+        encode's first step)."""
+        with trace.device_range("encrypt", "encrypt"):
+            return self._encrypt_bufs(self.slot_map(values))
+
+    def _encrypt_bufs(self, bufs) -> torch.Tensor:
+        """The body of `_encrypt_all_dev`: slot buffers on the device ->
+        ciphertext data, outside any range."""
+        k = len(self.limb_moduli)
+        C = bufs.shape[1]
+        coeffs = self._plain_ntt.inverse(bufs.transpose(0, 1))  # [C, P, n]
+        out = torch.empty((self.P, C, 2, k, self.n), dtype=torch.int32,
+                          device=self.device)
+        for c0 in range(0, C, ENCRYPT_CHUNK):
+            piece = coeffs[c0 : c0 + ENCRYPT_CHUNK]
+            for pi in range(self.P):
+                out[pi, c0 : c0 + len(piece)] = self.bfv[pi].encrypt(
+                    self.keys,
+                    piece[:, pi, None, :].expand(len(piece), k, self.n),
+                    self._gen)
         return out
 
     def _encode_slotsets_np(self, slotsets) -> np.ndarray:

@@ -5,7 +5,10 @@ One call pulls a record (LoLa: one image; CryptoNets: a batch of images
 in the SIMD slots) from the reader and runs, on the factory's device:
 slot encode + RLWE encrypt of every input column, every layer above the
 EncryptLayer, gamma decrypt + slot decode of every output column.  The
-host only index-maps the input slots and CRT-joins the decoded outputs.
+host makes the slot buffers (each plain prime's residues, index-mapped)
+and CRT-joins the decoded outputs; in a fused record (below) it only
+hands over the reader's values, and the `slot_map` kernel makes the
+buffers on the device, inside the encrypt (`CrtBfvFactory.slot_map`).
 A factory whose plain primes do not fit the device encode and decode
 (`_device_encode`, `_device_decode`: LoLaDense's and the big-t presets'
 primes) takes the reference's other path: slot encode on the host (C++
@@ -16,16 +19,17 @@ two-plane device decrypt with the host join and the C++ slot decode.
 reference compiles one XLA program, the record runs as one CUDA graph,
 captured once per signature and replayed (`RecordGraph`).  With
 `fuse_io=True` and a factory that encodes and decodes on the device, the
-graph holds the whole record (`record_fn`: encrypt, the layers, decrypt
-and decode), so a record is one copy of its slot buffers, one replay and
-one copy of its decoded slots; otherwise it holds the layers only, and
-encrypt and decrypt run outside it (the reference's three programs,
-`jit.py:70-113`).  `run_batch` is the counterpart of `bench.py`'s
-`BENCH_VMAP` record batch: B records' columns encrypted in one pass, the
-layers under `torch.func.vmap` over the record axis (each kernel folds
-the records into its rows, `kernels/batching.py`), every output
-decrypted and decoded in one pass; under `graph=True` one replay for B
-records.  Whether a signature is captured is decided after the warm-up
+graph holds the whole record (`record_fn`: the slot map, encrypt, the
+layers, decrypt and decode), so a record is one copy of the reader's
+values, one replay and one copy of its decoded slots; otherwise it
+holds the layers only, and encrypt and decrypt run outside it (the
+reference's three programs, `jit.py:70-113`).  `run_batch` is the
+counterpart of `bench.py`'s `BENCH_VMAP` record batch: B records'
+columns slot-mapped and encrypted in one pass, the layers under
+`torch.func.vmap` over the record axis (each kernel folds the records
+into its rows, `kernels/batching.py`), every output decrypted and
+decoded in one pass; under `graph=True` one replay for B records.
+Whether a signature is captured is decided after the warm-up
 and before the capture: the pool the capture is reckoned to take (the
 warm-up's peak over the memory allocated before it) against the card's
 free memory (`GRAPH_FREE_SHARE`).  The decision is printed; a signature
@@ -45,14 +49,17 @@ keep the launches that ran (one for the B records).
 
 Tracing (`utils/trace.py`): a record is the span `record` (its sequence
 number an argument), and inside it the spans `reader`, `slot_buffers`
-(or `slot_encode` where the host encodes), `upload`, `replay`, `output`
-and, in the vector's decrypt, `join`.  Encrypt, every layer of a kind
-(`Layer.kind`) and decrypt with decode are device ranges, named
-`encrypt`, `<position>.<class>`, `decrypt`: inside a graph's capture
-their events become nodes of the graph, read after the replay's outputs
-reached the host.  A capture counts the graph's nodes from the graph
-itself (`trace.graph_node_types`), and every replay adds them to
-`count.graph_nodes`, as it adds its operation and launch counts.
+(the values handed over, or the host's buffers of an eager record; or
+`slot_encode` where the host encodes), `upload`, `replay`, `output` and,
+in the vector's decrypt, `join`.  A fused record or batch counts the
+slots the device encodes (`count.device_encoded_slots`: P x rows x n)
+where its values are handed over, so a replay counts them.  Encrypt,
+every layer of a kind (`Layer.kind`) and decrypt with decode are device
+ranges, named `encrypt`, `<position>.<class>`, `decrypt`: inside a
+graph's capture their events become nodes of the graph, read after the
+replay's outputs reached the host.  A capture counts the graph's nodes
+from the graph itself (`trace.graph_node_types`), and every replay adds
+them to `count.graph_nodes`, as it adds its operation and launch counts.
 """
 
 from __future__ import annotations
@@ -64,14 +71,14 @@ import torch
 
 from ..api.matrix import HEMatrix
 from ..api.vector import HEVector
-from ..kernels import bconv, matmul_ntt, modmac, modmatmul, ntt
+from ..kernels import bconv, matmul_ntt, modmac, modmatmul, ntt, slotmap
 from ..utils import trace
 from ..utils.opcount import OPS
 from .layers import EncryptLayer
 from .network import Layer
 
 _LAUNCH_TABLES = (ntt.LAUNCHES, modmatmul.LAUNCHES, matmul_ntt.LAUNCHES,
-                  modmac.LAUNCHES, bconv.LAUNCHES)
+                  modmac.LAUNCHES, bconv.LAUNCHES, slotmap.LAUNCHES)
 # a capture goes ahead when its reckoned pool is at most this share of the
 # card's free memory (the allocator's cache emptied), else the record runs
 # eagerly: a capture that runs out of memory half-way fails the run.  The
@@ -313,18 +320,25 @@ class EncryptedForward:
         fac = self.factory
         vecs = np.asarray(raw.m, dtype=np.float64).T  # [V, dim] scaled ints
         V, dim = vecs.shape
-        C = max(1, -(-dim // fac.n))
+        C = slotmap.blocks_of(dim, fac.n)
         padded = np.zeros((V, C * fac.n), np.int64)
         padded[:, :dim] = np.round(vecs).astype(np.int64)
         return padded.reshape(V * C, fac.n), (V, C, dim, float(raw.scale))
 
-    def slot_bufs(self, raw):
-        """Host side of the fused record: RawMatrix -> (index-mapped slot
-        buffers [P, V*C, n] int32 tensor, (V, C, dim, scale))."""
+    def slot_values(self, raw):
+        """Host side of the fused record: RawMatrix -> (its scaled values
+        [1, dim, V] float64 tensor, a view of `raw.m`, (V, C, dim,
+        scale)); the record body's slot map makes the slot buffers."""
         with trace.span("slot_buffers"):
-            ints, sig = self.slot_ints(raw)
-            bufs = self.factory.encode_bufs(ints)
-            return torch.from_numpy(bufs.view(np.int32)), sig
+            m = np.ascontiguousarray(raw.m, dtype=np.float64)
+            dim, V = m.shape
+            C = slotmap.blocks_of(dim, self.factory.n)
+            return torch.from_numpy(m)[None], (V, C, dim, float(raw.scale))
+
+    def _count_device_slots(self, records: int, V: int, C: int) -> None:
+        """The slots the device encodes for `records` records handed over."""
+        fac = self.factory
+        trace.count("device_encoded_slots", fac.P * records * V * C * fac.n)
 
     def input_matrix(self, datas, dim: int, scale: float) -> HEMatrix:
         """The encrypted input matrix of a record from its columns' data
@@ -353,16 +367,16 @@ class EncryptedForward:
 
     # ------------------------------------------------------- the record
     def record_fn(self, V: int, C: int, dim: int, scale: float):
-        """The fused record body, fn(bufs) -> (output column datas,
-        decoded slots [P, sum C_out, N], encrypted input [P, V*C, 2, k,
-        N]), from the index-mapped slot buffers [P, V*C, n] on the
-        device: encrypt, the layers, decrypt and decode, no host work
+        """The fused record body, fn(x) -> (output column datas, decoded
+        slots [P, sum C_out, N], encrypted input [P, V*C, 2, k, N]), from
+        the reader's values [1, dim, V] float64 on the device: the slot
+        map and encrypt, the layers, decrypt and decode, no host work
         (the counterpart of `fused_record_fn`, `jit.py:130-162`)."""
         fac = self.factory
         key = ("fused", V, C, dim, scale)
 
-        def forward(bufs):
-            data = fac._encrypt_all_dev(bufs)             # [P, V*C, 2, k, N]
+        def forward(x):
+            data = fac._encrypt_values_dev(x)             # [P, V*C, 2, k, N]
             cols = data.reshape(fac.P, V, C, *data.shape[2:])
             m = self._apply_layers(
                 self.input_matrix([cols[:, i] for i in range(V)], dim, scale), key)
@@ -385,20 +399,21 @@ class EncryptedForward:
         return g, None
 
     def _run_fused(self, raw) -> HEMatrix:
-        bufs, (V, C, dim, scale) = self.slot_bufs(raw)
+        x, (V, C, dim, scale) = self.slot_values(raw)
         key = ("fused", V, C, dim, scale)
         if key in self.eager:
             return self._decrypt_into(self.run_encrypted(self.encrypt(raw)))
+        self._count_device_slots(1, V, C)
         g = self._graphs.get(key)
         if g is None:
-            static = bufs.to(self.factory.device)
+            static = x.to(self.factory.device)
             g, warm = self._capture(key, self.record_fn(V, C, dim, scale),
                                     [static], [self.factory._gen])
             if g is None:
                 datas, slots, _ = warm
                 return self._output_matrix(key, datas,
                                            self._split_slots(slots, datas))
-        datas, slots, _ = g.replay(bufs)
+        datas, slots, _ = g.replay(x)
         with trace.span("output"):
             datas = [d.clone() for d in datas]
             split = self._split_slots(slots, datas)      # waits for the replay
@@ -494,18 +509,18 @@ class EncryptedForward:
                 for b in range(cols[0].shape[0])]
 
     def record_batch_fn(self, B: int, V: int, C: int, dim: int, scale: float):
-        """The fused body of B records, fn(bufs) -> (output column datas
+        """The fused body of B records, fn(x) -> (output column datas
         [B, P, C_out, s, k, N] each, decoded slots [P, B * sum C_out, N],
-        encrypted input [B, P, V, C, 2, k, N]), from the B records' slot
-        buffers [P, B*V*C, n] on the device: every column encrypted in one
-        pass, the layers under `torch.func.vmap` over the records, every
-        output decrypted and decoded in one pass (the counterpart of
-        `bench.py:237-366`)."""
+        encrypted input [B, P, V, C, 2, k, N]), from the B records' values
+        [B, dim, V] float64 on the device: every column slot-mapped (one
+        launch) and encrypted in one pass, the layers under
+        `torch.func.vmap` over the records, every output decrypted and
+        decoded in one pass (the counterpart of `bench.py:237-366`)."""
         fac = self.factory
         key = ("batch", B, V, C, dim, scale)
 
-        def forward(bufs):
-            data = fac._encrypt_all_dev(bufs)             # [P, B*V*C, 2, k, N]
+        def forward(x):
+            data = fac._encrypt_values_dev(x)             # [P, B*V*C, 2, k, N]
             data = data.reshape(fac.P, B, V, C, *data.shape[2:]).movedim(1, 0)
             outs = self._vmapped_layers([data[:, :, i] for i in range(V)],
                                         dim, scale, key)
@@ -530,27 +545,28 @@ class EncryptedForward:
                 "the device (every plain prime below 2**31 and below every "
                 "limb); this one encodes on the host: run its records one "
                 "at a time")
-        sigs, bufs = set(), []
+        sigs, xs = set(), []
         for raw in raws:
-            b, sig = self.slot_bufs(raw)
+            x, sig = self.slot_values(raw)
             sigs.add(sig)
-            bufs.append(b)
+            xs.append(x)
         if len(sigs) != 1:
             raise ValueError(f"a record batch needs one signature: {sigs}")
         (V, C, dim, scale), = sigs
-        B = len(bufs)
-        bufs = torch.cat(bufs, dim=1)                     # [P, B*V*C, n]
+        B = len(xs)
+        x = torch.cat(xs)                                 # [B, dim, V]
+        self._count_device_slots(B, V, C)
         key = ("batch", B, V, C, dim, scale)
         fn = self.record_batch_fn(B, V, C, dim, scale)
         g, outs = self._graphs.get(key), None
         if self.graph and g is None and key not in self.eager:
-            g, warm = self._capture(key, fn, [bufs.to(fac.device)], [fac._gen])
+            g, warm = self._capture(key, fn, [x.to(fac.device)], [fac._gen])
             if g is None:                 # the warm-up was this batch's run
                 outs, slots, _ = warm
         if g is not None:
-            outs, slots, _ = g.replay(bufs)
+            outs, slots, _ = g.replay(x)
         elif outs is None:
-            outs, slots, _ = fn(bufs.to(fac.device))
+            outs, slots, _ = fn(x.to(fac.device))
         with trace.span("output"):
             if g is not None:
                 outs = [o.clone() for o in outs]

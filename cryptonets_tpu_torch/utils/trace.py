@@ -4,9 +4,11 @@ Three kinds of record, all in one table (`TABLE`, a `Counter` as
 `opcount.OPS` is), under prefixed keys:
 
 - `count.<name>`: integer counts that always count (`count`): the slot
-  values the host encodes (`host_encoded_slots`), a CUDA graph's nodes a
-  replay (`graph_nodes`, the event-record nodes of the device ranges also
-  apart as `graph_event_nodes`), `graph_captures`, `graph_replays`
+  values the host encodes (`host_encoded_slots`) and those a fused record
+  hands to the device's slot map (`device_encoded_slots`), a CUDA graph's
+  nodes a replay (`graph_nodes`, the event-record nodes of the device
+  ranges also apart as `graph_event_nodes`), `graph_captures`,
+  `graph_replays`
   (`per_request` reads them: a capture inside a served window is a
   rebuild).
 - `span_ms.<name>`, `span_n.<name>`: host milliseconds and entries of a
@@ -195,8 +197,9 @@ def per_request(delta: dict, requests: int, images: int) -> dict:
     before) reads per request or per image: the host stages' ms a request,
     graph nodes a request and a replay, graph replays a request, the
     graphs captured in the window (0 on a warm served path: more is a
-    rebuild), slots the host encoded an image, and device ms an image by
-    kind and over the kinds.  A count or kind that did not move reads 0."""
+    rebuild), slots the host and the device encoded an image, and device
+    ms an image by kind and over the kinds.  A count or kind that did not
+    move reads 0."""
     out = {f"{k[len('span_ms.'):]}_ms_per_request": v / requests
            for k, v in delta.items() if k.startswith("span_ms.")}
     replays = delta.get("count.graph_replays", 0)
@@ -207,8 +210,9 @@ def per_request(delta: dict, requests: int, images: int) -> dict:
         delta.get("count.graph_nodes", 0) / replays if replays else 0.0)
     out["graph_event_nodes_per_request"] = (
         delta.get("count.graph_event_nodes", 0) / requests)
-    out["host_encoded_slots_per_image"] = (
-        delta.get("count.host_encoded_slots", 0) / images)
+    for where in ("host", "device"):
+        out[f"{where}_encoded_slots_per_image"] = (
+            delta.get(f"count.{where}_encoded_slots", 0) / images)
     for kind in KINDS:
         out[f"{kind}_device_ms_per_image"] = delta.get("device_ms." + kind, 0.0) / images
     out["ranges_device_ms_per_request"] = sum(

@@ -38,11 +38,11 @@ device busy time (sum of kernel times), the device's idle share of the
 record's wall time (profiled and unprofiled), the kernel launch count,
 the launches of the hand-written kernels, the device time of the
 butterfly NTT kernels, of the four-step NTT kernels, of the
-contraction, of the multiply-accumulate (K6) and of the base conversion
-(K7), and the kernels that take the most device time.  A profiled window
-with no device records is reported as empty and the record profiled
-again (up to `ATTEMPTS` windows; then the script fails): an empty window
-is never read as 0 busy ms.  Writes the same JSON to
+contraction, of the multiply-accumulate (K6), of the base conversion
+(K7) and of the slot map, and the kernels that take the most device
+time.  A profiled window with no device records is reported as empty
+and the record profiled again (up to `ATTEMPTS` windows; then the script
+fails): an empty window is never read as 0 busy ms.  Writes the same JSON to
 chiprun_out/torch_<network>[_<preset>][_matmul]_breakdown.json.  Fails
 without CUDA.
 """
@@ -140,6 +140,7 @@ def main() -> int:
     from cryptonets_tpu_torch.kernels import modmac as K6
     from cryptonets_tpu_torch.kernels import modmatmul as MM
     from cryptonets_tpu_torch.kernels import ntt as K
+    from cryptonets_tpu_torch.kernels import slotmap as SM
     from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
     from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
     from cryptonets_tpu_torch.nn.forward import evaluation_forward
@@ -194,7 +195,8 @@ def main() -> int:
     stages, layers, kinds = median(0), median(1), median(2)
     total = [r[0]["record"] / 1e3 + r[0].get("join", 0.0) / 1e3 for r in runs]
 
-    tables = (K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES)
+    tables = (K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES,
+              SM.LAUNCHES)
     profiled = profiled_record(
         fwd, sync, lambda: {k: v for t in tables for k, v in t.items()})
     if profiled is None:
@@ -242,6 +244,9 @@ def main() -> int:
         "mod_mac_device_ms": sum(k[1] for k in kernels if "mod_mac_kernel" in k[0]),
         "fast_bconv_device_ms": sum(
             k[1] for k in kernels if "fast_bconv_kernel" in k[0]),
+        # device ms of the slot map (the fused record's slot buffers)
+        "slot_map_device_ms": sum(
+            k[1] for k in kernels if "slot_map_kernel" in k[0]),
         "top_kernels_ms": [
             {"name": k[0][:80], "ms": k[1], "count": k[2]} for k in kernels[:12]
         ],
@@ -251,6 +256,8 @@ def main() -> int:
         print(f"host   {k:32s} {v:10.3f} ms")
     for k, v in layers.items():
         print(f"device {k:32s} {v:10.3f} ms")
+    print(f"slots encoded an image: host {read['host_encoded_slots_per_image']:.0f}, "
+          f"device {read['device_encoded_slots_per_image']:.0f}")
     print(f"peak {peak:.2f} GiB reserved")
     print(json.dumps(result))
     os.makedirs("chiprun_out", exist_ok=True)

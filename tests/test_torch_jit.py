@@ -86,10 +86,19 @@ def tiny(tmp_path_factory):
                 oracle=oracle)
 
 
-def _encrypting(fac, data, monkeypatch):
-    """Make the factory's device encrypt return `data` (the JAX package's
-    ciphertexts), so a record body runs its layers on them."""
-    monkeypatch.setattr(fac, "_encrypt_all_dev", lambda bufs: data)
+def _encrypting(fac, data, monkeypatch) -> list:
+    """Make the factory's device encrypt of the reader's values return
+    `data` (the JAX package's ciphertexts), so a record body runs its
+    layers on them; the values it was handed are kept in the list
+    returned."""
+    handed = []
+
+    def encrypt(x):
+        handed.append(x)
+        return data
+
+    monkeypatch.setattr(fac, "_encrypt_values_dev", encrypt)
+    return handed
 
 
 def test_record_fn_layers_bit_equal_to_jax_jit(tiny, monkeypatch):
@@ -98,7 +107,7 @@ def test_record_fn_layers_bit_equal_to_jax_jit(tiny, monkeypatch):
     oracle."""
     fwd, fac = tiny["fwd"], tiny["fac"]
     jfwd = JaxForward(tiny["jhead"], jit=True)
-    bufs, (V, C, dim, scale) = fwd.slot_bufs(tiny["raws"][0])
+    x, (V, C, dim, scale) = fwd.slot_values(tiny["raws"][0])
     cols = [b[0] for b in tiny["batched"]]                 # [P, C, 2, k, N] each
     jf = jfwd.encrypt_layer.factory
     jin = JMatrix(jf, [JVector(jf, data=jnp.asarray(c.numpy().view(np.uint32)),
@@ -106,9 +115,13 @@ def test_record_fn_layers_bit_equal_to_jax_jit(tiny, monkeypatch):
     jout = jfwd.run_encrypted(jin)
 
     data = torch.stack(cols, dim=1).reshape(fac.P, V * C, *cols[0].shape[2:])
-    _encrypting(fac, data, monkeypatch)
-    datas, slots, enc = fwd.record_fn(V, C, dim, scale)(bufs)
+    handed = _encrypting(fac, data, monkeypatch)
+    datas, slots, enc = fwd.record_fn(V, C, dim, scale)(x)
     assert enc is data
+    # the body's slot map of what it was handed: JAX's slot buffers
+    jbufs, jsig = jfwd.slot_bufs(tiny["raws"][0])
+    assert jsig == (V, C, dim, scale) and len(handed) == 1
+    assert torch.equal(fac.slot_map(handed[0]), _port(jbufs))
     assert len(datas) == len(jout.vectors) == 1
     np.testing.assert_array_equal(datas[0].numpy().view(np.uint32),
                                   np.asarray(jout.vectors[0].data))
@@ -133,7 +146,7 @@ def test_record_batch_bit_equal_to_jax_vmap_and_eager_loop(tiny, monkeypatch):
     C = batched[0].shape[2]
     data = torch.stack(batched, dim=2)                       # [B, P, V, C, 2, k, N]
     flat = data.movedim(0, 1).reshape(fac.P, B * V * C, *data.shape[4:])
-    _encrypting(fac, flat, monkeypatch)
+    handed = _encrypting(fac, flat, monkeypatch)
 
     OPS.reset()
     ones = [fwd.run_encrypted(fwd.input_matrix([b[r] for b in batched],
@@ -144,6 +157,9 @@ def test_record_batch_bit_equal_to_jax_vmap_and_eager_loop(tiny, monkeypatch):
     outs = fwd.run_batch(tiny["raws"])
     counts = OPS.reset()
     assert counts == {k: B * v for k, v in per_record.items()}
+    # one slot map of the B records' values: JAX's slot buffers, in order
+    jbufs = torch.cat([_port(tiny["jfwd"].slot_bufs(r)[0]) for r in tiny["raws"]], dim=1)
+    assert len(handed) == 1 and torch.equal(fac.slot_map(handed[0]), jbufs)
     jouts = tiny["jouts"]                                     # [B, P, C, s, k, N] a column
     assert len(outs) == B and len(jouts) == 1
     for r, (out, one) in enumerate(zip(outs, ones)):
@@ -168,9 +184,9 @@ def test_run_batch_own_encryption_matches_oracle():
     fwd = EncryptedForward(head)
     fwd.reader.set_source_records(dryrun.records_for(3, seed=12))
     raws = list(iter(fwd.reader.get_next, None))
-    bufs = torch.cat([fwd.slot_bufs(r)[0] for r in raws], dim=1)
+    x = torch.cat([fwd.slot_values(r)[0] for r in raws])     # [3, dim, V]
     V, C, dim, scale = fwd.slot_ints(raws[0])[1]
-    outs, slots, data = fwd.record_batch_fn(3, V, C, dim, scale)(bufs)
+    outs, slots, data = fwd.record_batch_fn(3, V, C, dim, scale)(x)
     for r in range(3):
         one = fwd.run_encrypted(fwd.input_matrix([data[r][:, i] for i in range(V)],
                                                  dim, scale))

@@ -5,17 +5,19 @@ On the CPU, on the tiny LoLa of `parallel/dryrun.py` (n = 256) with one
 torch thread: tracing off costs no profiler call and leaves the table as
 it is; under `torch.profiler` the pipeline's spans and ranges lie inside
 the record's span, which carries the record's number; the host slot
-encode counts P x rows x n; what `trace.per_request` reads of a window's
-table (graph replays, captures and nodes among it); the layer kinds of
-LoLa and CryptoNets.
+encode counts P x rows x n, and a record batch's slot map counts its
+device slots and no host slots; what `trace.per_request` reads of a
+window's table (graph replays, captures and nodes among it, host and
+device slots); the layer kinds of LoLa and CryptoNets.
 
 The `cuda`-marked cases need the card (a graph cannot be captured on the
 CPU) and run there with `python -m pytest --noconftest
 tests/test_torch_trace.py -q -m cuda`: logits bit-equal with and without
 the ranges' event nodes, the graph's node count against one replay's
-device operations and a warm window's replays and captures, the ranges'
-device time against the replay's device
-span and busy time, and the TimingLayer's "Batch-Time"."""
+device operations and a warm window's replays and captures, a warm
+window's slots encoded on the device and none on the host, the ranges'
+device time against the replay's device span and busy time, and the
+TimingLayer's "Batch-Time"."""
 
 import json
 
@@ -143,6 +145,32 @@ def test_per_request_reads_replays_captures_and_a_true_zero():
     assert read["host_encoded_slots_per_image"] == read["conv_device_ms_per_image"] == 0
 
 
+def test_per_request_reads_host_and_device_encoded_slots():
+    delta = {"count.device_encoded_slots": 4 * 819200, "count.graph_replays": 4}
+    read = trace.per_request(delta, 4, 4)
+    assert read["device_encoded_slots_per_image"] == 819200
+    assert read["host_encoded_slots_per_image"] == 0
+    read = trace.per_request({"count.host_encoded_slots": 6 * 2352,
+                              "count.device_encoded_slots": 3 * 8192 * 2352}, 3, 3 * 8192)
+    assert read["host_encoded_slots_per_image"] == 6 * 2352 / (3 * 8192)
+    assert read["device_encoded_slots_per_image"] == 2352
+
+
+def test_a_record_batch_counts_device_slots_not_host(tiny):
+    """The fused body takes the reader's values and slot-maps them on its
+    device (here the CPU twin): P x records x V x C x n device slots, no
+    host slots, where the eager record's host buffers count as many."""
+    fwd, fac = tiny
+    raws = [fwd.reader.get_next() for _ in range(2)]
+    ints, (V, C, _, _) = fwd.slot_ints(raws[0])
+    before = trace.snapshot()
+    fwd.run_batch(raws)
+    delta = {k: v - before.get(k, 0) for k, v in trace.snapshot().items()}
+    assert delta.get("count.host_encoded_slots", 0) == 0
+    assert delta["count.device_encoded_slots"] == 2 * fac.P * ints.size == (
+        fac.P * 2 * V * C * fac.n)
+
+
 def _kinds(head):
     return [layer.kind for layer in split_at_encrypt(head)[1]]
 
@@ -252,6 +280,24 @@ def test_graph_nodes_are_a_replays_device_operations_and_events(lola_cuda):
     mine = [e for e in ops if e["args"].get("correlation") == launch]
     others = sorted(e["name"][:60] for e in ops if e["args"].get("correlation") != launch)
     assert len(mine) + g.nodes["event_record"] == g.nodes.total(), (dict(g.nodes), others)
+
+
+@pytest.mark.cuda
+def test_warm_window_encodes_on_the_device(lola_cuda):
+    """A warm LoLa window: the slot buffers are made by the slot map inside
+    the replay, 819,200 device slots an image (4 primes x 25 columns x
+    8192), none on the host, one slot-map launch a record."""
+    from cryptonets_tpu_torch.kernels import slotmap
+
+    fwds, reader, images = lola_cuda
+    before, launches = trace.snapshot(), slotmap.LAUNCHES["slot_map"]
+    _logits(fwds[True], reader, images[:3])
+    read = trace.per_request(
+        {k: v - before.get(k, 0) for k, v in trace.snapshot().items()}, 3, 3)
+    assert read["host_encoded_slots_per_image"] == 0
+    assert read["device_encoded_slots_per_image"] == 819200
+    assert read["graph_captures"] == 0
+    assert slotmap.LAUNCHES["slot_map"] - launches == 3
 
 
 @pytest.mark.cuda
