@@ -19,6 +19,15 @@ support), else over every giant index, zero chunks included (dense
 support).  The diagonal plaintexts are encoded on the device per record
 (Z_t inverse NTT + NTT_q + Montgomery), one giant chunk at a time, from a
 slot table that stays on the host.
+
+Counts (`utils/opcount.OPS`, beside the reference's `rotation`): the
+diagonal plaintext forms encoded, P x g x F a giant chunk
+(`bsgs_diagonal_form`), and the baby steps by how they ran, F x (g - 1)
+a layer (`baby_rotation_hoisted`, `baby_rotation_chained`).  Device
+ranges (`utils/trace.py`) inside the layer's own: `babies` (the F = 2
+column rotation and the baby stack) and `giants` (the giant loop: the
+diagonals' encode, K6, the giant rotations), kinds outside
+`trace.KINDS`, so they are not summed twice with the layer's.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from ..crypto.modular import add_mod
 from ..kernels.modmac import mod_mac
+from ..utils import trace
 from ..utils.opcount import OPS
 
 BABY_CHUNK = 16  # babies a K6 launch (bounds the twin's int64 temporaries)
@@ -188,6 +198,7 @@ def _hoisted_babies_hat(fac, ub, g):
         dhat = p.ntt_q.forward(bfv0._decompose_digits(c1_all))  # [kD, P, F, k, N]
     perms, k0s, k1s = fac.stacked_baby_rotations(g)       # keys [g-1, J, k, N]
     J, P, F, L, N = dhat.shape
+    OPS.count("baby_rotation_hoisted", F * (g - 1))
     a = dhat.reshape(J, 1, P * F, L, N)
     c0 = c0_hat.reshape(1, 1, P * F, L, N)
     rots = []
@@ -206,6 +217,7 @@ def _chained_babies_hat(fac, ub, g):
     single-step rotations, then one forward NTT of all of them:
     bab_hat [P, g, F, 2, k, N]."""
     bfv0 = fac.bfv[0]
+    OPS.count("baby_rotation_chained", ub.shape[1] * (g - 1))
     babies, cur = [ub], ub
     for _ in range(1, g):
         cur = bfv0.rotate_rows(cur, 1, fac.keys)
@@ -215,7 +227,8 @@ def _chained_babies_hat(fac, ub, g):
 
 def bsgs_matvec(form: BsgsDenseForm, data):
     """Apply the prepared form to ciphertext data [P, 1, 2, k, N] ->
-    [P, 1, 2, k, N], y[i] in flat slot i."""
+    [P, 1, 2, k, N], y[i] in flat slot i: the babies, then the giant
+    loop, each in its device range."""
     fac = form.factory
     bfv0 = fac.bfv[0]
     p = bfv0.p
@@ -226,18 +239,19 @@ def bsgs_matvec(form: BsgsDenseForm, data):
         raise ValueError("BSGS form has no nonzero diagonals")
 
     u = data[:, 0]                                        # [P, 2, k, N]
-    if F == 2:
-        OPS.count("rotation", 1)
-        ub = torch.stack([u, bfv0.rotate_columns(u, keys)], dim=1)
-    else:
-        ub = u[:, None]
-    # g - 1 baby rotations either way (the reference's scanned chain for
-    # g > 8 runs and counts g, the last one discarded)
-    OPS.count("rotation", F * (g - 1))
-    if hoist_eligible(fac, g):
-        bab_hat = _hoisted_babies_hat(fac, ub, g)         # [P, g, F, 2, k, N]
-    else:
-        bab_hat = _chained_babies_hat(fac, ub, g)
+    with trace.device_range("babies", "babies"):
+        if F == 2:
+            OPS.count("rotation", 1)
+            ub = torch.stack([u, bfv0.rotate_columns(u, keys)], dim=1)
+        else:
+            ub = u[:, None]
+        # g - 1 baby rotations either way (the reference's scanned chain
+        # for g > 8 runs and counts g, the last one discarded)
+        OPS.count("rotation", F * (g - 1))
+        if hoist_eligible(fac, g):
+            bab_hat = _hoisted_babies_hat(fac, ub, g)     # [P, g, F, 2, k, N]
+        else:
+            bab_hat = _chained_babies_hat(fac, ub, g)
 
     def chunk_acc(a):
         """Giant chunk a -> coefficient-domain acc [P, 2, k, N]: the sum
@@ -245,6 +259,7 @@ def bsgs_matvec(form: BsgsDenseForm, data):
         K6 over the g babies where they lie in bab_hat (one launch a flip
         f, the second accumulating onto the first)."""
         forms = _encode_diag_chunk(fac, form.chunk(a), form.t_col)  # [P, g, F, k, N]
+        OPS.count("bsgs_diagonal_form", fac.P * g * F)
         acc_hat = None
         for f in range(F):
             x = bab_hat[:, :, f].transpose(0, 1)              # [g, P, 2, k, N]
@@ -253,27 +268,29 @@ def bsgs_matvec(form: BsgsDenseForm, data):
                               None if acc_hat is None else (acc_hat[None],))[0, :, :, 0]
         return p.ntt_q.inverse(acc_hat)
 
-    if len(form.active) > max(4, G // 4):
-        # dense support: every giant step, zero chunks included, from a
-        # zero accumulator (G key switches, the first of a zero ciphertext)
-        OPS.count("plain_multiplication", g * F * G)
-        OPS.count("rotation", G)
-        z = torch.zeros_like(u)
-        for a in reversed(range(G)):
-            z = add_mod(bfv0.rotate_rows(z, g, keys), chunk_acc(a), q)
+    with trace.device_range("giants", "giants"):
+        if len(form.active) > max(4, G // 4):
+            # dense support: every giant step, zero chunks included, from
+            # a zero accumulator (G key switches, the first of a zero
+            # ciphertext)
+            OPS.count("plain_multiplication", g * F * G)
+            OPS.count("rotation", G)
+            z = torch.zeros_like(u)
+            for a in reversed(range(G)):
+                z = add_mod(bfv0.rotate_rows(z, g, keys), chunk_acc(a), q)
+            return z[:, None]
+        # sparse support: Horner over the non-zero giant chunks, last
+        # first (counted as the reference counts it: a rotation a chunk)
+        OPS.count("plain_multiplication", g * F * len(form.active))
+        OPS.count("rotation", len(form.active))
+        z, prev = None, None
+        for a in reversed(form.active):
+            acc = chunk_acc(a)
+            if z is None:
+                z = acc
+            else:
+                z = add_mod(bfv0.rotate_rows(z, g * (prev - a), keys), acc, q)
+            prev = a
+        if prev:
+            z = bfv0.rotate_rows(z, g * prev, keys)
         return z[:, None]
-    # sparse support: Horner over the non-zero giant chunks, last first
-    # (counted as the reference counts it: a rotation a chunk)
-    OPS.count("plain_multiplication", g * F * len(form.active))
-    OPS.count("rotation", len(form.active))
-    z, prev = None, None
-    for a in reversed(form.active):
-        acc = chunk_acc(a)
-        if z is None:
-            z = acc
-        else:
-            z = add_mod(bfv0.rotate_rows(z, g * (prev - a), keys), acc, q)
-        prev = a
-    if prev:
-        z = bfv0.rotate_rows(z, g * prev, keys)
-    return z[:, None]

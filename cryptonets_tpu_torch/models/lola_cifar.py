@@ -7,15 +7,20 @@ Dense(10) over the 5488 outputs (per-row dots), over the `cifar` preset
 (n = 16384, thirteen data limbs, one special prime, three ~30-bit plain
 primes).  Under `cifar_bigt` (the reference's two plain primes near
 2**40, encoded on the host) the conv-as-dense runs as 5488 per-row dots
-with a forced dense output instead of BSGS.  The upstream weight blob (CifarWeight.csv) is missing: the
-weights are the reference's seeded stand-ins unless two CSV files are
-given.
+with a forced dense output instead of BSGS.  The upstream weight blob
+(CifarWeight.csv) is missing: the weights are the reference's seeded
+stand-ins (`cifar_weights`) unless they are handed over as arrays
+(`weights=`, a dict of `WEIGHT_NAMES`: the benchmark's route, which
+serves the same arrays that its plain reference computes with, from
+`hebench/weights/lola-cifar10-standin.npz`) or read from two CSV files.
 
 CLI: python -m cryptonets_tpu_torch.models.lola_cifar [-e] [--records K]
      [--preset cifar|cifar_bigt] [--data FILE] [--weights-csv W
      --bias-csv B] [--device cpu] [--no-graph]
 (each record one CUDA graph replay on the card unless `--no-graph` or
-`-v` is given)
+`-v` is given; the command line takes the stand-ins or the CSV files,
+and the benchmark's arrays reach `build` as `weights=`:
+`python3 -m hebench.run --workload lola-cifar10-3p.single ...`)
 It runs on the card unless `--device cpu` is given; run the encrypted
 network on a GPU only.
 """
@@ -36,14 +41,25 @@ from ..nn.lola import LLDenseLayer, LLPoolLayer, LLVectorizeLayer
 from ..nn.readers import LLConvReader, WeightsReader
 from .presets import make_factory
 
+# the arrays of the network: conv1 [83, 3, 8, 8] and its bias, the
+# conv-as-dense's conv [112, 83, 10, 10] and its bias, Dense(10) [10, 5488]
+# and its bias, each flat
+WEIGHT_NAMES = ("w0", "b0", "w1", "b1", "w2", "b2")
 GEOMETRY = dict(input_shape=[3, 32, 32], kernel_shape=[3, 8, 8],
                 upper_padding=[0, 1, 1], lower_padding=[0, 1, 1],
                 stride=[1000, 2, 2])
 
 
-def cifar_weights(weights_csv=None, bias_csv=None):
-    """(w0, b0, w1, b1, w2, b2): from the two local CSV files, else the
-    reference's seeded stand-ins (seed 3)."""
+def cifar_weights(weights_csv=None, bias_csv=None, weights: dict | None = None):
+    """(w0, b0, w1, b1, w2, b2): the arrays of `weights` by
+    `WEIGHT_NAMES`, or from the two local CSV files, else the reference's
+    seeded stand-ins (seed 3)."""
+    if weights is not None:
+        if weights_csv or bias_csv:
+            raise ValueError("weights come from the arrays or from the CSV "
+                             "files, not both")
+        return tuple(np.asarray(weights[k], dtype=np.float64).ravel()
+                     for k in WEIGHT_NAMES)
     if weights_csv and bias_csv:
         wr = WeightsReader(weights_csv, bias_csv)
         return tuple(np.asarray(a) for i in range(3)
@@ -60,17 +76,20 @@ def cifar_weights(weights_csv=None, bias_csv=None):
 
 def build(encrypt: bool = True, records=None, file_name=None, seed: int = 0,
           weights_csv=None, bias_csv=None, device=None, keys=None,
-          ntt_impl: str | None = None, preset: str = "cifar"):
+          ntt_impl: str | None = None, preset: str = "cifar",
+          weights: dict | None = None):
     """(head, factory, reader) of LoLa-CIFAR over `preset` ("cifar" or
     "cifar_bigt").  The factory carries a single-hop Galois key for -196
     (14 x 14 windows a conv map), so the 83-piece Vectorize runs its
-    uniform runs as Horner loops."""
+    uniform runs as Horner loops.  `weights` (arrays by `WEIGHT_NAMES`)
+    or the two CSV files replace the seeded stand-ins; the reader takes
+    records of 3 x 32 x 32 pixel values, channel-major."""
     factory = make_factory(
         preset, encrypt, seed, device=device, ntt_impl=ntt_impl,
         rot_steps=(-196,),
         **({"keys": keys} if encrypt and keys is not None else {}),
     )
-    w0, b0, w1, b1, w2, b2 = cifar_weights(weights_csv, bias_csv)
+    w0, b0, w1, b1, w2, b2 = cifar_weights(weights_csv, bias_csv, weights)
     reader = LLConvReader(
         make_factory(preset, False), file_name=file_name, sparse_format=False,
         normalization_factor=1.0 / 256.0, scale=8.0, **GEOMETRY,

@@ -49,6 +49,9 @@ PREFIX = "cryptonets_tpu_torch."
 # the kinds of the network's device ranges, which tile a record's device
 # work; a TimingLayer's range ("timing") spans layers and is left out
 KINDS = ("encrypt", "conv", "dense", "square", "vectorize", "packing", "decrypt")
+# the kinds of ranges inside a layer's range (a BSGS dense layer's babies
+# and giant loop, `api/bsgs.py`): read apart, never summed with `KINDS`
+SUBKINDS = ("babies", "giants")
 TABLE: Counter = Counter()
 _NULL = contextlib.nullcontext()
 _record = torch._C._profiler._RecordFunctionFast
@@ -124,7 +127,8 @@ class _Captured:
 
 def device_range(name: str, kind: str | None):
     """The device work of a stretch of the record, `name` of kind `kind`
-    (`KINDS`, or "timing"); a layer of no kind (None) takes none."""
+    (`KINDS`, `SUBKINDS` or "timing"); a layer of no kind (None) takes
+    none."""
     if kind is None:
         return _NULL
     if _ranges is not None:
@@ -198,7 +202,8 @@ def per_request(delta: dict, requests: int, images: int) -> dict:
     graph nodes a request and a replay, graph replays a request, the
     graphs captured in the window (0 on a warm served path: more is a
     rebuild), slots the host and the device encoded an image, and device
-    ms an image by kind and over the kinds.  A count or kind that did not
+    ms an image by kind and over the kinds, and by the kinds inside a
+    layer (`SUBKINDS`, outside that sum).  A count or kind that did not
     move reads 0."""
     out = {f"{k[len('span_ms.'):]}_ms_per_request": v / requests
            for k, v in delta.items() if k.startswith("span_ms.")}
@@ -213,7 +218,7 @@ def per_request(delta: dict, requests: int, images: int) -> dict:
     for where in ("host", "device"):
         out[f"{where}_encoded_slots_per_image"] = (
             delta.get(f"count.{where}_encoded_slots", 0) / images)
-    for kind in KINDS:
+    for kind in KINDS + SUBKINDS:
         out[f"{kind}_device_ms_per_image"] = delta.get("device_ms." + kind, 0.0) / images
     out["ranges_device_ms_per_request"] = sum(
         delta.get("device_ms." + kind, 0.0) for kind in KINDS) / requests

@@ -25,10 +25,13 @@ record) with the port's tracing on (`utils/trace.py`, no profiler): the
 stages' host ms from the spans (reader, slot buffers or the host's slot
 encode, upload, replay, output, the host's slot decode, join; `record`
 around them) and the layers' device ms from the device ranges inside the
-graph (encrypt, each layer, decrypt + decode), each the median over the
-records, and what `trace.per_request` reads of the table over them
-(graph replays and nodes a record, and the graphs captured among them,
-which must be 0: one is a rebuild).  A network whose graph holds the
+graph (encrypt, each layer, decrypt + decode; inside each BSGS dense
+layer its `babies` and `giants` ranges, summed over the BSGS layers),
+each the median over the records, and what `trace.per_request` reads of
+the table over them (graph replays and nodes a record, and the graphs
+captured among them, which must be 0: one is a rebuild), and the BSGS
+counts a record (`OPS`: diagonal forms encoded, chained and hoisted
+baby steps).  A network whose graph holds the
 layers only (the host encodes)
 has encrypt and decrypt outside it, so they read no device ms; one whose
 pool does not fit runs eagerly and reads none.  Prints them and the peak
@@ -145,6 +148,7 @@ def main() -> int:
     from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
     from cryptonets_tpu_torch.nn.forward import evaluation_forward
     from cryptonets_tpu_torch.utils import trace
+    from cryptonets_tpu_torch.utils.opcount import OPS
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -176,11 +180,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     trace.enable()
     try:
-        before = trace.snapshot()
+        before, ops = trace.snapshot(), OPS.snapshot()
         runs = [traced_record(fwd, trace) for _ in range(args.records)]
         read = trace.per_request(
             {k: v - before.get(k, 0) for k, v in trace.snapshot().items()},
             args.records, args.records * per_record)
+        bsgs = {k: (v - ops.get(k, 0)) / args.records
+                for k, v in OPS.snapshot().items()
+                if k in ("bsgs_diagonal_form", "baby_rotation_chained",
+                         "baby_rotation_hoisted")}
     finally:
         trace.enable(False)
     if read["graph_captures"]:
@@ -219,6 +227,7 @@ def main() -> int:
         "layer_device_ms_median": layers,
         "kind_device_ms_median": kinds,
         "read": read,
+        "bsgs_ops_per_record": bsgs,
         "profiled_record_wall_ms": 1e3 * wall,
         "profiled_window": window,
         "device_busy_ms": busy_ms,
@@ -256,6 +265,9 @@ def main() -> int:
         print(f"host   {k:32s} {v:10.3f} ms")
     for k, v in layers.items():
         print(f"device {k:32s} {v:10.3f} ms")
+    print(f"BSGS a record: babies {kinds.get('babies', 0.0):.3f} ms, giants "
+          f"{kinds.get('giants', 0.0):.3f} ms (device), "
+          + ", ".join(f"{k} {v:.0f}" for k, v in sorted(bsgs.items())))
     print(f"slots encoded an image: host {read['host_encoded_slots_per_image']:.0f}, "
           f"device {read['device_encoded_slots_per_image']:.0f}")
     print(f"peak {peak:.2f} GiB reserved")

@@ -63,16 +63,19 @@ class _Port:
         tlola.LLPoolLayer, tlola.LLVectorizeLayer, tlola.LLDenseLayer)
 
 
+def _chain_weights() -> dict:
+    """The reduced chain's arrays, flat: conv [27, 3, 3, 3] and its bias,
+    the conv-as-dense's conv [4, 27, 2, 2] and its bias, Dense(10)
+    [10, 64] and its bias."""
+    rng = np.random.default_rng(5)
+    sizes = dict(w0=MAPS * 27, b0=MAPS, w1=4 * MAPS * 4, b1=4, w2=10 * 64, b2=10)
+    return {k: rng.integers(-2, 3, v).astype(float) for k, v in sizes.items()}
+
+
 def _cifar_chain(L, factory, raw_factory, records):
     """Conv (27 maps, bias) -> Vectorize (243) -> Square -> conv-as-dense
     (64 outputs, BSGS, F = 2) -> Square -> Dense(10)."""
-    rng = np.random.default_rng(5)
-    w0 = rng.integers(-2, 3, MAPS * 27).astype(float)
-    b0 = rng.integers(-2, 3, MAPS).astype(float)
-    w1 = rng.integers(-2, 3, 4 * MAPS * 4).astype(float)
-    b1 = rng.integers(-2, 3, 4).astype(float)
-    w2 = rng.integers(-2, 3, 10 * 64).astype(float)
-    b2 = rng.integers(-2, 3, 10).astype(float)
+    w0, b0, w1, b1, w2, b2 = _chain_weights().values()
     reader = L.LLConvReader(raw_factory, sparse_format=False,
                             normalization_factor=1.0, scale=2.0, **GEO)
     reader.set_source_records([(lb, f.copy()) for lb, f in records])

@@ -145,6 +145,17 @@ def test_per_request_reads_replays_captures_and_a_true_zero():
     assert read["host_encoded_slots_per_image"] == read["conv_device_ms_per_image"] == 0
 
 
+def test_per_request_reads_the_bsgs_ranges_apart():
+    """A BSGS layer's `babies` and `giants` lie inside its `dense` range:
+    read by image, never added to the ranges' sum."""
+    delta = {"device_ms.dense": 10.0, "device_ms.babies": 1.0,
+             "device_ms.giants": 8.0, "device_ms.square": 2.0}
+    read = trace.per_request(delta, 2, 2)
+    assert read["babies_device_ms_per_image"] == 0.5
+    assert read["giants_device_ms_per_image"] == 4.0
+    assert read["ranges_device_ms_per_request"] == 6.0
+
+
 def test_per_request_reads_host_and_device_encoded_slots():
     delta = {"count.device_encoded_slots": 4 * 819200, "count.graph_replays": 4}
     read = trace.per_request(delta, 4, 4)
@@ -233,10 +244,15 @@ def test_event_nodes_leave_logits_bit_equal(lola_cuda):
     for a, b in zip(with_r, without):
         assert a.dtype == object and np.array_equal(a, b)
     g, h = _graph(fwds[True]), _graph(fwds[False])
-    ranged = sum(layer.kind is not None for layer in fwds[True].layers)
-    assert g.nodes["event_record"] == 2 * (ranged + 2)
+    layers = fwds[True].layers
+    ranged = sum(layer.kind is not None for layer in layers)
+    # each BSGS dense layer holds two ranges of its own, babies and giants
+    bsgs = sum(getattr(layer, "bsgs_form", None) is not None for layer in layers)
+    assert bsgs == 2
+    events = 2 * (ranged + 2 + 2 * bsgs)
+    assert g.nodes["event_record"] == events
     assert h.nodes["event_record"] == 0
-    assert g.nodes.total() - h.nodes.total() == 2 * (ranged + 2)
+    assert g.nodes.total() - h.nodes.total() == events
 
 
 def _replay_trace(g):
