@@ -204,7 +204,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
-PHASES = ("build", "ntt", "mmntt", "contract", "fused", "slotmap", "bigt", "lola",
+PHASES = ("build", "ntt", "lift", "mmntt", "contract", "fused", "slotmap", "bigt", "lola",
           "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
@@ -453,6 +453,121 @@ def ntt_shape_case(shape, tab, gen, err: dict, names=("ntt_forward",
         f"launch, events over back-to-back calls / profiler device time / "
         f"bound: {line}")
     return x, y, entries
+
+
+def lift_bound(src_rows: int, L: int, n: int, inverse: bool) -> dict:
+    """The least time for one lift launch of `src_rows` source rows of n
+    over L limbs (`kernels/ntt.cu`, the lift load): bytes, each source
+    coefficient read once and each of the L outputs written once, the limb
+    tables (twiddles, companions, the scale pair) and moduli; operations,
+    `ntt_bound`'s of the L src_rows output rows, the scale by R mod q (or
+    n^-1) a product."""
+    rows = src_rows * L
+    logn = n.bit_length() - 1
+    nbytes = 4 * src_rows * n + 4 * rows * n + 2 * L * n * 4 + L * 4 + 8 * L
+    products = rows * (n // 2) * logn + rows * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * products / INT32_MUL_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=1e3 * t_bytes, int32_ops_ms=1e3 * t_ops,
+                design_ops_ms=1e3 * 3 * products / INT32_MUL_PER_S, bytes=nbytes)
+
+
+def ntt_lift_case(name: str, src_rows: int, tab, gen, launches: int = 50,
+                  where: str = "") -> dict:
+    """One lift load at one launch shape: source rows [src_rows, n] as the
+    BSGS encode gives them (the forward: values in [0, 2**31) with a row of
+    2**31 - 1 and one of zeros; the inverse: values in (-t, t), t the
+    smallest modulus, with rows of t - 1, -(t - 1) and 0) bit-equal to the
+    plain twin, then timed (events and profiler device time) beside
+    `lift_bound`.  Returns its entry."""
+    from cryptonets_tpu_torch.kernels import ntt as K
+
+    L, n = tab.psi.shape
+    inverse = name == "ntt_inverse_lift"
+    dev = tab.q.device
+    if inverse:
+        t = int(tab.q.min())
+        x = torch.randint(-t + 1, t, (src_rows, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        edges = (t - 1, -(t - 1), 0)
+    else:
+        x = torch.randint(0, 1 << 31, (src_rows, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+        edges = ((1 << 31) - 1, 0)
+    for i, v in enumerate(edges[:src_rows]):
+        x[i] = v
+    launch = K.ntt_inverse_lift if inverse else K.ntt_forward_lift
+    twin = K.ntt_inverse_lift_plain if inverse else K.ntt_forward_lift_plain
+    y, ref = launch(x, tab), twin(x, tab)
+    torch.cuda.synchronize()
+    err = int((y.long() - ref.long()).abs().max())
+    del y, ref
+    if err:
+        raise SystemExit(f"{name} disagrees with its twin at {where} [{src_rows}, "
+                         f"{n}] over {L} limbs: max error {err}")
+    kernel = "ntt_inverse_kernel" if inverse else "ntt_forward_kernel"
+    e = dict(where=where, shape=[src_rows, n], limbs=L, max_abs_err=err,
+             ms=event_ms(lambda: launch(x, tab), launches=launches),
+             device_ms=device_ms(lambda: launch(x, tab), kernel, launches=launches),
+             **lift_bound(src_rows, L, n, inverse))
+    e["ratio"] = e["device_ms"] / e["bound_ms"]
+    log(f"{name} {where} [{src_rows}, {n}] over {L} limbs: bit-equal to twin, "
+        f"edge rows too; events {e['ms']:.4f} / device {e['device_ms']:.4f} / "
+        f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} ({e['bytes'] / 1e6:.1f} "
+        f"MB; {e['ratio']:.2f}x)")
+    return e
+
+
+# the BSGS diagonal encode's lift launches: (where, n, limbs, plain primes,
+# source rows of the inverse = g F; the forward's are P g F)
+LIFT_SHAPES = (("CIFAR giant chunk", 16384, 13, 3, 128),
+               ("LoLa Dense(100) chunk", 8192, 7, 4, 64),
+               ("LoLa Dense(10) chunk", 8192, 7, 4, 32))
+
+
+def lift_phase(dev) -> list[dict]:
+    """Both lift loads bit-equal to their twins and timed beside their
+    bounds at the BSGS encode's shapes (`LIFT_SHAPES`), on the chains of
+    the presets `cifar` and `lola`; each instance's registers, spills and
+    blocks an SM."""
+    from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
+    from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
+    from cryptonets_tpu_torch.kernels import ntt as K
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    entries = {name: [] for name in LIFT_KERNELS}
+    instances = {}
+    for where, n, L, P, gF in LIFT_SHAPES:
+        logn = n.bit_length() - 1
+        preset = CONFIGS["cifar" if n == 16384 else "lola"]
+        plain = preset["plain_primes"]
+        assert len(plain) == P, (where, plain)
+        tab = get_ntt_context(n, default_coeff_modulus_128(n)[:L]).tables(dev)
+        ptab = get_ntt_context(n, plain).tables(dev)
+        for name in LIFT_KERNELS:
+            inverse = name == "ntt_inverse_lift"
+            key = f"{name}<{logn}>"
+            if key not in instances:
+                instances[key] = K.kernel_info(logn, inverse, lift=True)
+                log(f"{key}: {instances[key]}")
+            entries[name].append(ntt_lift_case(
+                name, gF if inverse else P * gF, ptab if inverse else tab, gen,
+                where=where))
+    keep = ("where", "shape", "limbs", "ms", "device_ms", "bound_ms", "bound_by",
+            "ratio")
+    return [dict(name=name, route="cuda",
+                 source="cryptonets_tpu_torch/kernels/ntt.cu",
+                 # none: it replaces the XLA glue of the BSGS encode
+                 replaces=None,
+                 max_abs_err=max(e["max_abs_err"] for e in entries[name]),
+                 library_ms=None,
+                 **{k: entries[name][0][k] for k in keep if k != "where"},
+                 shapes=[{k: e[k] for k in keep} for e in entries[name]],
+                 instances={k: v for k, v in instances.items() if k.startswith(name)})
+            for name in LIFT_KERNELS]
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -1291,6 +1406,7 @@ def slotmap_phase(dev) -> list[dict]:
 
 # ---------------------------------------------------------------- slices
 BUTTERFLY_KERNELS = ("ntt_forward", "ntt_inverse")
+LIFT_KERNELS = ("ntt_forward_lift", "ntt_inverse_lift")   # their lift loads
 MATMUL_KERNELS = ("matmul_ntt_forward", "matmul_ntt_inverse")
 
 
@@ -1326,15 +1442,16 @@ def check_launches(where: str, launched: dict, expect, absent=()) -> None:
 
 
 class LaunchShapes:
-    """Within `with`, records every kernel launch by shape: K1/K2 and K5
-    with their tables, K4 with its weights and moduli, K6, K7 and the slot
-    map by the layouts of their operands (`mac_spec`, `bconv_spec`,
-    `slotmap_spec`).  A path's own
+    """Within `with`, records every kernel launch by shape: K1/K2 (and
+    their lift loads, by source rows) and K5 with their tables, K4 with
+    its weights and moduli, K6, K7 and the slot map by the layouts of
+    their operands (`mac_spec`, `bconv_spec`, `slotmap_spec`).  A path's own
     launch shapes, read off its run for the kernel check that follows the
     paths (`launch_shape_phase`)."""
 
     def __init__(self):
         self.ntt = {}        # (shape, id(tables)) -> (tables, {kernel names})
+        self.lift = {}       # (name, source shape, id(tables)) -> tables
         self.mmntt = {}      # the same for K5
         self.contract = {}   # (M, O, shape, moduli) -> weights
         self.fused = {}      # `_spec_key` -> K6, K7 or slot-map spec
@@ -1348,7 +1465,7 @@ class LaunchShapes:
         from cryptonets_tpu_torch.kernels import slotmap as SM
 
         self._orig = orig = (K._launch, M._launch, MM._launch, K6._launch,
-                             K7._launch, SM._launch)
+                             K7._launch, SM._launch, K._launch_lift)
 
         def tables_launch(seen, launch):
             def wrapped(name, x, tab, *tables):
@@ -1356,6 +1473,10 @@ class LaunchShapes:
                 entry[1].add(name)
                 return launch(name, x, tab, *tables)
             return wrapped
+
+        def lift_launch(name, x, tab, *rest):
+            self.lift.setdefault((name, tuple(x.shape), id(tab)), tab)
+            return orig[6](name, x, tab, *rest)
 
         def contract_launch(w, x, q_list):
             key = MM._check(w, x, q_list) + (tuple(x.shape),
@@ -1379,6 +1500,7 @@ class LaunchShapes:
             return orig[5](x, pos, primes)
 
         K._launch = tables_launch(self.ntt, orig[0])
+        K._launch_lift = lift_launch
         M._launch = tables_launch(self.mmntt, orig[1])
         MM._launch = contract_launch
         K6._launch, K7._launch, SM._launch = mac_launch, bconv_launch, slotmap_launch
@@ -1393,7 +1515,7 @@ class LaunchShapes:
         from cryptonets_tpu_torch.kernels import slotmap as SM
 
         (K._launch, M._launch, MM._launch, K6._launch, K7._launch,
-         SM._launch) = self._orig
+         SM._launch, K._launch_lift) = self._orig
 
 
 # the single-image paths: (title, builder, timed records after one
@@ -1583,6 +1705,9 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
         f"prepare: {prepare_s:.3f} s; {galois} Galois keys")
 
     fwd = EncryptedForward(head)
+    # a BSGS dense layer encodes its diagonals through the lift loads
+    bsgs = any(getattr(layer, "bsgs_form", None) is not None for layer in fwd.layers)
+    lift = (LIFT_KERNELS, ()) if bsgs else ((), LIFT_KERNELS)
     kept = []
     if raw_layers is not None:
         # keep every layer's output of the record for `layer_gate`, and
@@ -1607,8 +1732,8 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
         check_launches(f"{title} record {i}", launched,
-                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
-                       MATMUL_KERNELS)
+                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + lift[0],
+                       MATMUL_KERNELS + lift[1])
         if raw_layers is not None:
             by_layer = layer_gate(title, which, [type(l).__name__ for l in fwd.layers],
                                   kept[1:], raw_layers)
@@ -1659,10 +1784,10 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
 
 def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
     """The launch shapes a path recorded as picklable cases of the fresh
-    process's check: K1/K2 and K5 by shape and moduli, K4 with the
-    path's weights reduced mod each modulus, K6, K7 and the slot map by
-    their operands' layouts (K7 with the path's table, the slot map with
-    its index map)."""
+    process's check: K1/K2, their lift loads and K5 by shape and
+    moduli, K4 with the path's weights reduced mod each modulus, K6, K7
+    and the slot map by their operands' layouts (K7 with the path's
+    table, the slot map with its index map)."""
     from cryptonets_tpu_torch.kernels import modmatmul as MM
 
     cases = []
@@ -1671,6 +1796,9 @@ def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
             cases.append(dict(kind=kind, where=where, shape=shape,
                               mods=tuple(int(q) for q in tab.q.view(-1).tolist()),
                               names=sorted(names)))
+    for (name, shape, _), tab in rec.lift.items():
+        cases.append(dict(kind="ntt_lift", where=where, name=name, shape=shape,
+                          mods=tuple(int(q) for q in tab.q.view(-1).tolist())))
     for (M, O, shape, mods), w in rec.contract.items():
         reduced = (w.reduced.cpu().numpy() if isinstance(w, MM.ContractWeights)
                    else MM.reduce_weights(w, mods))
@@ -1696,7 +1824,7 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     for where, rec in recorded.items():
         for c in (rec if isinstance(rec, list) else shape_cases(where, rec)):
             key = _spec_key(c) if c["kind"] in SPEC_KERNELS else (
-                c["kind"], c["shape"], c["mods"]) + (
+                c["kind"], c["shape"], c["mods"], c.get("name")) + (
                 (c["reduced"].shape[0],) if c["kind"] == "contract" else ())
             if key not in done:
                 done.add(key)
@@ -1704,7 +1832,8 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     paths = ", ".join(recorded)
     recorded.clear()
     torch.cuda.empty_cache()
-    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + SPEC_KERNELS
+    names = (BUTTERFLY_KERNELS + LIFT_KERNELS + MATMUL_KERNELS + ("mod_contract",)
+             + SPEC_KERNELS)
     shapes, err = {name: [] for name in names}, dict.fromkeys(names, 0)
     for c0 in range(0, len(cases), SHAPE_CHUNK):
         out = _shape_process(cases[c0:c0 + SHAPE_CHUNK])
@@ -1712,9 +1841,9 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
             shapes[name] += out["shapes"][name]
             err[name] = max(err[name], out["err"][name])
     counts = {kind: sum(c["kind"] == kind for c in cases)
-              for kind in ("ntt", "mmntt", "contract") + SPEC_KERNELS}
-    log(f"launch shapes of {paths}: {counts} (K1/K2, K5, K4, K6, K7, the slot "
-        f"map) bit-equal "
+              for kind in ("ntt", "ntt_lift", "mmntt", "contract") + SPEC_KERNELS}
+    log(f"launch shapes of {paths}: {counts} (K1/K2, their lift loads, K5, K4, "
+        f"K6, K7, the slot map) bit-equal "
         f"to the plain versions, edge rows too, each timed with the "
         f"profiler's device time")
     return shapes, err
@@ -1773,7 +1902,8 @@ def launch_shapes_main() -> int:
     cases = pickle.loads(sys.stdin.buffer.read())
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
-    names = BUTTERFLY_KERNELS + MATMUL_KERNELS + ("mod_contract",) + SPEC_KERNELS
+    names = (BUTTERFLY_KERNELS + LIFT_KERNELS + MATMUL_KERNELS + ("mod_contract",)
+             + SPEC_KERNELS)
     err = dict.fromkeys(names, 0)
     shapes = {name: [] for name in names}
     instances = {}
@@ -1794,7 +1924,13 @@ def launch_shapes_main() -> int:
                                       + keep + ("gather", "plan", "instance") if k in e})
             continue
         shape = c["shape"]
-        if c["kind"] == "ntt":
+        if c["kind"] == "ntt_lift":
+            tab = get_ntt_context(shape[-1], mods).tables(dev)
+            e = ntt_lift_case(c["name"], shape[0], tab, gen, launches=20, where=where)
+            err[c["name"]] = max(err[c["name"]], e["max_abs_err"])
+            shapes[c["name"]].append({k: e[k] for k in ("where", "shape", "limbs")
+                                      + keep})
+        elif c["kind"] == "ntt":
             tab = get_ntt_context(shape[-1], mods).tables(dev)
             _, _, entries = ntt_shape_case(shape, tab, gen, err,
                                            names=c["names"], launches=20)
@@ -1865,10 +2001,10 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
                                 (preset, ntt_impl), f" ({preset}, {ntt_impl} NTT)")
     records, raws = cryptonets_data(batch)
     if ntt_impl == "matmul":
-        expect = (MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS, ())
+        expect = (MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS, LIFT_KERNELS)
     else:
         expect = (BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
-                  MATMUL_KERNELS)
+                  MATMUL_KERNELS + LIFT_KERNELS)
 
     reset_kernel_counts()
     torch.cuda.synchronize()
@@ -3088,7 +3224,8 @@ def main() -> int:
         f"in parallel (nvcc {B.BUILD_SECONDS}); host runtime {host_lib.name} "
         f"({host_s:.2f} s)")
     kernels = []
-    for phase, run in (("ntt", kernel_phase), ("mmntt", mmntt_phase),
+    for phase, run in (("ntt", kernel_phase), ("lift", lift_phase),
+                       ("mmntt", mmntt_phase),
                        ("contract", lambda d: [contract_phase(d)]),
                        ("fused", fused_phase), ("slotmap", slotmap_phase)):
         if phase in phases:

@@ -16,9 +16,12 @@ per-step keys) they are CHAINED: g - 1 single-step rotations, then one
 forward NTT of all babies.  The giant sum is a Horner chain: over the
 giant indices whose diagonals are not all zero when they are few (sparse
 support), else over every giant index, zero chunks included (dense
-support).  The diagonal plaintexts are encoded on the device per record
-(Z_t inverse NTT + NTT_q + Montgomery), one giant chunk at a time, from a
-slot table that stays on the host.
+support).  The diagonal plaintexts are encoded on the device per record,
+one giant chunk at a time, from a slot table that stays on the host (or
+is made resident for a CUDA graph): two launches of the NTT kernels' lift
+load (`kernels/ntt.cu`), the Z_t inverse NTT of every plain prime from
+the signed table, then NTT_q of the coefficients broadcast over the limbs
+in Montgomery form, with no copy or elementwise pass between them.
 
 Counts (`utils/opcount.OPS`, beside the reference's `rotation`): the
 diagonal plaintext forms encoded, P x g x F a giant chunk
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from ..crypto.modular import add_mod
+from ..crypto.ntt import NTTContext
 from ..kernels.modmac import mod_mac
 from ..utils import trace
 from ..utils.opcount import OPS
@@ -124,9 +128,6 @@ class BsgsDenseForm:
         self.table = self._host.numpy()
         self.active = active  # ascending
         self._device_table = None
-        # the plain primes as a column for `_encode_diag_chunk` ([1, P, 1])
-        self.t_col = torch.tensor(factory.plain_primes, dtype=torch.int32,
-                                  device=factory.device).view(1, -1, 1)
 
     def make_resident(self) -> None:
         """Keep the whole table on the device, so that `chunk` copies
@@ -146,18 +147,24 @@ class BsgsDenseForm:
         return self._host[a].to(self.factory.device, non_blocking=True)
 
 
-def _encode_diag_chunk(fac, tbl_a, t):
-    """Device encode: [g, F, n] int32 index-mapped slot values -> plaintext
-    mult forms [P, g, F, k, N] (Z_t inverse NTT for all primes in one
-    launch, coefficients broadcast over the limbs since t < every q, then
-    NTT_q and Montgomery); `t` the plain primes [1, P, 1] int32."""
+def _encode_diag_chunk(fac, tbl_a):
+    """Device encode: [g, F, n] int32 index-mapped slot values (|v| below
+    every plain prime) -> plaintext mult forms [P, g, F, k, N].  The Z_t
+    inverse NTT of every prime reads the signed table once a prime and
+    adds t to a negative value as it loads it (`inverse_lift`: [P, g F,
+    n]); the butterfly NTT_q reads each coefficient row once for every
+    limb, since t < every q, and scales it by R mod q as it loads it
+    (`forward_lift`: Montgomery form).  The four-step NTT has no lift
+    load: its coefficients are broadcast, transformed and scaled apart."""
     g, F, n = tbl_a.shape
     k = len(fac.limb_moduli)
-    flat = tbl_a.reshape(g * F, 1, n)
-    buf = torch.where(flat < 0, flat + t, flat)           # [gF, P, n]
-    coeffs = fac._plain_ntt.inverse(buf)                  # mod t_p
-    res = coeffs.transpose(0, 1)[:, :, None, :].expand(fac.P, g * F, k, n)
-    return fac.bfv[0].prepare_plain_mult(res).reshape(fac.P, g, F, k, n)
+    bfv0 = fac.bfv[0]
+    coeffs = fac._plain_ntt.inverse_lift(tbl_a.reshape(g * F, n))  # mod t_p
+    if isinstance(bfv0.p.ntt_q, NTTContext):
+        forms = bfv0.p.ntt_q.forward_lift(coeffs.reshape(fac.P * g * F, n))
+    else:
+        forms = bfv0.prepare_plain_mult(coeffs[:, :, None].expand(fac.P, g * F, k, n))
+    return forms.reshape(fac.P, g, F, k, n)
 
 
 def hoist_eligible(fac, g: int) -> bool:
@@ -258,7 +265,7 @@ def bsgs_matvec(form: BsgsDenseForm, data):
         over the g F babies of bab_hat times the chunk's diagonal forms,
         K6 over the g babies where they lie in bab_hat (one launch a flip
         f, the second accumulating onto the first)."""
-        forms = _encode_diag_chunk(fac, form.chunk(a), form.t_col)  # [P, g, F, k, N]
+        forms = _encode_diag_chunk(fac, form.chunk(a))    # [P, g, F, k, N]
         OPS.count("bsgs_diagonal_form", fac.P * g * F)
         acc_hat = None
         for f in range(F):

@@ -26,9 +26,10 @@ from ..kernels.matmul_ntt import (
     matmul_ntt_forward,
     matmul_ntt_inverse,
 )
-from ..kernels.ntt import NTTTables, ntt_forward, ntt_inverse
+from ..kernels.ntt import (NTTTables, ntt_forward, ntt_forward_lift,
+                           ntt_inverse, ntt_inverse_lift)
 from .hostmath import bit_reverse, modinv
-from .modular import RES
+from .modular import R_MONT, RES
 from .primes import min_primitive_2n_root
 
 
@@ -109,6 +110,7 @@ class NTTContext:
         ipsi_sh = np.empty((L, n), np.uint32)
         ninv = np.empty(L, np.uint32)
         ninv_sh = np.empty(L, np.uint32)
+        rmod = np.array([R_MONT % q for q in self.moduli], np.uint32)
         for i, q in enumerate(self.moduli):
             f, inv, n_inv = _tables_one(n, q)
             psi[i] = f.astype(np.uint32)
@@ -122,6 +124,8 @@ class NTTContext:
             psi=_i32(psi), psi_sh=_i32(psi_sh),
             ipsi=_i32(ipsi), ipsi_sh=_i32(ipsi_sh),
             ninv=_i32(ninv), ninv_sh=_i32(ninv_sh),
+            rmod=_i32(rmod),
+            rmod_sh=_i32([_shoup_np(r, q) for r, q in zip(rmod, self.moduli)]),
         )
         self._on_device: dict = {}
 
@@ -137,6 +141,17 @@ class NTTContext:
     def inverse(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(RES).contiguous()
         return ntt_inverse(x, self.tables(x.device))
+
+    def forward_lift(self, x: torch.Tensor) -> torch.Tensor:
+        """Coefficient rows x [S, N] in [0, 2**31), the same under every
+        limb -> [S, L, N]: their NTT under each limb in Montgomery form
+        (`ModChain.to_mont(forward(broadcast x))`), in one launch."""
+        return ntt_forward_lift(x, self.tables(x.device))
+
+    def inverse_lift(self, x: torch.Tensor) -> torch.Tensor:
+        """Signed rows x [S, N], |x| below every limb -> [L, S, N]: the
+        inverse NTT of x mod each limb, in one launch."""
+        return ntt_inverse_lift(x, self.tables(x.device))
 
 
 class MatmulNTTContext:

@@ -51,6 +51,29 @@
 // (mod 2^32) lies in [0, 2q), min(r, r - q) is canonical.
 // Valid for any x < 2^32 and q < 2^31.  Lazy residues in [0, 4q) would
 // overflow 32 bits at the 31-bit primes of the ciphertext chain.
+//
+// Lift load (`LIFT`, the same template): the first pass reads a plain
+// coefficient row once for every limb and lifts it into the limb's residue
+// before the first butterfly; the passes and the store are unchanged.  It
+// replaces no TPU kernel: it replaces the XLA (there PyTorch) glue of the
+// BSGS diagonal encode (`api/bsgs.py` `_encode_diag_chunk`), a broadcast
+// copy, a select and the int64 Montgomery passes.
+//  * Forward: output row r of [S, L, n], limb r % L, reads source row r / L
+//    of [S, n] (coefficients below 2^31, the broadcast over the limbs
+//    without a copy) and multiplies each by R mod q (R = 2^32) with its
+//    Shoup companion: the NTT is linear, so the output is the Montgomery
+//    form to_mont(NTT(x)) bit for bit.  One block a limb: the L blocks
+//    that read one source row are launched side by side (limb fastest), so
+//    the row comes from HBM once and from L2 L - 1 times.  (A block that
+//    looped over 2, 4 or all of the limbs of its row was no faster.)
+//  * Inverse: output row of [L, S, n] (the limb-major layout the forward
+//    lift reads as its [L * S, n] source), block b of limb b % L reads
+//    source row b / L of [S, n], signed values in (-q, q), and adds q to a
+//    negative one.  Limb fastest as well.
+//  Bound: bytes, 4 B a source coefficient (read from HBM once) and 4 B an
+//  output, half the plain transform's; the Shoup product adds one multiply
+//  a coefficient to the butterflies' logn / 2.  The passes are the plain
+//  transform's, and run at its rate on the same output rows.
 
 #include <atomic>
 #include <cstdint>
@@ -275,20 +298,21 @@ __device__ __forceinline__ void store_row(const uint32_t (&a)[Plan<LOGN>::E],
   }
 }
 
-// One row, either direction.
-template <bool INV, int LOGN>
+// One row, either direction: source row x, output row y, limb `limb`.
+// LIFT: the lift load (above); rmod / rmod_sh are the forward lift's
+// R mod q and its companion, ninv / ninv_sh the inverse's n^-1.
+template <bool INV, bool LIFT, int LOGN>
 __device__ __forceinline__ void ntt_row(const uint32_t* __restrict__ x,
-                                        uint32_t* __restrict__ y,
+                                        uint32_t* __restrict__ y, int limb,
                                         const uint32_t* __restrict__ mods,
                                         const uint32_t* __restrict__ tw_all,
                                         const uint32_t* __restrict__ tw_sh_all,
                                         const uint32_t* __restrict__ ninv,
                                         const uint32_t* __restrict__ ninv_sh,
-                                        int L) {
+                                        const uint32_t* __restrict__ rmod,
+                                        const uint32_t* __restrict__ rmod_sh) {
   using P = Plan<LOGN>;
   extern __shared__ uint32_t smem[];
-  const size_t row = blockIdx.x;
-  const int limb = static_cast<int>(blockIdx.x % static_cast<unsigned>(L));
   const int tid = threadIdx.x;
   const uint32_t q = __ldg(mods + limb);
   const uint32_t* tw = tw_all + (static_cast<size_t>(limb) << LOGN);
@@ -297,7 +321,15 @@ __device__ __forceinline__ void ntt_row(const uint32_t* __restrict__ x,
   uint32_t t[Window<INV, LOGN, 0>::TWIDDLES];
   uint32_t t_sh[Window<INV, LOGN, 0>::TWIDDLES];
   load_twiddles<INV, LOGN, 0>(t, t_sh, tw, tw_sh, tid);
-  load_row<LOGN, Window<INV, LOGN, 0>::c>(a, x + (row << LOGN), tid);
+  load_row<LOGN, Window<INV, LOGN, 0>::c>(a, x, tid);
+  if constexpr (LIFT && INV) {        // v in (-q, q): v + q where v < 0
+#pragma unroll
+    for (int e = 0; e < P::E; ++e) a[e] = min(a[e], a[e] + q);
+  } else if constexpr (LIFT) {        // x < 2^31 -> x R mod q
+    const uint32_t r = __ldg(rmod + limb), r_sh = __ldg(rmod_sh + limb);
+#pragma unroll
+    for (int e = 0; e < P::E; ++e) a[e] = mul_shoup(a[e], r, r_sh, q);
+  }
   stages<INV, LOGN, 0>(a, t, t_sh, q);
   passes_from<INV, LOGN, 1>(a, smem, tw, tw_sh, q, tid);
   if constexpr (INV) {
@@ -305,19 +337,29 @@ __device__ __forceinline__ void ntt_row(const uint32_t* __restrict__ x,
 #pragma unroll
     for (int e = 0; e < P::E; ++e) a[e] = mul_shoup(a[e], nv, nv_sh, q);
   }
-  store_row<LOGN, Window<INV, LOGN, P::PASSES - 1>::c>(a, y + (row << LOGN), tid);
+  store_row<LOGN, Window<INV, LOGN, P::PASSES - 1>::c>(a, y, tid);
 }
 
-template <int LOGN>
+// Row r of [rows, n] on limb r % L; LIFT: the forward lift, block b of
+// limb b % L from source row b / L into output row b.
+template <int LOGN, bool LIFT>
 __global__ void __launch_bounds__(Plan<LOGN>::T, Plan<LOGN>::MIN_BLOCKS)
 ntt_forward_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ mods,
                    const uint32_t* __restrict__ psi,
-                   const uint32_t* __restrict__ psi_sh, int L) {
-  ntt_row<false, LOGN>(x, y, mods, psi, psi_sh, nullptr, nullptr, L);
+                   const uint32_t* __restrict__ psi_sh,
+                   const uint32_t* __restrict__ rmod,
+                   const uint32_t* __restrict__ rmod_sh, int L) {
+  const size_t row = blockIdx.x;
+  const int limb = static_cast<int>(blockIdx.x % static_cast<unsigned>(L));
+  const size_t src = LIFT ? blockIdx.x / static_cast<unsigned>(L) : row;
+  ntt_row<false, LIFT, LOGN>(x + (src << LOGN), y + (row << LOGN), limb, mods,
+                             psi, psi_sh, nullptr, nullptr, rmod, rmod_sh);
 }
 
-template <int LOGN>
+// Row r of [rows, n] on limb r % L; LIFT: the inverse lift, block b of
+// limb b % L from source row b / L into output row (b % L) S + b / L.
+template <int LOGN, bool LIFT>
 __global__ void __launch_bounds__(Plan<LOGN>::T, Plan<LOGN>::MIN_BLOCKS)
 ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ mods,
@@ -325,12 +367,25 @@ ntt_inverse_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                    const uint32_t* __restrict__ ipsi_sh,
                    const uint32_t* __restrict__ ninv,
                    const uint32_t* __restrict__ ninv_sh, int L) {
-  ntt_row<true, LOGN>(x, y, mods, ipsi, ipsi_sh, ninv, ninv_sh, L);
+  const size_t row = blockIdx.x;
+  const int limb = static_cast<int>(blockIdx.x % static_cast<unsigned>(L));
+  if constexpr (!LIFT) {
+    ntt_row<true, false, LOGN>(x + (row << LOGN), y + (row << LOGN), limb,
+                               mods, ipsi, ipsi_sh, ninv, ninv_sh, nullptr,
+                               nullptr);
+  } else {
+    const size_t s = blockIdx.x / static_cast<unsigned>(L);
+    const size_t S = gridDim.x / static_cast<unsigned>(L);
+    ntt_row<true, true, LOGN>(x + (s << LOGN),
+                              y + ((limb * S + s) << LOGN), limb, mods, ipsi,
+                              ipsi_sh, ninv, ninv_sh, nullptr, nullptr);
+  }
 }
 
 // The shared-memory allowance above 48 KB, set once per kernel instance
-// and device (not on every launch).
-template <int LOGN, typename Kernel>
+// and device (not on every launch).  KIND tells apart the instances that
+// share a signature (plain and lift).
+template <int LOGN, int KIND, typename Kernel>
 cudaError_t ready(Kernel kernel) {
   constexpr size_t smem = Plan<LOGN>::SMEM;
   if constexpr (smem <= 48 * 1024) {
@@ -350,29 +405,35 @@ cudaError_t ready(Kernel kernel) {
   }
 }
 
-template <int LOGN>
+// KIND of `ready` and `describe`: 2 inverse + lift
+template <bool INV, bool LIFT>
+constexpr int kind() { return 2 * INV + LIFT; }
+
+template <int LOGN, bool LIFT>
 int launch_forward(const void* x, void* y, const void* mods, const void* psi,
-                   const void* psi_sh, long long rows, int L, void* stream) {
+                   const void* psi_sh, const void* rmod, const void* rmod_sh,
+                   long long blocks, int L, void* stream) {
   using P = Plan<LOGN>;
-  cudaError_t err = ready<LOGN>(ntt_forward_kernel<LOGN>);
+  cudaError_t err = ready<LOGN, kind<false, LIFT>()>(ntt_forward_kernel<LOGN, LIFT>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_forward_kernel<LOGN><<<static_cast<unsigned>(rows), P::T, P::SMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
+  ntt_forward_kernel<LOGN, LIFT><<<static_cast<unsigned>(blocks), P::T, P::SMEM,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
       static_cast<const uint32_t*>(mods), static_cast<const uint32_t*>(psi),
-      static_cast<const uint32_t*>(psi_sh), L);
+      static_cast<const uint32_t*>(psi_sh), static_cast<const uint32_t*>(rmod),
+      static_cast<const uint32_t*>(rmod_sh), L);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int LOGN>
+template <int LOGN, bool LIFT>
 int launch_inverse(const void* x, void* y, const void* mods,
                    const void* ipsi, const void* ipsi_sh, const void* ninv,
-                   const void* ninv_sh, long long rows, int L, void* stream) {
+                   const void* ninv_sh, long long blocks, int L, void* stream) {
   using P = Plan<LOGN>;
-  cudaError_t err = ready<LOGN>(ntt_inverse_kernel<LOGN>);
+  cudaError_t err = ready<LOGN, kind<true, LIFT>()>(ntt_inverse_kernel<LOGN, LIFT>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_inverse_kernel<LOGN><<<static_cast<unsigned>(rows), P::T, P::SMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
+  ntt_inverse_kernel<LOGN, LIFT><<<static_cast<unsigned>(blocks), P::T, P::SMEM,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
       static_cast<const uint32_t*>(mods), static_cast<const uint32_t*>(ipsi),
       static_cast<const uint32_t*>(ipsi_sh),
@@ -384,12 +445,12 @@ int launch_inverse(const void* x, void* y, const void* mods,
 // What the compiler and the card made of one instance: registers a
 // thread, local (spilled) bytes a thread, threads a block, dynamic shared
 // bytes a block, resident blocks an SM, coefficients a thread, passes.
-template <int LOGN, typename Kernel>
+template <int LOGN, int KIND, typename Kernel>
 int describe(Kernel kernel, int* out) {
   using P = Plan<LOGN>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess) err = ready<LOGN>(kernel);
+  if (err == cudaSuccess) err = ready<LOGN, KIND>(kernel);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, P::T,
@@ -405,6 +466,15 @@ int describe(Kernel kernel, int* out) {
   return 0;
 }
 
+template <int LOGN>
+int describe_any(int inverse, int lift, int* out) {
+  if (inverse)
+    return lift ? describe<LOGN, kind<true, true>()>(ntt_inverse_kernel<LOGN, true>, out)
+                : describe<LOGN, kind<true, false>()>(ntt_inverse_kernel<LOGN, false>, out);
+  return lift ? describe<LOGN, kind<false, true>()>(ntt_forward_kernel<LOGN, true>, out)
+              : describe<LOGN, kind<false, false>()>(ntt_forward_kernel<LOGN, false>, out);
+}
+
 }  // namespace
 
 #define NTT_EACH_LOGN(F) \
@@ -416,8 +486,9 @@ extern "C" int ntt_forward(const void* x, void* y, const void* mods,
                            const void* psi, const void* psi_sh,
                            long long rows, int L, int logn, void* stream) {
   switch (logn) {
-#define NTT_CASE(k) \
-  case k: return launch_forward<k>(x, y, mods, psi, psi_sh, rows, L, stream);
+#define NTT_CASE(k)                                                          \
+  case k: return launch_forward<k, false>(x, y, mods, psi, psi_sh, nullptr, \
+                                          nullptr, rows, L, stream);
     NTT_EACH_LOGN(NTT_CASE)
 #undef NTT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -430,8 +501,40 @@ extern "C" int ntt_inverse(const void* x, void* y, const void* mods,
                            long long rows, int L, int logn, void* stream) {
   switch (logn) {
 #define NTT_CASE(k)                                                        \
-  case k: return launch_inverse<k>(x, y, mods, ipsi, ipsi_sh, ninv, ninv_sh, \
-                                   rows, L, stream);
+  case k: return launch_inverse<k, false>(x, y, mods, ipsi, ipsi_sh, ninv, \
+                                          ninv_sh, rows, L, stream);
+    NTT_EACH_LOGN(NTT_CASE)
+#undef NTT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The forward lift: x [src_rows, n] -> y [src_rows, L, n].
+extern "C" int ntt_forward_lift(const void* x, void* y, const void* mods,
+                                const void* psi, const void* psi_sh,
+                                const void* rmod, const void* rmod_sh,
+                                long long src_rows, int L, int logn,
+                                void* stream) {
+  switch (logn) {
+#define NTT_CASE(k)                                                       \
+  case k: return launch_forward<k, true>(x, y, mods, psi, psi_sh, rmod,  \
+                                         rmod_sh, src_rows * L, L, stream);
+    NTT_EACH_LOGN(NTT_CASE)
+#undef NTT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The inverse lift: x [src_rows, n] signed -> y [L, src_rows, n].
+extern "C" int ntt_inverse_lift(const void* x, void* y, const void* mods,
+                                const void* ipsi, const void* ipsi_sh,
+                                const void* ninv, const void* ninv_sh,
+                                long long src_rows, int L, int logn,
+                                void* stream) {
+  switch (logn) {
+#define NTT_CASE(k)                                                       \
+  case k: return launch_inverse<k, true>(x, y, mods, ipsi, ipsi_sh, ninv, \
+                                         ninv_sh, src_rows * L, L, stream);
     NTT_EACH_LOGN(NTT_CASE)
 #undef NTT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -439,12 +542,12 @@ extern "C" int ntt_inverse(const void* x, void* y, const void* mods,
 }
 
 // Seven ints into `out` (see `describe`) for the instance of `logn`, the
-// inverse if `inverse` is not 0, on the current device.
-extern "C" int ntt_kernel_info(int logn, int inverse, int* out) {
+// inverse if `inverse` is not 0, the lift load if `lift` is not 0, on the
+// current device.
+extern "C" int ntt_kernel_info(int logn, int inverse, int lift, int* out) {
   switch (logn) {
-#define NTT_CASE(k)                                                   \
-  case k: return inverse ? describe<k>(ntt_inverse_kernel<k>, out)    \
-                         : describe<k>(ntt_forward_kernel<k>, out);
+#define NTT_CASE(k) \
+  case k: return describe_any<k>(inverse, lift, out);
     NTT_EACH_LOGN(NTT_CASE)
 #undef NTT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);

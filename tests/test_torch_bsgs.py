@@ -83,3 +83,86 @@ def test_stacked_baby_keys_follow_the_key_set(pair):
     finally:
         tf.keys = old
     assert torch.equal(tf.stacked_baby_rotations(4)[1], k0)
+
+
+# ------------------------------------------------ the diagonal encode alone
+ENCODE_CASES = [  # (n, plain primes, special primes, NTT)
+    (256, 2, 0, "butterfly"), (256, 3, 1, "butterfly"), (512, 4, 0, "butterfly"),
+    (512, 2, 2, "butterfly"), (256, 3, 0, "matmul"),
+]
+
+
+def _signed_table(shape, t_min, seed):
+    """Slot values in (-t_min, t_min) with +-(t_min - 1), 0 and -1 planted."""
+    rng = np.random.default_rng(seed)
+    tbl = rng.integers(-t_min + 1, t_min, size=shape).astype(np.int32)
+    edges = np.array([t_min - 1, -(t_min - 1), 0, -1], np.int32)[: shape[-1]]
+    tbl[0, 0, : len(edges)] = edges
+    tbl[-1, -1, -len(edges):] = -edges
+    return tbl
+
+
+@pytest.mark.parametrize("n,P,n_special,impl", ENCODE_CASES)
+def test_encode_diag_chunk_bit_equal_to_jax(n, P, n_special, impl):
+    """The lift launches' encode of one giant chunk [g, F, n] equals the
+    JAX package's `_encode_diag_chunk` on a factory with the same primes
+    and ring, bit for bit (the four-step NTT through its own path)."""
+    import jax.numpy as jnp
+
+    plain = ntt_primes(n, 17, P)
+    kw = dict(plain_primes=plain, n=n, coeff_modulus=ntt_primes(n, 30, 3),
+              n_special=n_special, ntt_impl=impl)
+    jf = JaxFactory(**kw, _skip_keygen=True)
+    tf = CrtBfvFactory(**kw, device="cpu")
+    tbl = _signed_table((4, 2, n), min(plain), n + P)
+    want = np.asarray(jbsgs._encode_diag_chunk(jf, jnp.asarray(tbl)))
+    got = tbsgs._encode_diag_chunk(tf, torch.from_numpy(tbl))
+    assert got.shape == (P, 4, 2, 3, n) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("n,L", [(2, 1), (256, 3), (1024, 13)])
+def test_lift_twins_equal_the_broadcast_expressions(n, L):
+    """Each lift's plain twin equals the expression it replaces: the
+    forward, `to_mont(forward(x broadcast over the limbs))` for any x in
+    [0, 2**31); the inverse, the inverse NTT of `where(x < 0, x + t, x)`
+    broadcast over the plain primes, limb-major."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
+
+    rng = np.random.default_rng(n + L)
+    mods = ntt_primes(n, 31, L)
+    ctx = get_ntt_context(n, mods)
+    x = torch.from_numpy(rng.integers(0, 1 << 31, (5, n)).astype(np.int32))
+    x[0, : min(n, 2)] = torch.tensor([(1 << 31) - 1, 0][: min(n, 2)])
+    want = get_mod_chain(mods, "cpu").to_mont(
+        ctx.forward(x[:, None, :].expand(5, L, n)))
+    assert torch.equal(ctx.forward_lift(x), want)
+
+    plain = ntt_primes(n, 17, 3)
+    pctx = get_ntt_context(n, plain)
+    s = torch.from_numpy(_signed_table((1, 5, n), min(plain), n)[0])
+    flat, t = s[:, None, :], torch.tensor(plain, dtype=torch.int32).view(1, -1, 1)
+    want = pctx.inverse(torch.where(flat < 0, flat + t, flat)).transpose(0, 1)
+    assert torch.equal(pctx.inverse_lift(s), want)
+
+
+def test_lift_refuses_batched_and_noncontiguous_rows():
+    """A lift takes contiguous int32 rows [S, n] outside vmap, and a CPU
+    lift launches nothing."""
+    from cryptonets_tpu_torch.crypto.ntt import get_ntt_context
+    from cryptonets_tpu_torch.kernels import ntt as K
+
+    ctx = get_ntt_context(64, ntt_primes(64, 31, 2))
+    before = dict(K.LAUNCHES)
+    for lift in (ctx.forward_lift, ctx.inverse_lift):
+        with pytest.raises(ValueError, match="batched"):
+            torch.func.vmap(lift)(torch.zeros((2, 4, 64), dtype=torch.int32))
+        for bad in (torch.zeros((64, 4), dtype=torch.int32).t(),      # strided
+                    torch.zeros((2, 4, 64), dtype=torch.int32),        # 3-D
+                    torch.zeros((4, 64), dtype=torch.int64),           # int64
+                    torch.zeros((4, 32), dtype=torch.int32)):          # ring
+            with pytest.raises(ValueError):
+                lift(bad)
+        lift(torch.zeros((4, 64), dtype=torch.int32))
+    assert K.LAUNCHES == before

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu,
-modmatmul.cu, matmul_ntt.cu, modmac.cu and bconv.cu) against their plain
-versions, on the card.
+"""The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu with
+its lift loads, modmatmul.cu, matmul_ntt.cu, modmac.cu and bconv.cu)
+against their plain versions, on the card.
 Needs a CUDA device: skips without one.  On the card:
 `python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda`
 (chip_smoke.py runs the same comparison at the main path's shapes)."""
@@ -63,6 +63,67 @@ def test_cuda_ntt_every_ring(shape):
     assert torch.equal(y, K.ntt_forward_plain(x, tab))
     assert torch.equal(z, K.ntt_inverse_plain(y, tab))
     assert torch.equal(z, x)
+
+
+def _lift_case(n, L, P, S, seed):
+    """Tables of a chain of L 31-bit limbs and of P 30-bit plain primes,
+    forward-lift rows [P S, n] in [0, 2**31) with a row of 2**31 - 1 and a
+    row of zeros, inverse-lift rows [S, n] in (-t, t) with rows of t - 1,
+    -(t - 1) and 0 (t the smallest plain prime)."""
+    tab = get_ntt_context(n, ntt_primes(n, 31, L)).tables("cuda")
+    plain = ntt_primes(n, 30, P)
+    ptab = get_ntt_context(n, plain).tables("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(0, 1 << 31, (P * S, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    x[0], x[-1] = (1 << 31) - 1, 0
+    t = min(plain)
+    s = torch.randint(-t + 1, t, (S, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    s[0] = t - 1
+    if S > 2:
+        s[1], s[2] = -(t - 1), 0
+    return tab, ptab, x, s
+
+
+def _check_lifts(tab, ptab, x, s):
+    L, P = tab.q.shape[0], ptab.q.shape[0]
+    before = dict(K.LAUNCHES)
+    y, z = K.ntt_forward_lift(x, tab), K.ntt_inverse_lift(s, ptab)
+    assert K.LAUNCHES["ntt_forward_lift"] == before["ntt_forward_lift"] + 1
+    assert K.LAUNCHES["ntt_inverse_lift"] == before["ntt_inverse_lift"] + 1
+    assert y.shape == (x.shape[0], L, x.shape[1]) and z.shape == (P, *s.shape)
+    assert torch.equal(y, K.ntt_forward_lift_plain(x, tab))
+    assert torch.equal(z, K.ntt_inverse_lift_plain(s, ptab))
+    # the chain through the kernels it replaces: broadcast, K1, Montgomery
+    wide = K.ntt_forward(x[:, None, :].expand(y.shape).contiguous(), tab)
+    assert torch.equal(y, (wide.long() * tab.rmod.long().view(L, 1)
+                           % tab.q.long()).int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,P,S", [
+    (16384, 13, 3, 128),       # CIFAR's giant chunk: [3, 128, 13, 16384]
+    (8192, 7, 4, 64),          # LoLa's Dense(100): [4, 64, 7, 8192]
+    (8192, 7, 4, 32),          # LoLa's Dense(10): [4, 32, 7, 8192]
+])
+def test_cuda_ntt_lift_matches_twins_at_the_paths(n, L, P, S):
+    """Both lift loads bit-equal to their twins at the BSGS encode's shapes,
+    and the forward to K1 on the broadcast rows times R mod q."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    _check_lifts(*_lift_case(n, L, P, S, n + S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn", range(1, 16))
+def test_cuda_ntt_lift_every_ring(logn):
+    """Every register width and pass split under the lift loads, from one
+    limb to 13 and one source row to five, edge rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    L, P, S = (1, 1, 1) if logn % 3 == 0 else (13 if logn > 12 else 3, 3, 5)
+    _check_lifts(*_lift_case(1 << logn, L, P, S, logn))
 
 
 @pytest.mark.cuda

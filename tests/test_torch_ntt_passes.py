@@ -62,9 +62,10 @@ def mul_shoup(x, w, w_sh, q):
     return umin_wrap(r, -q)
 
 
-def replay(x, q, tw, tw_sh, R, inverse, ninv=None, ninv_sh=None):
+def replay(x, q, tw, tw_sh, R, inverse, ninv=None, ninv_sh=None, load=None):
     """The kernel's transform of rows x [rows, n] (uint64 holding uint32),
-    q [rows, 1] and tables tw, tw_sh [rows, n] of each row's limb."""
+    q [rows, 1] and tables tw, tw_sh [rows, n] of each row's limb;
+    `load(a, q)` the lift load's step on the loaded words [rows, T, E]."""
     rows, n = x.shape
     logn = n.bit_length() - 1
     E, T = 1 << R, n >> R
@@ -77,6 +78,8 @@ def replay(x, q, tw, tw_sh, R, inverse, ninv=None, ninv_sh=None):
         idx = coeff_index(R, c, tid, e_all)                       # [T, E]
         if a is None:
             a = x[:, idx]                                          # the load
+            if load is not None:
+                a = load(a, q[:, :, None])
         else:
             # base + constant: the word of the thread's base plus the word
             # of the coefficient's part, as the kernel addresses it
@@ -219,3 +222,45 @@ def test_plan_fits_the_card():
         assert smem <= 227 * 1024
         if logn >= 12:
             assert 1 << R >= 8
+
+
+@pytest.mark.parametrize("logn", [1, 2, 5, 9, 13, 14])
+def test_replay_of_the_lift_loads_bit_equal_to_their_twins(logn):
+    """The lift load (`ntt.cu`, `LIFT`): the forward's block b reads source
+    row b // L on limb b % L and scales each word by R mod q (Shoup) before
+    the first butterfly; the inverse's block b reads source row b // L on
+    limb b % L, adds q to a negative word (min(a, a + q) on 32-bit words)
+    and stores output row (b % L) S + b // L.  Replayed over every block,
+    the forward on values up to 2**31 - 1, the inverse on +-(t - 1)."""
+    n = 1 << logn
+    R = kernel_log_e(logn)
+    S, mods, plain = 5, ntt_primes(n, 31, 3), ntt_primes(n, 24, 2)
+    rng = np.random.default_rng(logn)
+
+    tab = tntt.get_ntt_context(n, tuple(mods)).tables("cpu")
+    L = len(mods)
+    src = rng.integers(0, 1 << 31, (S, n)).astype(np.uint32)
+    src[0, 0] = (1 << 31) - 1
+    b = np.arange(S * L)
+    limb, row = b % L, b // L
+    q = np.array(mods, dtype=np.uint64)[limb][:, None]
+    rm, rm_sh = _u(tab.rmod)[limb][:, None, None], _u(tab.rmod_sh)[limb][:, None, None]
+    f = replay(src[row].astype(np.uint64), q, _u(tab.psi)[limb], _u(tab.psi_sh)[limb],
+               R, False, load=lambda a, q: mul_shoup(a, rm, rm_sh, q))
+    want = K.ntt_forward_lift_plain(_i32(src), tab).numpy().view(np.uint32)
+    np.testing.assert_array_equal(f.astype(np.uint32).reshape(S, L, n), want)
+
+    tab = tntt.get_ntt_context(n, tuple(plain)).tables("cpu")
+    L, t = len(plain), min(plain)
+    signed = rng.integers(-t + 1, t, (S, n)).astype(np.int32)
+    signed[0, 0], signed[-1, -1] = t - 1, -(t - 1)
+    b = np.arange(S * L)
+    limb, row = b % L, b // L
+    q = np.array(plain, dtype=np.uint64)[limb][:, None]
+    i = replay(signed.view(np.uint32)[row].astype(np.uint64), q, _u(tab.ipsi)[limb],
+               _u(tab.ipsi_sh)[limb], R, True, _u(tab.ninv)[limb][:, None],
+               _u(tab.ninv_sh)[limb][:, None], load=lambda a, q: umin_wrap(a, q))
+    out = np.empty((L * S, n), np.uint32)
+    out[limb * S + row] = i
+    want = K.ntt_inverse_lift_plain(_i32(signed), tab).numpy().view(np.uint32)
+    np.testing.assert_array_equal(out.reshape(L, S, n), want)
