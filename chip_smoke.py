@@ -144,14 +144,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
  16. `graph`: the compiled record (`nn/forward.py`), the counterpart of
      the reference's one XLA program a record: LoLa, LoLaSmall,
      Caltech-101, CryptoNets (8192 images), LoLaDense, LoLaPacked,
-     LoLaLarge and CIFAR each eager and under `graph=True, fuse_io=True`
-     on one head and key set (the whole record in one CUDA graph; the
-     layers only for LoLaDense, whose plain primes encode on the host): a
-     warm-up and five timed records of each form, every record against
-     the Raw oracle (LoLaDense's wrong records counted, ROADMAP.md §3) and
-     the two forms' decryptions equal, the graph's launches a record
-     (replayed) equal to the eager record's but for the graph's one slot
-     map (the eager record makes its slot buffers on the host), its outputs bit-equal to the
+     LoLaLarge and CIFAR each eager and under `graph=True` on one head
+     and key set (the whole record in one CUDA graph; the layers only for
+     LoLaDense, whose plain primes encode on the host): a warm-up and
+     five timed records of each form, every record against the Raw
+     oracle (LoLaDense's wrong records counted, ROADMAP.md §3) and the two
+     forms' decryptions equal, the graph's launches a record (replayed)
+     equal to the eager record's, one slot map each where the factory
+     encodes on the card, its outputs bit-equal to the
      eager layers on its own input ciphertexts read from its static
      buffer, two replays of one record with different input ciphertexts
      and equal decoded slots, capture seconds, graph pool and peak GiB,
@@ -1410,23 +1410,16 @@ LIFT_KERNELS = ("ntt_forward_lift", "ntt_inverse_lift")   # their lift loads
 MATMUL_KERNELS = ("matmul_ntt_forward", "matmul_ntt_inverse")
 
 
-def _count_tables() -> tuple:
-    from cryptonets_tpu_torch.kernels import bconv as K7
-    from cryptonets_tpu_torch.kernels import matmul_ntt as M
-    from cryptonets_tpu_torch.kernels import modmac as K6
-    from cryptonets_tpu_torch.kernels import modmatmul as MM
-    from cryptonets_tpu_torch.kernels import ntt as K
-    from cryptonets_tpu_torch.kernels import slotmap as SM
-
-    return K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES, SM.LAUNCHES
-
-
 def kernel_counts() -> dict:
-    return {k: v for counts in _count_tables() for k, v in counts.items()}
+    from cryptonets_tpu_torch.kernels import LAUNCH_TABLES
+
+    return {k: v for counts in LAUNCH_TABLES for k, v in counts.items()}
 
 
 def reset_kernel_counts() -> None:
-    for counts in _count_tables():
+    from cryptonets_tpu_torch.kernels import LAUNCH_TABLES
+
+    for counts in LAUNCH_TABLES:
         for name in counts:
             counts[name] = 0
 
@@ -1603,15 +1596,16 @@ def bigt_graph_case(title: str, head, m, eager_out, refuse: bool = False) -> dic
     record, whose outputs were `eager_out`: `run_graph`'s warm-up runs
     the layers eagerly on the graph's static inputs (a copy of m), the
     capture is decided from the card's free memory against the reckoned
-    pool (printed), the graph is captured and replayed once.  The
-    replay's outputs must be bit-equal to the warm-up's and to the eager
-    record's (so its decryption is the eager record's, gated on the Raw
-    oracle there).  `refuse`: then once more with the pool made not to
+    pool (printed), the graph is captured and replayed once, and its
+    outputs decrypted.  The replay's outputs must be bit-equal to the
+    eager record's (so its decryption is the eager record's, gated on the
+    Raw oracle there).  `refuse`: then once more with the pool made not to
     fit (`GRAPH_FREE_SHARE` 0): the decision eager, printed, no graph, the
     record's outputs and those of a second record on m (the eager path)
     bit-equal to the eager record's.  Returns the decision, the warm-up
-    (eager), capture and replay seconds, the reckoned, free and pool GiB,
-    the peak GiB and the replay's kernel launches."""
+    (eager), capture and replay (with the decrypt) seconds, the reckoned,
+    free and pool GiB, the peak GiB and the kernel launches of the replay
+    and decrypt."""
     from cryptonets_tpu_torch.nn import forward
     from cryptonets_tpu_torch.nn.forward import evaluation_forward
 
@@ -1619,9 +1613,9 @@ def bigt_graph_case(title: str, head, m, eager_out, refuse: bool = False) -> dic
         return all(torch.equal(a.data, b.data) for a, b in zip(out.vectors, eager_out.vectors))
 
     fwd = evaluation_forward(head)
-    if not fwd.graph or fwd.fuse_io:
+    if not fwd.graph or fwd.factory.encodes_on_device:
         raise SystemExit(f"{title}: expected a layers-only graph, got graph="
-                         f"{fwd.graph}, fuse_io={fwd.fuse_io}")
+                         f"{fwd.graph} on a factory that encodes on the card")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = kernel_counts()
@@ -1637,8 +1631,7 @@ def bigt_graph_case(title: str, head, m, eager_out, refuse: bool = False) -> dic
         raise SystemExit(f"{title}: the graph was refused on this card: "
                          f"{list(fwd.eager.values())}")
     (g,) = fwd.graphs().values()
-    if not (all(torch.equal(v.data, w) for v, w in zip(out.vectors, g.warm_outputs))
-            and same(out)):
+    if not same(out):
         raise SystemExit(f"{title}: the graph's outputs differ from the eager "
                          f"layers' on the graph's own input ciphertexts")
     res = dict(decision=g.decision, eager_s=g.warm_s,
@@ -1648,9 +1641,9 @@ def bigt_graph_case(title: str, head, m, eager_out, refuse: bool = False) -> dic
     log(f"{title} under a graph (the layers): {g.decision}; eager (the "
         f"warm-up) {res['eager_s']:.3f} s, capture {res['capture_s']:.3f} s, "
         f"replay {res['replay_s']:.3f} s; pool {res['pool_gib']:.3f} GiB, peak "
-        f"{peak:.2f} GiB; the replay's outputs bit-equal to the warm-up's and "
-        f"to the eager record's on the same input ciphertexts; kernel "
-        f"launches of the replay {launched}")
+        f"{peak:.2f} GiB; the replay's outputs bit-equal to the eager "
+        f"record's on the same input ciphertexts; kernel launches of the "
+        f"replay and decrypt {launched}")
     fwd.release()
     del g, out
     torch.cuda.empty_cache()
@@ -2907,9 +2900,9 @@ def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     two replays of one record with different input ciphertexts and equal
     decoded slots; capture seconds, graph memory, device busy time and
     idle share of one profiled graph record, a record's parts; budget >
-    0.  A fused graph's slot-map launch (on its static input) goes into
-    `shapes`: the eager record, whose launch shapes the path's own phase
-    records, makes its slot buffers on the host."""
+    0.  A whole-record graph's slot-map launch (on its static input) goes
+    into `shapes` beside the eager record's, which the path's own phase
+    records."""
     from cryptonets_tpu_torch.nn.forward import EncryptedForward
 
     title, build, pools, kernels = _graph_spec(which, 3)
@@ -2917,8 +2910,9 @@ def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     head, fac, _ = build(True, records=_copies(pools[0]), device=dev)
     head.prepare_network()
     eager = EncryptedForward(head)
-    graph = EncryptedForward(head, graph=True, fuse_io=True)
-    form = "the whole record" if graph.fuse_io else "the layers"
+    graph = EncryptedForward(head, graph=True)
+    fused = fac.encodes_on_device
+    form = "the whole record" if fused else "the layers"
 
     def record(fwd, i):
         fwd.reader.set_source_records(_copies(pools[i % len(pools)]))
@@ -2939,9 +2933,9 @@ def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
             check_launches(f"{title} ({kind}) record {i}", launched, kernels,
                            MATMUL_KERNELS + (() if "mod_contract" in kernels
                                              else ("mod_contract",)))
-            # the fused graph makes its slot buffers on the card, the eager
-            # record on the host
-            want = int(kind == "graph" and graph.fuse_io)
+            # a factory that encodes on the card makes a record's slot
+            # buffers there, in the graph and eagerly alike
+            want = int(fused)
             if launched["slot_map"] != want:
                 raise SystemExit(f"{title} ({kind}) record {i}: {launched['slot_map']} "
                                  f"slot-map launches, {want} expected")
@@ -2958,8 +2952,7 @@ def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
             peak_graph, first_graph = peak, first
         else:
             peak_eager = peak
-    if ({k: v for k, v in per["graph"].items() if k != "slot_map"}
-            != {k: v for k, v in per["eager"].items() if k != "slot_map"}):
+    if per["graph"] != per["eager"]:
         raise SystemExit(f"{title}: launches a graph record {per['graph']} "
                          f"differ from an eager record's {per['eager']}")
     if any(a is not None and b is not None and not np.array_equal(a, b)
@@ -2969,16 +2962,15 @@ def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
     if budget <= 0:
         raise SystemExit(f"{title} (graph): the noise budget is exhausted")
     log(f"{title}: {1 + GRAPH_TIMED} eager and {1 + GRAPH_TIMED} graph records "
-        f"exact, launches a record equal but the graph's slot maps "
-        f"{per['graph']['slot_map']}")
+        f"exact, launches a record equal, slot maps {per['graph']['slot_map']}")
 
     (key, g), = graph.graphs().items()
     graph.reader.set_source_records(_copies(pools[0]))
     raw0 = graph.reader.get_next()
-    if shapes is not None and graph.fuse_io:
+    if shapes is not None and fused:
         spec = slotmap_spec(g.inputs[0], fac._slot_positions, fac.plain_primes)
         shapes.fused.setdefault(_spec_key(spec), spec)
-    if graph.fuse_io:
+    if fused:
         datas, _, data = g.outputs
         outs, ins = [d.clone() for d in datas], data.clone()
         _, V, C, dim, scale = key
@@ -3038,10 +3030,12 @@ def graph_case(dev, which: str, shapes: LaunchShapes | None = None) -> dict:
 def _record_parts(eager, graph, raw) -> dict:
     """Host-clock ms of one record's parts, the device synchronised
     between them: eager (encrypt with the slot encode, the layers, the
-    decrypt with the host decode and join) and under the graph (the
-    values handed over, the copy in and the replay with the slot map, the
-    decoded slots out and the join; a layers-only graph: encrypt, replay,
-    decrypt)."""
+    decrypt with the decode and join) and under the graph (the values
+    handed over, the copy in and the replay with the slot map, the
+    decoded slots out and the join; a layers-only graph: encrypt, replay
+    and decrypt, join)."""
+    from cryptonets_tpu_torch.nn.forward import _split
+
     def ms(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3052,17 +3046,18 @@ def _record_parts(eager, graph, raw) -> dict:
     out = {}
     m, out["eager encrypt"] = ms(lambda: eager.encrypt(raw))
     o, out["eager layers"] = ms(lambda: eager.run_encrypted(m))
-    _, out["eager decrypt + join"] = ms(lambda: eager._decrypt_into(o).decrypt())
-    if graph.fuse_io:
+    _, out["eager decrypt + join"] = ms(lambda: o.decrypt())
+    if graph.factory.encodes_on_device:
         (key, g), = graph.graphs().items()
         b, out["graph slot buffers"] = ms(lambda: graph.slot_values(raw)[0])
         r, out["graph copy + replay"] = ms(lambda: g.replay(b))
         _, out["graph slots out + join"] = ms(lambda: graph._output_matrix(
-            key, [d.clone() for d in r[0]], graph._split_slots(r[1], r[0])).decrypt())
+            key, [d.clone() for d in r[0]],
+            _split(r[1].cpu().numpy().astype(np.int64), [d.shape[1] for d in r[0]])).decrypt())
     else:
         m, out["graph encrypt"] = ms(lambda: graph.encrypt(raw))
-        o, out["graph layers replay"] = ms(lambda: graph.run_graph(m))
-        _, out["graph decrypt + join"] = ms(lambda: graph._decrypt_into(o).decrypt())
+        o, out["graph layers replay + decrypt"] = ms(lambda: graph.run_graph(m))
+        _, out["graph join"] = ms(lambda: o.decrypt())
     return {k: round(v, 3) for k, v in out.items()}
 
 

@@ -82,7 +82,7 @@ class BsgsDenseForm:
             raise ValueError(f"BSGS weight magnitude >= smallest plain prime {t_min}")
         # the diagonals are encoded on the device, one residue for every
         # limb: that needs every plain prime below 2**31 and every limb
-        if not getattr(factory, "_device_encode", False):
+        if not factory.encodes_on_device:
             raise ValueError(
                 "BSGS dense matvec needs device-side encoding (every plain "
                 "prime below 2**31 and below every limb); use the per-row path")

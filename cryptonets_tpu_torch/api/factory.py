@@ -12,10 +12,11 @@ decode (forward NTT over Z_t) run on the device with the butterfly CUDA
 NTT, whichever NTT carries the ciphertext chain (`ntt_impl`): encode
 when every t is below 2**31 and below every limb (`_device_encode`: the
 coefficients then are the same residue on every limb), decode with the
-gamma decrypt when every t is below 2**31 (`_device_decode`).  The
-device encode's input, the index-mapped slot buffers, comes from the host
-(`encode_bufs`) or, for a fused record, from the reader's values through
-the `slot_map` kernel on the device (`slot_map`).  Plain
+gamma decrypt when every t is below 2**31 (`_device_decode`); the
+record pipeline reads both as `encodes_on_device`.  The device encode's
+input, the index-mapped slot buffers, comes from the host for the vector
+API's exact integers (`encode_bufs`) or, for a record, from the reader's
+values through the `slot_map` kernel on the device (`encrypt_values`).  Plain
 primes of 2**31 to 2**62 (`_device_decode_big`) encode on the host (the
 C++ 128-bit NTT, per-limb residues) and decrypt on the device to two
 planes that the host joins exactly and decodes with the same C++ NTT.
@@ -148,6 +149,14 @@ class CrtBfvFactory:
     def block_size(self) -> int:
         return self.n
 
+    @property
+    def encodes_on_device(self) -> bool:
+        """Whether slot encode and decode run on the device (every plain
+        prime below 2**31 and below every limb): a record's slot buffers
+        are then made on the device from the reader's values (`slot_map`)
+        and its outputs decoded there.  Otherwise the host encodes."""
+        return bool(self._device_encode and self._device_decode)
+
     def to(self, device, keys=None) -> "CrtBfvFactory":
         """A factory of the same parameters on `device`, holding this one's
         key set there (`KeySet.to`), or `keys` (a part of it,
@@ -208,6 +217,20 @@ class CrtBfvFactory:
                 np.ascontiguousarray(bufs, np.uint32).view(np.int32))
         with trace.device_range("encrypt", "encrypt"):
             return self._encrypt_bufs(bufs.to(self.device))
+
+    def encrypt_values(self, values) -> torch.Tensor:
+        """The reader's scaled values [R, dim, V] float64 -> ciphertext
+        data [P, R*V*C, 2, k, N]: `_encrypt_values_dev` where the factory
+        encodes on the device, else the values rounded (half to even) and
+        encoded on the host (`_encode_slotsets_np`), encrypted on the
+        device."""
+        if self.encodes_on_device:
+            return self._encrypt_values_dev(values)
+        R, dim, V = values.shape
+        C = slotmap.blocks_of(dim, self.n)
+        ints = np.zeros((R, V, C * self.n), np.int64)
+        ints[:, :, :dim] = np.round(values.cpu().numpy()).astype(np.int64).transpose(0, 2, 1)
+        return self._encrypt_all(self._encode_slotsets_np(ints.reshape(R * V * C, self.n)))
 
     def _encrypt_values_dev(self, values) -> torch.Tensor:
         """The reader's scaled values [R, dim, V] float64 -> ciphertext
@@ -311,16 +334,20 @@ class CrtBfvFactory:
         W = self.bfv[pi].join_big_t_planes(lo, m2)        # [C, N] uint64
         return self.encoders[pi].decode(W)
 
+    def require_secret_key(self) -> None:
+        """Raise where the factory was loaded without its secret key."""
+        if not self.has_secret_key:
+            raise RuntimeError(
+                "this factory was loaded without a secret key; "
+                "decryption is disabled (ref AtomicSealBfvVector.cs:121-128)")
+
     def decrypt_slots(self, data) -> np.ndarray:
         """[P, C, size, k, N] -> slot values mod t_p [P, C, N] on the host:
         the device decrypt and decode (t < 2**31), the two-plane device
         decrypt with the host join and C++ decode (2**31 <= t < 2**62),
         else the exact host decrypt.  Every decrypt of the port passes
         here: a factory without the secret key raises."""
-        if not self.has_secret_key:
-            raise RuntimeError(
-                "this factory was loaded without a secret key; "
-                "decryption is disabled (ref AtomicSealBfvVector.cs:121-128)")
+        self.require_secret_key()
         if self._device_decode:
             return self._decrypt_decode_all(data).cpu().numpy().astype(np.int64)
         if self._device_decode_big:
@@ -618,6 +645,7 @@ class RawFactory:
     """Plaintext-double oracle backend (ref `IFactory.cs:138-238`)."""
 
     is_encrypted = False
+    encodes_on_device = False
 
     def __init__(self, block_size: int = 8192):
         self.block_size = block_size

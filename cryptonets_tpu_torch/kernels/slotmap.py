@@ -6,9 +6,9 @@
 for the reader's scaled values x float64 [R, dim, V] (R records, each a
 `RawMatrix.m`), the factory's inverse index map `pos` int32 [n] and the
 plain primes t_p; 0 where c n + pos[j] >= dim, C = ceil(dim / n).  It is
-`CrtBfvFactory.encode_bufs` of `EncryptedForward.slot_ints` of each record
-(rounding half to even, a floor modulus), the R records' buffers one
-after another: what the device encode's inverse NTT reads.  `slot_map`
+`CrtBfvFactory.encode_bufs` of each record's values rounded (half to
+even) and padded to C n slots a column (a floor modulus), the R records'
+buffers one after another: what the device encode's inverse NTT reads.  `slot_map`
 is the entry point.  A tensor on the CPU goes to the twin; a CUDA tensor
 goes to the kernel, built from `slotmap.cu` at first use
 (`kernels/build.py`).  A build or launch failure raises: nothing falls

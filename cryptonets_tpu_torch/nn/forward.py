@@ -2,60 +2,55 @@
 (`cryptonets_tpu/nn/jit.py`).
 
 One call pulls a record (LoLa: one image; CryptoNets: a batch of images
-in the SIMD slots) from the reader and runs, on the factory's device:
+in the SIMD slots) from the reader and runs one record body on the
+factory's device.  Where the factory encodes and decodes on the device
+(`CrtBfvFactory.encodes_on_device`), the host hands over the reader's
+values and the body (`record_fn`) does the rest: the `slot_map` kernel
+makes the slot buffers (each plain prime's residues, index-mapped), then
 slot encode + RLWE encrypt of every input column, every layer above the
-EncryptLayer, gamma decrypt + slot decode of every output column.  The
-host makes the slot buffers (each plain prime's residues, index-mapped)
-and CRT-joins the decoded outputs; in a fused record (below) it only
-hands over the reader's values, and the `slot_map` kernel makes the
-buffers on the device, inside the encrypt (`CrtBfvFactory.slot_map`).
-A factory whose plain primes do not fit the device encode and decode
-(`_device_encode`, `_device_decode`: LoLaDense's and the big-t presets'
-primes) takes the reference's other path: slot encode on the host (C++
-NTT, per-limb residues) and encrypt on the device, the layers, then the
-two-plane device decrypt with the host join and the C++ slot decode.
+EncryptLayer, gamma decrypt + slot decode of every output column; the
+host takes back the decoded slots and CRT-joins them.  A factory whose
+plain primes do not fit the device encode and decode (LoLaDense's and the
+big-t presets' primes) takes the reference's other path: slot encode on
+the host (C++ NTT, per-limb residues) and encrypt on the device, a body
+of the layers, then the factory's decrypt (the two-plane device decrypt
+with the host join and the C++ slot decode).
 
 `graph=True` is the counterpart of the reference's `jit=True`: where the
-reference compiles one XLA program, the record runs as one CUDA graph,
-captured once per signature and replayed (`RecordGraph`).  With
-`fuse_io=True` and a factory that encodes and decodes on the device, the
-graph holds the whole record (`record_fn`: the slot map, encrypt, the
-layers, decrypt and decode), so a record is one copy of the reader's
-values, one replay and one copy of its decoded slots; otherwise it
-holds the layers only, and encrypt and decrypt run outside it (the
-reference's three programs, `jit.py:70-113`).  `run_batch` is the
-counterpart of `bench.py`'s `BENCH_VMAP` record batch: B records'
-columns slot-mapped and encrypted in one pass, the layers under
-`torch.func.vmap` over the record axis (each kernel folds the records
-into its rows, `kernels/batching.py`), every output decrypted and
-decoded in one pass; under `graph=True` one replay for B records.
-Whether a signature is captured is decided after the warm-up
-and before the capture: the pool the capture is reckoned to take (the
-warm-up's peak over the memory allocated before it) against the card's
-free memory (`GRAPH_FREE_SHARE`).  The decision is printed; a signature
-that does not fit runs eagerly from then on (the warm-up was its first
-record), which is how the big-t presets' multi-GiB records are guarded.
-Nothing else falls back to the eager path: a graph on a CPU factory, a
-capture that starts and fails, and a batch on a factory that encodes on
+reference compiles one XLA program, the body runs as one CUDA graph,
+captured once per signature and replayed (`RecordGraph`); without it the
+same body runs directly.  `run_batch` is the counterpart of `bench.py`'s
+`BENCH_VMAP` record batch: B records' columns slot-mapped and encrypted in
+one pass, the layers under `torch.func.vmap` over the record axis (each
+kernel folds the records into its rows, `kernels/batching.py`), every
+output decrypted and decoded in one pass; under `graph=True` one replay
+for B records.  One routine (`_run`) serves the record, the layers-only
+record and the batch.  Whether a signature is captured is decided after
+the warm-up and before the capture: the pool the capture is reckoned to
+take (the warm-up's peak over the memory allocated before it) against the
+card's free memory (`GRAPH_FREE_SHARE`).  The decision is printed; a
+signature that does not fit runs its body directly from then on (the
+warm-up was its first record), which is how the big-t presets' multi-GiB
+records are guarded.  Nothing else falls back: a graph on a CPU factory,
+a capture that starts and fails, and a batch on a factory that encodes on
 the host raise.
 
 A graph's operation and kernel counts (`utils/opcount.OPS`, each
 kernel's `LAUNCHES`) are taken at capture and added at every replay, as
 the reference's `hoist_jit` replays its trace-time counts: a replayed
-record counts what an eager record counts, and the warm-up and capture
+record counts what a direct record counts, and the warm-up and capture
 count nothing.  Under vmap the layers count once for the B records; the
 batch adds the other B - 1 records' operation counts, while `LAUNCHES`
 keep the launches that ran (one for the B records).
 
 Tracing (`utils/trace.py`): a record is the span `record` (its sequence
 number an argument), and inside it the spans `reader`, `slot_buffers`
-(the values handed over, or the host's buffers of an eager record; or
-`slot_encode` where the host encodes), `upload`, `replay`, `output` and,
-in the vector's decrypt, `join`.  A fused record or batch counts the
-slots the device encodes (`count.device_encoded_slots`: P x rows x n)
-where its values are handed over, so a replay counts them.  Encrypt,
-every layer of a kind (`Layer.kind`) and decrypt with decode are device
-ranges, named `encrypt`, `<position>.<class>`, `decrypt`: inside a
+(the values handed over; `slot_encode` too where the host encodes),
+`upload`, `replay`, `output` and, in the vector's decrypt, `join`.  A
+record whose values go to the device encode counts its slots there
+(`count.device_encoded_slots`: P x rows x n) when they are handed over.
+Encrypt, every layer of a kind (`Layer.kind`) and decrypt with decode are
+device ranges, named `encrypt`, `<position>.<class>`, `decrypt`: inside a
 graph's capture their events become nodes of the graph, read after the
 replay's outputs reached the host.  A capture counts the graph's nodes
 from the graph itself (`trace.graph_node_types`), and every replay adds
@@ -71,14 +66,12 @@ import torch
 
 from ..api.matrix import HEMatrix
 from ..api.vector import HEVector
-from ..kernels import bconv, matmul_ntt, modmac, modmatmul, ntt, slotmap
+from ..kernels import LAUNCH_TABLES, slotmap
 from ..utils import trace
 from ..utils.opcount import OPS
 from .layers import EncryptLayer
 from .network import Layer
 
-_LAUNCH_TABLES = (ntt.LAUNCHES, modmatmul.LAUNCHES, matmul_ntt.LAUNCHES,
-                  modmac.LAUNCHES, bconv.LAUNCHES, slotmap.LAUNCHES)
 # a capture goes ahead when its reckoned pool is at most this share of the
 # card's free memory (the allocator's cache emptied), else the record runs
 # eagerly: a capture that runs out of memory half-way fails the run.  The
@@ -102,14 +95,14 @@ def split_at_encrypt(head: Layer):
 
 def _counts() -> tuple[dict, list[dict]]:
     """The operation counts and every kernel's launch counts, copied."""
-    return OPS.snapshot(), [dict(t) for t in _LAUNCH_TABLES]
+    return OPS.snapshot(), [dict(t) for t in LAUNCH_TABLES]
 
 
 def _restore(counts) -> None:
     ops, launches = counts
     OPS.counters.clear()
     OPS.counters.update(ops)
-    for table, saved in zip(_LAUNCH_TABLES, launches):
+    for table, saved in zip(LAUNCH_TABLES, launches):
         table.update(saved)
 
 
@@ -123,9 +116,15 @@ def _add(delta) -> None:
     ops, launches = delta
     for k, v in ops.items():
         OPS.count(k, v)
-    for table, d in zip(_LAUNCH_TABLES, launches):
+    for table, d in zip(LAUNCH_TABLES, launches):
         for k, v in d.items():
             table[k] += v
+
+
+def _split(slots: np.ndarray, blocks) -> list:
+    """Decoded slots [P, sum blocks, N] on the host -> one array a column
+    ([P, blocks[i], N])."""
+    return np.split(slots, np.cumsum(blocks)[:-1], axis=1)
 
 
 class RecordGraph:
@@ -146,13 +145,11 @@ class RecordGraph:
     replay (module docstring), the graph's nodes among them (`nodes`, by
     type); `ranges` are the device ranges captured into it, which
     `read_ranges` reads after a replay whose outputs reached the host.
-    `capture_s` is the wall seconds of warm-up
-    and capture, `warm_s` of the warm-up alone; `pool_bytes` the device
-    memory the capture took from the allocator; `warm_outputs` the
-    warm-up's outputs (the eager run on the static inputs) where
-    `keep_warm` asks for them."""
+    `capture_s` is the wall seconds of warm-up and capture, `warm_s` of
+    the warm-up alone; `pool_bytes` the device memory the capture took
+    from the allocator."""
 
-    def __init__(self, fn, inputs, generators=(), keep_warm: bool = False):
+    def __init__(self, fn, inputs, generators=()):
         dev = inputs[0].device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, not {dev}")
@@ -179,7 +176,6 @@ class RecordGraph:
             f"pool, {self.free_bytes / 2**30:.2f} GiB free: "
             + ("capture" if fits else "eager, the pool does not fit"))
         print(self.decision, flush=True)
-        self.warm_outputs = warm_out if keep_warm or not fits else None
         if not fits:
             self.graph, self.outputs, self.pool_bytes = None, warm_out, 0
             self.capture_s = time.perf_counter() - t0
@@ -221,33 +217,25 @@ class RecordGraph:
         trace.read_ranges(self.ranges)
 
 
-def _device_io(fac) -> bool:
-    return bool(getattr(fac, "_device_encode", False)
-                and getattr(fac, "_device_decode", False))
-
-
 class EncryptedForward:
-    """fwd = EncryptedForward(head, graph=False, fuse_io=False)
+    """fwd = EncryptedForward(head, graph=False)
                                      # after head.prepare_network()
     out = fwd()                      # one record end to end, or None
     outs = fwd.run_batch(raws)       # B records, one pass each way
 
-    `graph` and `fuse_io` mirror the reference's `jit` and `fuse_io`
-    (module docstring): `fuse_io` takes effect under `graph` on a factory
-    that encodes and decodes on the device."""
+    `graph` mirrors the reference's `jit` (module docstring); the record
+    body follows from the factory (`encodes_on_device`)."""
 
-    def __init__(self, head: Layer, graph: bool = False, fuse_io: bool = False):
+    def __init__(self, head: Layer, graph: bool = False):
         self.encrypt_layer, self.layers = split_at_encrypt(head)
         fac = self.encrypt_layer.factory
         self.graph = bool(graph)
         if self.graph and getattr(fac, "device", torch.device("cpu")).type != "cuda":
             raise ValueError("graph=True needs a factory on a CUDA device: "
                              "a CUDA graph has no CPU counterpart")
-        self.fuse_io = bool(fuse_io and self.graph and _device_io(fac))
         self._graphs: dict = {}
         self._meta: dict = {}
         self.records = 0                  # records pulled: the trace's numbers
-        self._replayed = None             # a layers graph, until decrypt
         # signatures whose graph did not fit: the decision, printed once
         self.eager: dict = {}
         if self.graph:
@@ -276,35 +264,34 @@ class EncryptedForward:
         """The captured graphs by signature."""
         return dict(self._graphs)
 
-    # ------------------------------------------------------ eager layers
+    # ------------------------------------------------------------ layers
     def _range(self, i: int):
         """The device range of layer i (`trace.device_range`)."""
         layer = self.layers[i]
         return trace.device_range(f"{i}.{type(layer).__name__}", layer.kind)
 
     def run_encrypted(self, m: HEMatrix) -> HEMatrix:
-        """The layers above the EncryptLayer on an encrypted matrix,
-        eagerly (each with its report in verbose mode, `Layer.forward`)."""
+        """The layers above the EncryptLayer on an encrypted matrix, each
+        in its device range (with its report in verbose mode,
+        `Layer.forward`)."""
         for i, layer in enumerate(self.layers):
             with self._range(i):
                 m = layer.forward(m)
         return m
 
     def _apply_layers(self, m: HEMatrix, key) -> HEMatrix:
-        """The layers' `apply` (what a graph or vmap traces), each in its
-        device range, recording the output's metadata under `key`."""
-        for i, layer in enumerate(self.layers):
-            with self._range(i):
-                m = layer.apply(m)
+        """`run_encrypted` inside a record body, recording the output's
+        metadata under `key` (the body returns its columns' data only)."""
+        m = self.run_encrypted(m)
         self._meta[key] = ([(v.dim, v.scale, v.fmt, v.is_signed)
                             for v in m.vectors], m.fmt)
         return m
 
-    def _output_matrix(self, key, datas, slots=None) -> HEMatrix:
-        """The output matrix of a record from its columns' data and, when
-        decoded already, their host slots [P, C, N] each."""
+    def _matrix(self, datas, metas, fmt, slots=None) -> HEMatrix:
+        """A matrix of columns' data and metadata ((dim, scale, fmt,
+        is_signed) each) and, when decoded already, their host slots
+        ([P, C, N] each)."""
         fac = self.factory
-        metas, fmt = self._meta[key]
         vecs = []
         for i, (d, (dim, sc, f, sg)) in enumerate(zip(datas, metas)):
             v = HEVector(fac, data=d, dim=dim, scale=sc, fmt=f, is_signed=sg)
@@ -313,32 +300,26 @@ class EncryptedForward:
             vecs.append(v)
         return HEMatrix(fac, vecs, fmt)
 
-    # ------------------------------------------------------- host side
-    def slot_ints(self, raw):
-        """Host side: RawMatrix -> (slot values [V*C, n] int64, (V, C,
-        dim, scale))."""
-        fac = self.factory
-        vecs = np.asarray(raw.m, dtype=np.float64).T  # [V, dim] scaled ints
-        V, dim = vecs.shape
-        C = slotmap.blocks_of(dim, fac.n)
-        padded = np.zeros((V, C * fac.n), np.int64)
-        padded[:, :dim] = np.round(vecs).astype(np.int64)
-        return padded.reshape(V * C, fac.n), (V, C, dim, float(raw.scale))
+    def _output_matrix(self, key, datas, slots=None) -> HEMatrix:
+        """The output matrix of a record of signature `key` from its
+        columns' data and, when decoded already, their host slots."""
+        metas, fmt = self._meta[key]
+        return self._matrix(datas, metas, fmt, slots)
 
+    # --------------------------------------------------------- host side
     def slot_values(self, raw):
-        """Host side of the fused record: RawMatrix -> (its scaled values
-        [1, dim, V] float64 tensor, a view of `raw.m`, (V, C, dim,
-        scale)); the record body's slot map makes the slot buffers."""
+        """Host side of a record: RawMatrix -> (its scaled values [1, dim,
+        V] float64 tensor, a view of `raw.m`, (V, C, dim, scale)).  Where
+        the factory encodes them on the device, they count P x V x C x n
+        device-encoded slots."""
+        fac = self.factory
         with trace.span("slot_buffers"):
             m = np.ascontiguousarray(raw.m, dtype=np.float64)
             dim, V = m.shape
-            C = slotmap.blocks_of(dim, self.factory.n)
+            C = slotmap.blocks_of(dim, fac.n)
+            if fac.encodes_on_device:
+                trace.count("device_encoded_slots", fac.P * V * C * fac.n)
             return torch.from_numpy(m)[None], (V, C, dim, float(raw.scale))
-
-    def _count_device_slots(self, records: int, V: int, C: int) -> None:
-        """The slots the device encodes for `records` records handed over."""
-        fac = self.factory
-        trace.count("device_encoded_slots", fac.P * records * V * C * fac.n)
 
     def input_matrix(self, datas, dim: int, scale: float) -> HEMatrix:
         """The encrypted input matrix of a record from its columns' data
@@ -347,39 +328,34 @@ class EncryptedForward:
         return HEMatrix(fac, [HEVector(fac, data=d, dim=dim, scale=scale, fmt="dense")
                               for d in datas], "col")
 
+    def _columns(self, data, V: int, C: int, dim: int, scale: float) -> HEMatrix:
+        """A record's ciphertext data [P, V*C, 2, k, N] -> its input matrix."""
+        cols = data.reshape(self.factory.P, V, C, *data.shape[2:])
+        return self.input_matrix([cols[:, i] for i in range(V)], dim, scale)
+
     def encrypt(self, raw) -> HEMatrix:
-        """A reader record (RawMatrix) -> its encrypted input matrix: the
-        slot encode and encrypt of every column in one pass."""
-        fac = self.factory
-        ints, (V, C, dim, scale) = self.slot_ints(raw)
-        data = fac._encrypt_slotsets(ints)               # [P, V*C, 2, k, N]
-        data = data.reshape(fac.P, V, C, *data.shape[2:])
-        return self.input_matrix([data[:, i] for i in range(V)], dim, scale)
+        """A reader record (RawMatrix) -> its encrypted input matrix: every
+        column encoded and encrypted in one pass
+        (`CrtBfvFactory.encrypt_values`)."""
+        x, sig = self.slot_values(raw)
+        return self._columns(self.factory.encrypt_values(x), *sig)
 
-    def _decrypt_into(self, out: HEMatrix) -> HEMatrix:
-        """Decrypt + slot decode of every output column in one pass: on
-        the device (gamma decrypt) or through the host join (big t)."""
-        blocks = [v.data.shape[1] for v in out.vectors]
-        slots = self.factory.decrypt_slots(torch.cat([v.data for v in out.vectors], dim=1))
-        for v, s in zip(out.vectors, np.split(slots, np.cumsum(blocks)[:-1], axis=1)):
-            v._dec_slots = s
-        return out
-
-    # ------------------------------------------------------- the record
+    # ------------------------------------------------------ record bodies
     def record_fn(self, V: int, C: int, dim: int, scale: float):
-        """The fused record body, fn(x) -> (output column datas, decoded
-        slots [P, sum C_out, N], encrypted input [P, V*C, 2, k, N]), from
-        the reader's values [1, dim, V] float64 on the device: the slot
-        map and encrypt, the layers, decrypt and decode, no host work
-        (the counterpart of `fused_record_fn`, `jit.py:130-162`)."""
+        """The record body on a factory that encodes and decodes on the
+        device, fn(x) -> (output column datas, decoded slots [P, sum
+        C_out, N], encrypted input [P, V*C, 2, k, N]), from the reader's
+        values [1, dim, V] float64 on the device: the slot map and
+        encrypt, the layers, decrypt and decode, no host work (the
+        counterpart of `fused_record_fn`, `jit.py:130-162`).  A factory
+        without its secret key raises here, before any record runs."""
         fac = self.factory
+        fac.require_secret_key()
         key = ("fused", V, C, dim, scale)
 
         def forward(x):
             data = fac._encrypt_values_dev(x)             # [P, V*C, 2, k, N]
-            cols = data.reshape(fac.P, V, C, *data.shape[2:])
-            m = self._apply_layers(
-                self.input_matrix([cols[:, i] for i in range(V)], dim, scale), key)
+            m = self._apply_layers(self._columns(data, V, C, dim, scale), key)
             datas = [v.data for v in m.vectors]
             with trace.device_range("decrypt", "decrypt"):
                 slots = fac._decrypt_decode_all(torch.cat(datas, dim=1))
@@ -387,78 +363,70 @@ class EncryptedForward:
 
         return forward
 
-    def _capture(self, key, fn, inputs, generators=(), keep_warm=False):
-        """The graph of `key`, captured now (`RecordGraph`): kept and
-        returned, or None where its pool does not fit, the signature then
-        marked eager; (graph or None, the warm-up's outputs or None)."""
-        g = RecordGraph(fn, inputs, generators, keep_warm=keep_warm)
-        if g.graph is None:
-            self.eager[key] = g.decision
-            return None, g.outputs
-        self._graphs[key] = g
-        return g, None
+    def _layers_fn(self, m: HEMatrix, key):
+        """The record body on a factory that encodes on the host, fn(*the
+        input columns' data) -> (output column datas, None): the layers on
+        an input matrix of m's form; the factory decrypts outside."""
+        metas = [(v.dim, v.scale, v.fmt, v.is_signed) for v in m.vectors]
 
-    def _run_fused(self, raw) -> HEMatrix:
-        x, (V, C, dim, scale) = self.slot_values(raw)
-        key = ("fused", V, C, dim, scale)
-        if key in self.eager:
-            return self._decrypt_into(self.run_encrypted(self.encrypt(raw)))
-        self._count_device_slots(1, V, C)
-        g = self._graphs.get(key)
-        if g is None:
-            static = x.to(self.factory.device)
-            g, warm = self._capture(key, self.record_fn(V, C, dim, scale),
-                                    [static], [self.factory._gen])
-            if g is None:
-                datas, slots, _ = warm
-                return self._output_matrix(key, datas,
-                                           self._split_slots(slots, datas))
-        datas, slots, _ = g.replay(x)
+        def forward(*datas):
+            out = self._apply_layers(self._matrix(datas, metas, m.fmt), key)
+            return [v.data for v in out.vectors], None
+
+        return forward
+
+    def _run(self, key, body, inputs, generators=()):
+        """The record (or record batch) of signature `key`: `body(*inputs)`
+        -> (output column datas, decoded slots [P, R, N] on the device or
+        None, ...).  Without a graph, or for a signature whose graph did
+        not fit (`self.eager`), the body runs directly on the inputs
+        copied to the device.  Otherwise the signature's graph, captured
+        at its first record (`RecordGraph`, with `generators`; a capture
+        declined marks the signature eager and its warm-up was this
+        record), is replayed on them and its outputs cloned.  Returns (the
+        output datas, the decoded slots on the host [P, R, N] int64): the
+        body's, or the factory's decrypt of the datas where it has none."""
+        dev = self.factory.device
+        g, outs = self._graphs.get(key), None
+        if g is None and self.graph and key not in self.eager:
+            g = RecordGraph(body, [x.to(dev, copy=True) for x in inputs], generators)
+            if g.graph is None:               # the warm-up was this record's run
+                self.eager[key], outs, g = g.decision, g.outputs, None
+            else:
+                self._graphs[key] = g
+        if g is not None:
+            outs = g.replay(*inputs)
+        elif outs is None:
+            with trace.span("upload"):
+                inputs = [x.to(dev) for x in inputs]
+            outs = body(*inputs)
+        datas, slots = outs[0], outs[1]
         with trace.span("output"):
-            datas = [d.clone() for d in datas]
-            split = self._split_slots(slots, datas)      # waits for the replay
-        g.read_ranges()
-        return self._output_matrix(key, datas, split)
+            if g is not None:
+                datas = [d.clone() for d in datas]
+            host = None if slots is None else slots.cpu().numpy().astype(np.int64)
+        if host is None:
+            with trace.device_range("decrypt", "decrypt"):
+                host = self.factory.decrypt_slots(torch.cat(datas, dim=1))
+        if g is not None:
+            g.read_ranges()
+        return datas, host
 
-    @staticmethod
-    def _split_slots(slots, datas) -> list:
-        """Decoded slots [P, sum C, N] on the device -> one host array a
-        column ([P, C_i, N] int64)."""
-        host = slots.cpu().numpy().astype(np.int64)
-        return np.split(host, np.cumsum([d.shape[1] for d in datas])[:-1], axis=1)
+    def _layers_record(self, m: HEMatrix) -> HEMatrix:
+        key = ("layers", m.fmt, tuple((v.dim, v.scale, v.fmt, v.is_signed,
+                                       tuple(v.data.shape)) for v in m.vectors))
+        datas, host = self._run(key, self._layers_fn(m, key), [v.data for v in m.vectors])
+        return self._output_matrix(key, datas, _split(host, [d.shape[1] for d in datas]))
 
     def run_graph(self, m: HEMatrix) -> HEMatrix:
         """The layers on an encrypted matrix as one CUDA graph replay, the
-        graph captured at the first matrix of its signature (the
-        layers-only form: encrypt and decrypt run outside; the warm-up's
-        outputs kept on the graph, `warm_outputs`).  A signature whose
-        graph does not fit runs eagerly (`self.eager`)."""
+        graph captured at the first matrix of its signature, then the
+        factory's decrypt and decode: the record body of a factory that
+        encodes on the host, on any factory.  A signature whose graph does
+        not fit runs the layers directly (`self.eager`)."""
         if not self.graph:
             raise ValueError("run_graph needs graph=True")
-        key = ("layers", m.fmt, tuple((v.dim, v.scale, v.fmt, v.is_signed,
-                                       tuple(v.data.shape)) for v in m.vectors))
-        if key in self.eager:
-            return self.run_encrypted(m)
-        g = self._graphs.get(key)
-        if g is None:
-            metas = [(v.dim, v.scale, v.fmt, v.is_signed) for v in m.vectors]
-
-            def forward(*datas):
-                vecs = [HEVector(self.factory, data=d, dim=dim, scale=sc, fmt=f,
-                                 is_signed=sg)
-                        for d, (dim, sc, f, sg) in zip(datas, metas)]
-                out = self._apply_layers(HEMatrix(self.factory, vecs, m.fmt), key)
-                return [v.data for v in out.vectors]
-
-            g, warm = self._capture(key, forward, [v.data.clone() for v in m.vectors],
-                                    keep_warm=True)
-            if g is None:
-                return self._output_matrix(key, warm)
-        datas = g.replay(*[v.data for v in m.vectors])
-        with trace.span("output"):
-            datas = [d.clone() for d in datas]
-        self._replayed = g               # its ranges read once decrypted
-        return self._output_matrix(key, datas)
+        return self._layers_record(m)
 
     def __call__(self):
         """Pull one record through encode, encrypt, the network, decrypt
@@ -469,16 +437,13 @@ class EncryptedForward:
                 raw = self.reader.get_next()
             if raw is None:
                 return None
-            if self.fuse_io:
-                return self._run_fused(raw)
-            enc = self.encrypt(raw)
-            out = self.run_graph(enc) if self.graph else self.run_encrypted(enc)
-            with trace.device_range("decrypt", "decrypt"):
-                out = self._decrypt_into(out)
-            if self._replayed is not None:
-                self._replayed.read_ranges()
-                self._replayed = None
-            return out
+            fac = self.factory
+            if not fac.encodes_on_device:
+                return self._layers_record(self.encrypt(raw))
+            x, sig = self.slot_values(raw)
+            key = ("fused",) + sig
+            datas, host = self._run(key, self.record_fn(*sig), [x], [fac._gen])
+            return self._output_matrix(key, datas, _split(host, [d.shape[1] for d in datas]))
 
     # -------------------------------------------------- the record batch
     def _vmapped_layers(self, cols, dim: int, scale: float, key) -> list:
@@ -509,14 +474,16 @@ class EncryptedForward:
                 for b in range(cols[0].shape[0])]
 
     def record_batch_fn(self, B: int, V: int, C: int, dim: int, scale: float):
-        """The fused body of B records, fn(x) -> (output column datas
-        [B, P, C_out, s, k, N] each, decoded slots [P, B * sum C_out, N],
+        """The body of B records, fn(x) -> (output column datas [B, P,
+        C_out, s, k, N] each, decoded slots [P, B * sum C_out, N],
         encrypted input [B, P, V, C, 2, k, N]), from the B records' values
         [B, dim, V] float64 on the device: every column slot-mapped (one
         launch) and encrypted in one pass, the layers under
         `torch.func.vmap` over the records, every output decrypted and
-        decoded in one pass (the counterpart of `bench.py:237-366`)."""
+        decoded in one pass (the counterpart of `bench.py:237-366`).  A
+        factory without its secret key raises here."""
         fac = self.factory
+        fac.require_secret_key()
         key = ("batch", B, V, C, dim, scale)
 
         def forward(x):
@@ -539,7 +506,7 @@ class EncryptedForward:
         `graph=True`.  The counterpart of `bench.py`'s `BENCH_VMAP`; like
         it, it needs a factory that encodes and decodes on the device."""
         fac = self.factory
-        if not _device_io(fac):
+        if not fac.encodes_on_device:
             raise ValueError(
                 "a record batch needs a factory that encodes and decodes on "
                 "the device (every plain prime below 2**31 and below every "
@@ -554,31 +521,13 @@ class EncryptedForward:
             raise ValueError(f"a record batch needs one signature: {sigs}")
         (V, C, dim, scale), = sigs
         B = len(xs)
-        x = torch.cat(xs)                                 # [B, dim, V]
-        self._count_device_slots(B, V, C)
         key = ("batch", B, V, C, dim, scale)
-        fn = self.record_batch_fn(B, V, C, dim, scale)
-        g, outs = self._graphs.get(key), None
-        if self.graph and g is None and key not in self.eager:
-            g, warm = self._capture(key, fn, [x.to(fac.device)], [fac._gen])
-            if g is None:                 # the warm-up was this batch's run
-                outs, slots, _ = warm
-        if g is not None:
-            outs, slots, _ = g.replay(x)
-        elif outs is None:
-            outs, slots, _ = fn(x.to(fac.device))
-        with trace.span("output"):
-            if g is not None:
-                outs = [o.clone() for o in outs]
-            host = slots.cpu().numpy().astype(np.int64)
-        if g is not None:
-            g.read_ranges()
-        per = [o.shape[2] for o in outs]
+        outs, host = self._run(key, self.record_batch_fn(B, V, C, dim, scale),
+                               [torch.cat(xs)], [fac._gen])
         # column i's B records lie in a row: record b's C_i columns from
         # B * (C_0 + ... + C_(i-1)) + b * C_i on
-        starts = B * np.cumsum([0] + per[:-1])
-        return [self._output_matrix(key, [o[b] for o in outs], [
-                    host[:, s + b * c: s + (b + 1) * c] for s, c in zip(starts, per)])
+        cols = [np.split(c, B, axis=1) for c in _split(host, [B * o.shape[2] for o in outs])]
+        return [self._output_matrix(key, [o[b] for o in outs], [c[b] for c in cols])
                 for b in range(B)]
 
 
@@ -597,7 +546,7 @@ def evaluation_forward(head: Layer, graph: bool | None = None,
     if graph is None:
         fac = split_at_encrypt(head)[0].factory
         graph = fac.device.type == "cuda" and not verbose
-    return EncryptedForward(head, graph=graph, fuse_io=True)
+    return EncryptedForward(head, graph=graph)
 
 
 def raw_layer_outputs(head_raw: Layer) -> list:

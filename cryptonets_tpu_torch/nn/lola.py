@@ -403,7 +403,7 @@ class LLDenseLayer(Layer):
         if (self.factory.is_encrypted and fmt == "row"
                 and self.force_dense_format and want_bsgs
                 and maps <= self.factory.n and wmat.shape[1] <= self.factory.n
-                and getattr(self.factory, "_device_encode", False)):
+                and self.factory.encodes_on_device):
             from ..api.bsgs import BsgsDenseForm
 
             # the same integers as the per-element rounding (round-half-even)

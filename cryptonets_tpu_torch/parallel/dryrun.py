@@ -103,7 +103,7 @@ def _input_matrices(fwd, raws, datas):
     """The B records' input matrices from their stacked input columns
     (one [B, P, C, 2, k, N] tensor a column), their dim and scale read
     off the reader's first record."""
-    _, (_, _, dim, scale) = fwd.slot_ints(raws[0])
+    dim, scale = _dim_scale(raws[0])
     return [fwd.input_matrix([d[b] for d in datas], dim, scale)
             for b in range(datas[0].shape[0])]
 
@@ -116,7 +116,7 @@ def batched_encrypted_forward(head, recs):
     reference's `jax.vmap` of its record program)."""
     fwd, raws = _reader_records(head, recs)
     batched = _stacked([fwd.encrypt(raw) for raw in raws])
-    _, (_, _, dim, scale) = fwd.slot_ints(raws[0])
+    dim, scale = _dim_scale(raws[0])
 
     def forward(datas):
         return fwd.run_encrypted_batch(datas, dim, scale)
@@ -132,6 +132,11 @@ def _barrier():
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+def _dim_scale(raw) -> tuple:
+    """A reader record's (dim, scale): its matrix is [dim, V]."""
+    return raw.m.shape[0], float(raw.scale)
 
 
 def _stacked(mats) -> list:
@@ -190,7 +195,7 @@ def run_sharded_forward(mesh, head, fac, recs, build_raw, inputs=None,
                              f"{sizes.tolist()} records: one size for all")
     if batched:
         cols = _stacked(mats)
-        _, (_, _, dim, scale) = fwd.slot_ints(raws[0])
+        dim, scale = _dim_scale(raws[0])
         forward = lambda: fwd.run_encrypted_batch(cols, dim, scale)  # noqa: E731
         forward()                        # one warm-up batch, not timed
     else:

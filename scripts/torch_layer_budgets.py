@@ -44,8 +44,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_layer_budgets: CUDA is not available", file=sys.stderr)
         return 1
-    from cryptonets_tpu_torch.api.matrix import HEMatrix
-    from cryptonets_tpu_torch.api.vector import HEVector
     from cryptonets_tpu_torch.data.preprocess import (synthetic_cifar_records,
                                                       synthetic_mnist_records)
     from cryptonets_tpu_torch.models import lola_cifar
@@ -70,10 +68,7 @@ def main() -> int:
     prepare_s = time.perf_counter() - t0
 
     fwd = EncryptedForward(head)
-    ints, (V, C, dim, scale) = fwd.slot_ints(fwd.reader.get_next())
-    data = fac._encrypt_slotsets(ints).reshape(fac.P, V, C, 2, -1, fac.n)
-    m = HEMatrix(fac, [HEVector(fac, data=data[:, i], dim=dim, scale=scale)
-                       for i in range(V)], "col")
+    m = fwd.encrypt(fwd.reader.get_next())
     rows = [("input", 0.0, m)]
     for layer in fwd.layers:
         torch.cuda.synchronize()

@@ -138,12 +138,7 @@ def main() -> int:
     from cryptonets_tpu_torch.data.preprocess import (
         synthetic_cifar_records, synthetic_feature_records,
         synthetic_mnist_records)
-    from cryptonets_tpu_torch.kernels import bconv as K7
-    from cryptonets_tpu_torch.kernels import matmul_ntt as M
-    from cryptonets_tpu_torch.kernels import modmac as K6
-    from cryptonets_tpu_torch.kernels import modmatmul as MM
-    from cryptonets_tpu_torch.kernels import ntt as K
-    from cryptonets_tpu_torch.kernels import slotmap as SM
+    from cryptonets_tpu_torch.kernels import LAUNCH_TABLES
     from cryptonets_tpu_torch.models import caltech101, cryptonets_mnist, lola_cifar
     from cryptonets_tpu_torch.models.lola_mnist import BUILDERS
     from cryptonets_tpu_torch.nn.forward import evaluation_forward
@@ -203,10 +198,8 @@ def main() -> int:
     stages, layers, kinds = median(0), median(1), median(2)
     total = [r[0]["record"] / 1e3 + r[0].get("join", 0.0) / 1e3 for r in runs]
 
-    tables = (K.LAUNCHES, MM.LAUNCHES, M.LAUNCHES, K6.LAUNCHES, K7.LAUNCHES,
-              SM.LAUNCHES)
     profiled = profiled_record(
-        fwd, sync, lambda: {k: v for t in tables for k, v in t.items()})
+        fwd, sync, lambda: {k: v for t in LAUNCH_TABLES for k, v in t.items()})
     if profiled is None:
         print(f"torch_lola_breakdown: {PROFILER_EMPTY} in {ATTEMPTS} windows",
               file=sys.stderr)

@@ -9,7 +9,10 @@ two special primes), with the JAX factory's keys imported into the port:
       (`nn/jit.py`), and its device-decoded slots equal the Raw oracle;
   (b) the record batch at B = 4, the layers under `torch.func.vmap`, is
       bit-equal to the JAX `batched_encrypted_forward` outputs on the same
-      batched inputs, and to the port's eager loop over the records;
+      batched inputs, and to the port's eager loop over the records; an
+      eager record (`__call__` without a graph) runs the record body, one
+      slot map, its encrypted input and decoded outputs bit-equal to
+      `record_fn`'s from the same generator state;
   (c) each kernel's operator under `torch.func.vmap` equals its loop over
       the records: K1/K2, K5 on its ring, K4 with the records folded into
       C > 1;
@@ -40,7 +43,7 @@ from cryptonets_tpu_torch.crypto.primes import ntt_primes  # noqa: E402
 from cryptonets_tpu_torch.kernels import matmul_ntt as M  # noqa: E402
 from cryptonets_tpu_torch.kernels import modmatmul as MM  # noqa: E402
 from cryptonets_tpu_torch.kernels import ntt as K  # noqa: E402
-from cryptonets_tpu_torch.nn.forward import EncryptedForward, RecordGraph  # noqa: E402
+from cryptonets_tpu_torch.nn.forward import EncryptedForward, RecordGraph, _split  # noqa: E402
 from cryptonets_tpu_torch.parallel import dryrun  # noqa: E402
 from cryptonets_tpu_torch.utils.opcount import OPS  # noqa: E402
 
@@ -126,7 +129,7 @@ def test_record_fn_layers_bit_equal_to_jax_jit(tiny, monkeypatch):
     np.testing.assert_array_equal(datas[0].numpy().view(np.uint32),
                                   np.asarray(jout.vectors[0].data))
     out = fwd._output_matrix(("fused", V, C, dim, scale), datas,
-                             fwd._split_slots(slots, datas))
+                             _split(slots.numpy().astype(np.int64), [d.shape[1] for d in datas]))
     got = np.asarray(out.get_column(0).decrypt(), float)
     want = tiny["oracle"][0]
     np.testing.assert_allclose(got[: len(want)], want, atol=1e-9)
@@ -172,28 +175,63 @@ def test_record_batch_bit_equal_to_jax_vmap_and_eager_loop(tiny, monkeypatch):
 
 
 def _dim_scale(fwd, tiny):
-    _, (_, _, dim, scale) = fwd.slot_ints(tiny["raws"][0])
+    _, (_, _, dim, scale) = fwd.slot_values(tiny["raws"][0])
     return dim, scale
 
 
-def test_run_batch_own_encryption_matches_oracle():
+def _eager_records_equal_the_body(fwd, fac, raws, monkeypatch) -> list:
+    """The reader's records through eager `__call__`s: each runs the slot
+    map once, and from the same generator state its encrypted input and
+    decoded outputs equal `record_fn`'s body bit for bit.  The outputs."""
+    maps, encs, outs = [], [], []
+    slot_map, encrypt = fac.slot_map, fac._encrypt_values_dev
+    monkeypatch.setattr(fac, "slot_map", lambda v: maps.append(v) or slot_map(v))
+    monkeypatch.setattr(fac, "_encrypt_values_dev",
+                        lambda v: encs.append(encrypt(v)) or encs[-1])
+    for raw in raws:
+        state, seen = fac._gen.get_state(), len(maps)
+        out = fwd()
+        assert len(maps) == seen + 1
+        x, sig = fwd.slot_values(raw)
+        assert torch.equal(maps[-1], x)              # the values handed over
+        enc = encs[-1]
+        fac._gen.set_state(state)
+        datas, slots, data = fwd.record_fn(*sig)(x)
+        assert torch.equal(data, enc)
+        cols = _split(slots.numpy().astype(np.int64), [d.shape[1] for d in datas])
+        for v, d, c in zip(out.vectors, datas, cols, strict=True):
+            assert torch.equal(v.data, d) and np.array_equal(v._dec_slots, c)
+        outs.append(out)
+    return outs
+
+
+@pytest.mark.parametrize("path", ["batch", "record"])
+def test_run_batch_own_encryption_matches_oracle(path, monkeypatch):
     """The record batch end to end on the port's own keys and encryption:
     the B records' logits equal the Raw oracle's, and the vmapped layers
-    equal the eager layers on the batch's own input ciphertexts."""
+    equal the eager layers on the batch's own input ciphertexts; `record`:
+    the same records one eager `__call__` each, which runs the record body
+    (`_eager_records_equal_the_body`), their logits equal the oracle's."""
     head, fac, _ = dryrun.build_tiny_lola(encrypt=True, device="cpu", seed=5)
     fwd = EncryptedForward(head)
     fwd.reader.set_source_records(dryrun.records_for(3, seed=12))
     raws = list(iter(fwd.reader.get_next, None))
-    x = torch.cat([fwd.slot_values(r)[0] for r in raws])     # [3, dim, V]
-    V, C, dim, scale = fwd.slot_ints(raws[0])[1]
-    outs, slots, data = fwd.record_batch_fn(3, V, C, dim, scale)(x)
-    for r in range(3):
-        one = fwd.run_encrypted(fwd.input_matrix([data[r][:, i] for i in range(V)],
-                                                 dim, scale))
-        assert torch.equal(outs[0][r], one.vectors[0].data)
+    if path == "record":
+        fwd.reader.set_source_records(dryrun.records_for(3, seed=12))
+        outs = _eager_records_equal_the_body(fwd, fac, raws, monkeypatch)
+    else:
+        x = torch.cat([fwd.slot_values(r)[0] for r in raws])     # [3, dim, V]
+        V, C, dim, scale = fwd.slot_values(raws[0])[1]
+        outs, slots, data = fwd.record_batch_fn(3, V, C, dim, scale)(x)
+        for r in range(3):
+            one = fwd.run_encrypted(fwd.input_matrix([data[r][:, i] for i in range(V)],
+                                                     dim, scale))
+            assert torch.equal(outs[0][r], one.vectors[0].data)
+        outs = fwd.run_batch(raws)
     raw_head, _, raw_reader = dryrun.build_tiny_lola(encrypt=False, seed=5)
     raw_reader.set_source_records(dryrun.records_for(3, seed=12))
-    for out in fwd.run_batch(raws):
+    assert len(outs) == 3
+    for out in outs:
         want = np.asarray(raw_head.get_next().get_column(0).decrypt(), float)
         got = np.asarray(out.get_column(0).decrypt(), float)
         np.testing.assert_allclose(got[: len(want)], want, atol=1e-9)
@@ -250,8 +288,6 @@ def test_graph_on_cpu_factory_raises():
     with pytest.raises(ValueError, match="CUDA"):
         EncryptedForward(head, graph=True)
     with pytest.raises(ValueError, match="CUDA"):
-        EncryptedForward(head, graph=True, fuse_io=True)
-    with pytest.raises(ValueError, match="CUDA"):
         RecordGraph(lambda x: x + 1, [torch.zeros(4)])
     with pytest.raises(ValueError, match="graph=True"):
         EncryptedForward(head).run_graph(None)
@@ -265,7 +301,7 @@ def test_run_batch_on_host_encode_factory_raises():
     fwd.encrypt_layer.factory = CrtBfvFactory(
         plain_primes=[p for p in ntt_primes(256, 33, 1)], n=256,
         coeff_modulus=ntt_primes(256, 30, 4), device="cpu")
-    assert not fwd.factory._device_encode
+    assert not fwd.factory.encodes_on_device
     fwd.reader.set_source_records(dryrun.records_for(2))
     with pytest.raises(ValueError, match="encodes on the host"):
         fwd.run_batch(list(iter(fwd.reader.get_next, None)))

@@ -186,7 +186,8 @@ def test_reduced_chain_through_a_public_only_server(files):
     the public file runs the reduced chain (its factory set on the
     EncryptLayer before `prepare_network`) and writes the output; the
     client's decryption equals its in-process run, bit for bit, and the
-    Raw oracle."""
+    Raw oracle.  The server's record bodies, which decrypt, refuse to be
+    made."""
     rng = np.random.default_rng(11)
     records = [(0, rng.integers(0, 4, 64).astype(float))]
     client = serial.load_factory(files["port_full"], device="cpu")
@@ -205,6 +206,11 @@ def test_reduced_chain_through_a_public_only_server(files):
     res = fwd_s.run_encrypted(serial.load_matrix(server, io.BytesIO(wire_in)))
     with pytest.raises(RuntimeError):
         res.decrypt()
+    # the record bodies decrypt too: they refuse before anything runs
+    for body in (lambda: fwd_s.record_fn(1, 1, 64, 2.0),
+                 lambda: fwd_s.record_batch_fn(2, 1, 1, 64, 2.0)):
+        with pytest.raises(RuntimeError, match="without a secret key"):
+            body()
     buf = io.BytesIO()
     serial.save_matrix(res, buf)
     buf.seek(0)

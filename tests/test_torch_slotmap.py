@@ -6,7 +6,7 @@ On the CPU, on rings of n = 64 and 128 with one torch thread: the plain
 twin bit-equal, for one record and for three, to the JAX package's
 buffers (`nn/jit.py` `slot_bufs`, its factory's `encode_bufs`) on the same
 values, primes and ring, and to the port's host buffers (`encode_bufs` of
-`slot_ints`); a numpy replay of the kernel's tiles (each
+the values rounded and padded); a numpy replay of the kernel's tiles (each
 buffer position written once) and of its Barrett floor modulus at the
 edges of int64; the operands it refuses.
 
@@ -21,13 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from cryptonets_tpu_torch.api.factory import CrtBfvFactory  # noqa: E402
-from cryptonets_tpu_torch.api.raw import RawMatrix  # noqa: E402
 from cryptonets_tpu_torch.crypto.encoder import BatchEncoder  # noqa: E402
 from cryptonets_tpu_torch.crypto.primes import ntt_primes  # noqa: E402
 from cryptonets_tpu_torch.kernels import slotmap  # noqa: E402
 from cryptonets_tpu_torch.models.presets import CONFIGS  # noqa: E402
-from cryptonets_tpu_torch.nn.forward import EncryptedForward  # noqa: E402
-from cryptonets_tpu_torch.nn.layers import EncryptLayer  # noqa: E402
 
 EDGES = (2**62, -2**62, 2**62 - 1024, -(2**62) + 1024, 0.0, 1.0, -1.0)
 
@@ -40,12 +37,10 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _forward(P: int, n: int = 64) -> EncryptedForward:
-    """An EncryptedForward over a bare EncryptLayer on a factory of P
-    plain primes at ring n: its `slot_ints` and its factory's buffers."""
-    fac = CrtBfvFactory(ntt_primes(n, 20, P), n=n,
-                        coeff_modulus=ntt_primes(n, 30, 3), device="cpu")
-    return EncryptedForward(EncryptLayer(None, factory=fac))
+def _factory(P: int, n: int = 64) -> CrtBfvFactory:
+    """A factory of P plain primes at ring n."""
+    return CrtBfvFactory(ntt_primes(n, 20, P), n=n,
+                         coeff_modulus=ntt_primes(n, 30, 3), device="cpu")
 
 
 def _values(kind: str, shape, seed: int) -> np.ndarray:
@@ -63,10 +58,14 @@ def _values(kind: str, shape, seed: int) -> np.ndarray:
     return m
 
 
-def _host_buffers(fwd, m: np.ndarray) -> torch.Tensor:
-    raw = RawMatrix.from_scaled(m, 1.0, "col", fwd.factory.n)
-    ints, _ = fwd.slot_ints(raw)
-    return torch.from_numpy(fwd.factory.encode_bufs(ints).view(np.int32))
+def _host_buffers(fac, m: np.ndarray) -> torch.Tensor:
+    """The host's buffers of scaled values [dim, V]: each column rounded
+    (half to even) and padded to C n slots, then `encode_bufs`."""
+    dim, V = m.shape
+    C = slotmap.blocks_of(dim, fac.n)
+    ints = np.zeros((V, C * fac.n), np.int64)
+    ints[:, :dim] = np.round(m.T).astype(np.int64)
+    return torch.from_numpy(fac.encode_bufs(ints.reshape(V * C, fac.n)).view(np.int32))
 
 
 def _jax_forward(fac: CrtBfvFactory):
@@ -100,14 +99,13 @@ def _jax_buffers(jfwd, m: np.ndarray) -> torch.Tensor:
     (100, 3, 4, "halves", 3),        # three records: the singles one after another
 ], ids=["dim<n", "ragged", "negative", "int64_edges", "halves", "records3"])
 def test_twin_equals_host_buffers(dim, V, P, kind, R):
-    fwd = _forward(P)
-    fac = fwd.factory
+    fac = _factory(P)
     ms = [_values(kind, (dim, V), seed=r + 7 * dim) for r in range(R)]
     x = torch.from_numpy(np.stack(ms))
     got = slotmap.slot_map(x, fac._slot_positions, fac.plain_primes)
     jfwd = _jax_forward(fac)
     reference = torch.cat([_jax_buffers(jfwd, m) for m in ms], dim=1)
-    want = torch.cat([_host_buffers(fwd, m) for m in ms], dim=1)
+    want = torch.cat([_host_buffers(fac, m) for m in ms], dim=1)
     C = slotmap.blocks_of(dim, fac.n)
     assert got.dtype == torch.int32 and tuple(got.shape) == (P, R * V * C, fac.n)
     assert torch.equal(got, reference)

@@ -5,8 +5,8 @@ On the CPU, on the tiny LoLa of `parallel/dryrun.py` (n = 256) with one
 torch thread: tracing off costs no profiler call and leaves the table as
 it is; under `torch.profiler` the pipeline's spans and ranges lie inside
 the record's span, which carries the record's number; the host slot
-encode counts P x rows x n, and a record batch's slot map counts its
-device slots and no host slots; what `trace.per_request` reads of a
+encode counts P x rows x n, and an eager record and a record batch count
+their device slots and no host slots; what `trace.per_request` reads of a
 window's table (graph replays, captures and nodes among it, host and
 device slots); the layer kinds of LoLa and CryptoNets.
 
@@ -120,11 +120,15 @@ def test_host_encoded_slots_count_p_rows_n(tiny, path):
 
 
 def test_a_record_counts_its_slot_buffers(tiny):
+    """An eager record hands its values to the record body's slot map:
+    P x V x C x n device slots, no host slots."""
     fwd, fac = tiny
-    ints, _ = fwd.slot_ints(fwd.reader.get_next())     # [V * C, n]
-    before = trace.TABLE["count.host_encoded_slots"]
+    _, (V, C, _, _) = fwd.slot_values(fwd.reader.get_next())
+    before = trace.snapshot()
     fwd()
-    assert trace.TABLE["count.host_encoded_slots"] - before == fac.P * ints.size
+    delta = {k: v - before.get(k, 0) for k, v in trace.snapshot().items()}
+    assert delta.get("count.host_encoded_slots", 0) == 0
+    assert delta["count.device_encoded_slots"] == fac.P * V * C * fac.n
 
 
 def test_per_request_reads_replays_captures_and_a_true_zero():
@@ -168,18 +172,17 @@ def test_per_request_reads_host_and_device_encoded_slots():
 
 
 def test_a_record_batch_counts_device_slots_not_host(tiny):
-    """The fused body takes the reader's values and slot-maps them on its
+    """The batch body takes the reader's values and slot-maps them on its
     device (here the CPU twin): P x records x V x C x n device slots, no
-    host slots, where the eager record's host buffers count as many."""
+    host slots."""
     fwd, fac = tiny
     raws = [fwd.reader.get_next() for _ in range(2)]
-    ints, (V, C, _, _) = fwd.slot_ints(raws[0])
+    _, (V, C, _, _) = fwd.slot_values(raws[0])
     before = trace.snapshot()
     fwd.run_batch(raws)
     delta = {k: v - before.get(k, 0) for k, v in trace.snapshot().items()}
     assert delta.get("count.host_encoded_slots", 0) == 0
-    assert delta["count.device_encoded_slots"] == 2 * fac.P * ints.size == (
-        fac.P * 2 * V * C * fac.n)
+    assert delta["count.device_encoded_slots"] == fac.P * 2 * V * C * fac.n
 
 
 def _kinds(head):
