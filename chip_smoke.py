@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,fused,slotmap,
-                           bigt,lola,
+    python3 chip_smoke.py [--phases build,ntt,mmntt,contract,fused,behz,
+                           slotmap,bigt,lola,
                            cryptonets,cryptonets_matmul,cryptonets_bigt,
                            lola_small,caltech,lola_packed,lola_large,cifar,
                            lola_dense,cifar_bigt,lola_large_bigt,serve,
@@ -38,8 +38,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      to its twin, timed beside its byte bound and the twin's time, with
      its launch plan and what the compiler made of the kernel instance
      (registers, spilled bytes, blocks an SM), and the host ms of one
-     launch of each; `slotmap`: the slot map (`kernels/slotmap.cu`, the
-     fused record's slot buffers) bit-equal to its twin at LoLa's,
+     launch of each; `behz`: the BEHZ multiply's kernels, K7's lift, floor
+     and Shenoy-Kumaresan modes (`kernels/bconv.py` `behz`) and the
+     NTT-domain tensor product (`kernels/modmac.py` `ct_tensor`, two
+     operands and the square), at CryptoNets', LoLa's and CIFAR's shapes
+     and on a limb-sharded rank's tables, with edge residues, bit-equal to
+     their twins, timed beside their byte bounds with their plans and
+     instances, and a square on the card equal to the CPU's; `slotmap`:
+     the slot map (`kernels/slotmap.cu`, the fused record's slot
+     buffers) bit-equal to its twin at LoLa's,
      CryptoNets' and LoLaSmall's batch shapes with int64's edges and
      halves, timed beside its byte bound and the twin's time; `bigt`: the C++
      host NTT of the plain primes of 2**31 and above (built from the
@@ -204,7 +211,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT32_MUL_PER_S = 132 * 64 * 1.98e9
 INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8, H100 SXM data sheet
 TIMED_RECORDS = 2
-PHASES = ("build", "ntt", "lift", "mmntt", "contract", "fused", "slotmap", "bigt", "lola",
+PHASES = ("build", "ntt", "lift", "mmntt", "contract", "fused", "behz", "slotmap", "bigt",
+          "lola",
           "cryptonets",
           "cryptonets_matmul", "cryptonets_bigt", "lola_small", "caltech",
           "lola_packed", "lola_large", "cifar", "lola_dense", "cifar_bigt",
@@ -990,8 +998,10 @@ def bigt_phase(dev) -> dict:
 
 # ------------------------------------------------- fused kernels (K6, K7)
 FUSED_KERNELS = ("mod_mac", "fast_bconv")
+# the BEHZ multiply's kernels: K7's modes and the tensor product
+BEHZ_KERNELS = ("fast_bconv_lift", "fast_bconv_floor", "fast_bconv_sk", "ct_tensor")
 # the kernels whose launches are cases of their operands' layouts
-SPEC_KERNELS = FUSED_KERNELS + ("slot_map",)
+SPEC_KERNELS = FUSED_KERNELS + ("slot_map",) + BEHZ_KERNELS
 FUSED_LAUNCHES = 10   # timed launches a shape (a big-t record has 10**5)
 
 
@@ -1080,8 +1090,12 @@ def ratio_summary(entries) -> dict:
 
 
 def _spec_key(spec) -> tuple:
-    """What tells two K6, K7 or slot-map launches apart for the check: the
-    layouts and moduli (not a table's or an index map's values)."""
+    """What tells two K6, K7, slot-map or BEHZ launches apart for the
+    check: the layouts and moduli (not a table's or an index map's
+    values), a BEHZ mode's targets and the rows its lift writes through."""
+    if spec["kind"] in BEHZ_KERNELS:
+        return (spec["kind"], spec["x"], spec["mods"], spec.get("targets"),
+                spec.get("through"), spec.get("square"))
     if spec["kind"] == "slot_map":
         return ("slot_map", spec["x"], len(spec["pos"]), spec["mods"])
     if spec["kind"] == "mod_mac":
@@ -1293,6 +1307,237 @@ def fused_phase(dev) -> list[dict]:
             ("fast_bconv", "bconv.cu", "cryptonets_tpu/crypto/bfv.py:952"))]
 
 
+def behz_spec(x, tab=None, chain=None, square=None) -> dict:
+    """A launch of one of the BEHZ kernels as a case: the input's layout
+    and its rows' moduli; a K7 mode's tables (`tab`, a `BehzMode`: moved
+    to the host by `shape_cases`, after the run), their targets' moduli
+    and the source rows [lo, hi) the lift writes through; the tensor
+    product's square flag."""
+    if tab is None:
+        return dict(kind="ct_tensor", x=_layout(x), mods=tuple(chain.moduli),
+                    square=square)
+    return dict(kind=f"fast_bconv_{tab.mode}", x=_layout(x), mods=tab.row_moduli,
+                targets=tab.moduli[1], through=(tab.lo, tab.lo + tab.out0), tab=tab)
+
+
+def behz_case(spec, gen, dev, where: str, plain: bool = False,
+              timed: bool = True) -> dict:
+    """A BEHZ kernel at one launch `spec` (`behz_spec`): its input laid
+    out as recorded with edge residues of its chain, bit-equal to its twin
+    on the card, with its plan and instance; then timed (events and the
+    profiler's device time) beside its bound (each input read once, each
+    output written once; the products and reductions of the mode), the
+    twin too when `plain`."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import bconv as K7
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    kind, mods = spec["kind"], spec["mods"]
+    x = _strided(spec["x"], mods, gen, dev)
+    N = x.shape[-1]
+    if kind == "ct_tensor":
+        chain = get_mod_chain(mods, dev)
+        square = spec["square"]
+        y = None if square else _strided(spec["x"], mods, gen, dev)
+        args, kernel, twin = (x, y, chain), K6._launch_tensor, K6.ct_tensor_plain
+        cells = x.numel() // 2                     # (row, limb, coefficient)
+        outputs = 3 * cells
+        nbytes = 4 * (x.numel() * (1 if square else 2) + outputs + 4 * len(mods))
+        bound = fused_bound(nbytes, cells * (6 if square else 7), 6 * cells)
+        pl = K6.tensor_plan(cells // (N * len(mods)), len(mods), N, True)
+        instance = K6.tensor_kernel_info(square, pl["V"])
+        name = "ct_tensor_kernel"
+    else:
+        mode = kind[len("fast_bconv_"):]
+        tab = spec["tab"].to(dev)
+        args, kernel, twin = (x, tab), K7._launch_behz, K7.behz_plain
+        R = x.numel() // (tab.Lin * N)
+        Lf, Lt = tab.Lf, tab.Lt
+        outputs = R * tab.Lout * N
+        nbytes = 4 * (x.numel() + outputs + tab.src.numel() + tab.tab.numel()
+                      + tab.tgt.numel())
+        # a Shoup scale a source, the correction's products (the lift's
+        # sum, SK's extra target), Lf + 1 products and a REDC a target
+        extra = {"lift": Lf, "floor": 0, "sk": Lf + 1}[mode]
+        bound = fused_bound(nbytes, R * N * (2 * Lf + extra + Lt * (Lf + 1)),
+                            R * N * (Lt + (mode == "sk")))
+        pl = K7.mode_plan(R, Lf, Lt, N, 16)
+        instance = K7.kernel_info(Lf, pl["V"], mode)
+        name = "fast_bconv_kernel_behz"
+    out, ref = kernel(*args), twin(*args)
+    torch.cuda.synchronize()
+    err = int((out.long() - ref.long()).abs().max())
+    del out, ref
+    if err:
+        raise SystemExit(f"{kind} disagrees with its twin at {where}: "
+                         f"{ {k: v for k, v in spec.items() if k != 'tab'} }: "
+                         f"max error {err}")
+    e = dict(where=where, shape=[list(spec["x"][0])], max_abs_err=err, outputs=outputs,
+             plan={k: pl[k] for k in ("V", "chunk", "grid") if k in pl},
+             instance={k: instance[k] for k in ("registers", "local_bytes", "blocks_per_sm")},
+             **bound)
+    if timed:
+        e["ms"] = event_ms(lambda: kernel(*args), launches=FUSED_LAUNCHES, repeats=3)
+        e["device_ms"] = device_ms(lambda: kernel(*args), name, launches=FUSED_LAUNCHES)
+        e["ratio"] = e["device_ms"] / e["bound_ms"]
+    if plain:
+        e["plain_ms"] = event_ms(lambda: twin(*args), launches=2, repeats=3, warmup=1)
+    return e
+
+
+class _Limbs:
+    """A limb shard's block [lo, hi) of k, for `BFVParams.narrow`'s tables
+    only (no collective)."""
+
+    def __init__(self, lo, hi, k):
+        self.lo, self.hi, self.k = lo, hi, k
+
+
+def behz_phase(dev) -> list[dict]:
+    """The BEHZ multiply's kernels bit-equal to their twins on the card at
+    CryptoNets' chunk (64 ciphertexts), LoLa's one ciphertext and CIFAR's
+    at n = 16384, each timed beside its bound and the twin; the lift and
+    Shenoy-Kumaresan on a limb-sharded rank's tables (limbs [2, 5) of
+    CryptoNets' chain) too; a square on the card equal to the CPU's
+    twins' (every shape a path launches them at is checked after the
+    paths, `launch_shape_phase`)."""
+    from cryptonets_tpu_torch.crypto.bfv import BFV, BFVParams
+    from cryptonets_tpu_torch.crypto.primes import default_coeff_modulus_128
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rings = {
+        "CryptoNets": (8192, CONFIGS["cryptonets"]["plain_primes"][0],
+                       tuple(default_coeff_modulus_128(8192)), 64),
+        "LoLa": (8192, CONFIGS["lola"]["plain_primes"][0],
+                 tuple(default_coeff_modulus_128(8192)), 1),
+        "CIFAR": (16384, CONFIGS["cifar"]["plain_primes"][0],
+                  tuple(default_coeff_modulus_128(16384)[:13]), 1)}
+
+    def z(*shape):          # a layout only: the cases make their own data
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    params = {title: BFVParams(n, t, qs, device=dev)
+              for title, (n, t, qs, rows) in rings.items()}
+    cases = []
+    for title, (n, t, qs, rows) in rings.items():
+        p = params[title]
+        k, nb = len(qs), len(p.bsk_list)
+        cases += [
+            (f"{title} square: lift", behz_spec(z(rows, 2, k, n), p.bconv["lift"])),
+            (f"{title} square: tensor", behz_spec(
+                z(rows, 2, k + nb, n), chain=p.chain_qbsk, square=True)),
+            (f"{title} multiply: tensor", behz_spec(
+                z(rows, 2, k + nb, n), chain=p.chain_qbsk, square=False)),
+            (f"{title} square: floor", behz_spec(z(rows, 3, k + nb, n), p.bconv["floor"])),
+            (f"{title} square: Shenoy-Kumaresan", behz_spec(
+                z(rows, 3, nb, n), p.bconv["sk"]))]
+    n, t, qs, rows = rings["CryptoNets"]
+    rank = params["CryptoNets"].narrow(_Limbs(2, 5, len(qs))).bconv
+    cases += [
+        ("CryptoNets square, limbs [2, 5): lift", behz_spec(
+            z(rows, 2, len(qs), n), rank["lift"])),
+        ("CryptoNets square, limbs [2, 5): Shenoy-Kumaresan", behz_spec(
+            z(rows, 3, rank["sk"].Lin, n), rank["sk"]))]
+    entries = {name: [] for name in BEHZ_KERNELS}
+    for where, spec in cases:
+        e = behz_case(spec, gen, dev, where, plain=True)
+        entries[spec["kind"]].append(e)
+        log(f"{spec['kind']} {where} {e['shape']}: bit-equal to twin, edges too; "
+            f"events {e['ms']:.4f} / device {e['device_ms']:.4f} / bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']} ({e['bytes'] / 1e6:.2f} MB; "
+            f"{e['ratio']:.2f}x) / plain {e['plain_ms']:.3f} ms; plan {e['plan']}, "
+            f"instance {e['instance']}")
+    # a square of CryptoNets' chunk on the card against the CPU's twins
+    p = params["CryptoNets"]
+    a = _residues((rows, 2, len(qs), n), qs, gen, dev)
+    sq = BFV(p).square(a)
+    if not torch.equal(sq, BFV(p).multiply(a, a.clone())):
+        raise SystemExit("the square on the card differs from multiply(a, a)")
+    cpu = BFV(BFVParams(n, t, qs, device="cpu"))
+    if not torch.equal(sq.cpu(), cpu.square(a.cpu())):
+        raise SystemExit("the square on the card differs from the CPU's twins'")
+    sq_ms = event_ms(lambda: BFV(p).square(a), launches=5, repeats=3)
+    log(f"CryptoNets square of 64 ciphertexts on the card: bit-equal to "
+        f"multiply(a, a) and to the CPU's twins; {sq_ms:.3f} ms (events)")
+    keep = ("where", "shape", "ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+            "plan", "instance")
+    # the JAX package's lift, tensor products, fast floor, Shenoy-Kumaresan
+    sources = {"fast_bconv_lift": ("bconv.cu", 961), "ct_tensor": ("modmac.cu", 1000),
+               "fast_bconv_floor": ("bconv.cu", 1016), "fast_bconv_sk": ("bconv.cu", 1025)}
+    out = []
+    for name in BEHZ_KERNELS:
+        main = entries[name][0]            # CryptoNets' chunk
+        src, line = sources[name]
+        replaces = f"cryptonets_tpu/crypto/bfv.py:{line}"
+        out.append(dict(
+            name=name, route="cuda", source=f"cryptonets_tpu_torch/kernels/{src}",
+            replaces=replaces, max_abs_err=max(e["max_abs_err"] for e in entries[name]),
+            ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
+            **{k: main[k] for k in ("bound_ms", "bound_by", "bytes_bound_ms",
+                                    "int32_ops_ms")},
+            library_ms=None, shape=main["shape"],
+            by_shape=[{k: e[k] for k in keep} for e in entries[name]]))
+    return out
+
+
+class SquareLaunches:
+    """Within `with`, the kernel launches of every `BFV.square` and
+    `BFV.multiply` call, and whether it was made inside a Square layer
+    (`SquareActivation.apply`); `check` holds them to the BEHZ path."""
+
+    def __enter__(self):
+        from cryptonets_tpu_torch.crypto.bfv import BFV
+        from cryptonets_tpu_torch.nn.layers import SquareActivation
+
+        self.calls = []        # (name, inside a Square layer, launches)
+        self._orig = orig = (BFV.square, BFV.multiply, SquareActivation.apply)
+        depth = [0]
+
+        def counted(name, fn):
+            def wrapped(bfv, *args):
+                before = kernel_counts()
+                out = fn(bfv, *args)
+                after = kernel_counts()
+                self.calls.append((name, depth[0] > 0, {
+                    k: v - before[k] for k, v in after.items() if v != before[k]}))
+                return out
+            return wrapped
+
+        def apply(layer, m):
+            depth[0] += 1
+            try:
+                return orig[2](layer, m)
+            finally:
+                depth[0] -= 1
+
+        BFV.square = counted("square", orig[0])
+        BFV.multiply = counted("multiply", orig[1])
+        SquareActivation.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        from cryptonets_tpu_torch.crypto.bfv import BFV
+        from cryptonets_tpu_torch.nn.layers import SquareActivation
+
+        BFV.square, BFV.multiply, SquareActivation.apply = self._orig
+
+    def check(self, where: str, ntt_impl: str = "butterfly") -> int:
+        """The Square layers call `square` only, at least once, and each
+        square launches one lift, one forward NTT over q + Bsk, one tensor
+        product, one inverse NTT, one floor and one Shenoy-Kumaresan mode:
+        no plain `fast_bconv`.  Returns the squares seen."""
+        fwd, inv = ((MATMUL_KERNELS if ntt_impl == "matmul" else BUTTERFLY_KERNELS))
+        want = {"fast_bconv_lift": 1, fwd: 1, "ct_tensor": 1, inv: 1,
+                "fast_bconv_floor": 1, "fast_bconv_sk": 1}
+        inside = [(name, d) for name, at, d in self.calls if at]
+        bad = [(name, d) for name, d in inside if name != "square" or d != want]
+        if not inside or bad:
+            raise SystemExit(f"{where}: the Square layers made {len(inside)} "
+                             f"products; not one square of {want} each: {bad[:3]}")
+        return len(inside)
+
+
 def slotmap_spec(x, pos, primes) -> dict:
     """A slot-map launch as a case: the values' layout, the index map (read
     to the host by `shape_cases`, after the run), the plain primes."""
@@ -1458,7 +1703,8 @@ class LaunchShapes:
         from cryptonets_tpu_torch.kernels import slotmap as SM
 
         self._orig = orig = (K._launch, M._launch, MM._launch, K6._launch,
-                             K7._launch, SM._launch, K._launch_lift)
+                             K7._launch, SM._launch, K._launch_lift,
+                             K7._launch_behz, K6._launch_tensor)
 
         def tables_launch(seen, launch):
             def wrapped(name, x, tab, *tables):
@@ -1492,11 +1738,22 @@ class LaunchShapes:
             self.fused.setdefault(_spec_key(spec), spec)
             return orig[5](x, pos, primes)
 
+        def behz_launch(x, tab):
+            spec = behz_spec(x, tab)
+            self.fused.setdefault(_spec_key(spec), spec)
+            return orig[7](x, tab)
+
+        def tensor_launch(x, y, chain):
+            spec = behz_spec(x, chain=chain, square=y is None)
+            self.fused.setdefault(_spec_key(spec), spec)
+            return orig[8](x, y, chain)
+
         K._launch = tables_launch(self.ntt, orig[0])
         K._launch_lift = lift_launch
         M._launch = tables_launch(self.mmntt, orig[1])
         MM._launch = contract_launch
         K6._launch, K7._launch, SM._launch = mac_launch, bconv_launch, slotmap_launch
+        K7._launch_behz, K6._launch_tensor = behz_launch, tensor_launch
         return self
 
     def __exit__(self, *exc):
@@ -1508,7 +1765,7 @@ class LaunchShapes:
         from cryptonets_tpu_torch.kernels import slotmap as SM
 
         (K._launch, M._launch, MM._launch, K6._launch, K7._launch,
-         SM._launch, K._launch_lift) = self._orig
+         SM._launch, K._launch_lift, K7._launch_behz, K6._launch_tensor) = self._orig
 
 
 # the single-image paths: (title, builder, timed records after one
@@ -1701,6 +1958,10 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
     # a BSGS dense layer encodes its diagonals through the lift loads
     bsgs = any(getattr(layer, "bsgs_form", None) is not None for layer in fwd.layers)
     lift = (LIFT_KERNELS, ()) if bsgs else ((), LIFT_KERNELS)
+    # the first record's products, counted from before the layer wrappers
+    # below so that they call the counting Square layer (a failure ends
+    # the run, so only the normal exit restores the class)
+    squares = SquareLaunches().__enter__()
     kept = []
     if raw_layers is not None:
         # keep every layer's output of the record for `layer_gate`, and
@@ -1725,8 +1986,11 @@ def lola_phase(dev, which: str = "lola", shapes: LaunchShapes | None = None) -> 
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
         check_launches(f"{title} record {i}", launched,
-                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + lift[0],
-                       MATMUL_KERNELS + lift[1])
+                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS
+                       + BEHZ_KERNELS + lift[0], MATMUL_KERNELS + lift[1])
+        if i == 0:
+            squares.check(f"{title} record {i}")
+            squares.__exit__(None, None, None)
         if raw_layers is not None:
             by_layer = layer_gate(title, which, [type(l).__name__ for l in fwd.layers],
                                   kept[1:], raw_layers)
@@ -1800,7 +2064,8 @@ def shape_cases(where: str, rec: LaunchShapes) -> list[dict]:
     for spec in rec.fused.values():
         cases.append(dict(spec, where=where, **{
             k: spec[k].cpu().numpy() for k in ("table", "perm", "pos")
-            if spec.get(k) is not None}))
+            if spec.get(k) is not None}, **(
+            {"tab": spec["tab"].to("cpu")} if "tab" in spec else {})))
     return cases
 
 
@@ -1836,7 +2101,7 @@ def launch_shape_phase(recorded: dict) -> tuple[dict, dict]:
     counts = {kind: sum(c["kind"] == kind for c in cases)
               for kind in ("ntt", "ntt_lift", "mmntt", "contract") + SPEC_KERNELS}
     log(f"launch shapes of {paths}: {counts} (K1/K2, their lift loads, K5, K4, "
-        f"K6, K7, the slot map) bit-equal "
+        f"K6, K7, the slot map, K7's BEHZ modes, the tensor product) bit-equal "
         f"to the plain versions, edge rows too, each timed with the "
         f"profiler's device time")
     return shapes, err
@@ -1909,6 +2174,12 @@ def launch_shapes_main() -> int:
             err["slot_map"] = max(err["slot_map"], e["max_abs_err"])
             shapes["slot_map"].append({k: e[k] for k in ("where", "shape", "outputs")
                                        + keep + ("plan", "instance")})
+            continue
+        if c["kind"] in BEHZ_KERNELS:
+            e = behz_case(c, gen, dev, where)
+            err[c["kind"]] = max(err[c["kind"]], e["max_abs_err"])
+            shapes[c["kind"]].append({k: e[k] for k in ("where", "shape", "outputs")
+                                      + keep + ("plan", "instance")})
             continue
         if c["kind"] in FUSED_KERNELS:
             e = fused_case(c, gen, dev, where)
@@ -1994,9 +2265,10 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
                                 (preset, ntt_impl), f" ({preset}, {ntt_impl} NTT)")
     records, raws = cryptonets_data(batch)
     if ntt_impl == "matmul":
-        expect = (MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS, LIFT_KERNELS)
+        expect = (MATMUL_KERNELS + ("mod_contract",) + FUSED_KERNELS + BEHZ_KERNELS,
+                  LIFT_KERNELS)
     else:
-        expect = (BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+        expect = (BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + BEHZ_KERNELS,
                   MATMUL_KERNELS + LIFT_KERNELS)
 
     reset_kernel_counts()
@@ -2027,13 +2299,18 @@ def cryptonets_phase(dev, batch: int = 8192, preset: str = "cryptonets",
         if rec is None and ntt_impl == "matmul":
             rec = LaunchShapes()
         t0 = time.perf_counter()
-        with rec or contextlib.nullcontext():
+        with rec or contextlib.nullcontext(), SquareLaunches() as squares:
             out = fwd()
         enc = np.asarray(out.decrypt(), dtype=float)
         lat = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         per_batch = {k: v - before[k] for k, v in kernel_counts().items()}
         check_launches(f"{title} batch {i}", per_batch, *expect)
+        if i == 0:
+            n_sq = squares.check(f"{title} batch {i}", ntt_impl)
+            log(f"{title} batch {i}: {n_sq} squares, each one lift, one forward "
+                f"and one inverse NTT over q + Bsk, one tensor product, one floor, "
+                f"one Shenoy-Kumaresan, no plain fast_bconv")
         if ntt_impl == "matmul":
             chains = {tuple(tab.q.view(-1).tolist())
                       for tab, _ in rec.ntt.values()}
@@ -2183,8 +2460,9 @@ def serve_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     output matrix, which the client loads and decrypts.  Gates: the logits
     equal the Raw oracle's at rtol 1e-9; the output ciphertexts equal, bit
     for bit, the client's own run of the layers on the same loaded input;
-    the server's decrypt raises; K1, K2 and K4 launch.  `launches` counts
-    the whole phase, `per_record` the server's steady record."""
+    the server's decrypt raises; K1, K2, K4 and the BEHZ kernels launch.
+    `launches` counts the whole phase, `per_record` the server's steady
+    record."""
     import tempfile
 
     from cryptonets_tpu_torch.api import serial
@@ -2273,7 +2551,7 @@ def serve_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         raise SystemExit("serve: the server's output ciphertexts differ from "
                          "the client's own run on the same input")
     check_launches("serve", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + BEHZ_KERNELS,
                    MATMUL_KERNELS)
     out.update(budget=res_c.get_column(0).noise_budget(), launches=launched,
                per_record=per_record, galois_keys=len(fac_s.keys.galois))
@@ -2368,8 +2646,8 @@ def op_budgets_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         log(f"op budgets {name}: " + ", ".join(f"{k} {v}" for k, v in row.items())
             + f"; the reference {ref} ({rows[name]['seconds']:.2f} s)")
     launched = kernel_counts()
-    check_launches("op_budgets", launched, BUTTERFLY_KERNELS + FUSED_KERNELS,
-                   MATMUL_KERNELS)
+    check_launches("op_budgets", launched,
+                   BUTTERFLY_KERNELS + FUSED_KERNELS + BEHZ_KERNELS, MATMUL_KERNELS)
     log(f"op budgets: {len(rows)} presets, kernel launches {launched}")
     if bad:
         raise SystemExit(f"op_budgets: {bad} at 0 bits or more than 3 bits "
@@ -2401,7 +2679,7 @@ def parallel_rank(per_rank: int) -> dict:
                                          batch=dist.get_world_size())
     launched = kernel_counts()
     check_launches(f"parallel rank {rank}", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + BEHZ_KERNELS,
                    MATMUL_KERNELS)
     verdict.update(rank=rank, exact=True, launches=launched,
                    device=torch.cuda.get_device_name(torch.cuda.current_device()))
@@ -2419,9 +2697,11 @@ def parallel_limb_rank(inputs_path: str, batched: bool) -> dict:
     this rank on its block of the 6 data limbs with its limbs of the key
     set, a loop over the records or (`batched`) one record batch under
     `torch.func.vmap` with one collective a cross-limb operation for the
-    batch, every record exact against the Raw oracle; its launch counts
-    from zero, rank 0's launch shapes, the output columns gathered over
-    the ranks (on the CPU), and every rank's verdict gathered on rank 0."""
+    batch, every record exact against the Raw oracle, each Square layer's
+    products squares through the BEHZ kernels on the rank's tables
+    (`SquareLaunches`); its launch counts from zero, rank 0's launch
+    shapes, the output columns gathered over the ranks (on the CPU), and
+    every rank's verdict gathered on rank 0."""
     import torch.distributed as dist
 
     from cryptonets_tpu_torch.parallel import dryrun, make_mesh
@@ -2432,14 +2712,15 @@ def parallel_limb_rank(inputs_path: str, batched: bool) -> dict:
     inputs = torch.load(inputs_path)
     reset_kernel_counts()
     shapes = LaunchShapes() if rank == 0 else None
-    with shapes or contextlib.nullcontext():
+    with shapes or contextlib.nullcontext(), SquareLaunches() as squares:
         res = dryrun.dryrun_production(mesh, n_records=LIMB_RECORDS,
                                        device="cuda", inputs=inputs,
                                        batched=batched)
     launched = kernel_counts()
     check_launches(f"parallel (c) rank {rank}", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + BEHZ_KERNELS,
                    MATMUL_KERNELS)
+    squares.check(f"parallel (c) rank {rank}")
     outputs = [global_ciphertext_batch(o, mesh, batch_axis=0, limb_axis=4).cpu()
                for o in res["outputs"]]
     verdict = {k: res[k] for k in dryrun.SUMMARY}
@@ -2466,7 +2747,8 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     over the ranks and held bit-equal to (a)'s.  Every record's decoded
     logits exact against the Raw oracle (each rank checks its own; a
     failing rank fails the run), the verdicts gathered on rank 0, the
-    launches held to K1, K2 and K4; records per second of each run: all
+    launches held to K1, K2, K4 and the BEHZ kernels (each of (c)'s
+    squares to the six launches of one device's); records per second of each run: all
     its timed records over the group's window (host clock, from a barrier
     of every rank before the forward to one after every rank's forward
     has synchronised, after one warm-up record a rank)."""
@@ -2492,7 +2774,7 @@ def parallel_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         dist.destroy_process_group()
     launched = kernel_counts()
     check_launches("parallel (one rank)", launched,
-                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                   BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS + BEHZ_KERNELS,
                    MATMUL_KERNELS)
     out["one_rank"] = dict(mesh=res["mesh"], backend=backend,
                            records=PARALLEL_RECORDS, window_s=res["window_s"],
@@ -2614,8 +2896,8 @@ def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
     stream each; one record streamed to fill the stages, then
     PIPELINE_RECORDS records back to back.  Every record's decoded logits
     against the Raw oracle (rtol 1e-9), the S-stage run's decoded outputs
-    equal to the one-stage run's, the launches held to K1, K2 and K4;
-    records per second of the streamed records (host clock, all stages
+    equal to the one-stage run's, the launches held to K1, K2, K4 and the
+    BEHZ kernels; records per second of the streamed records (host clock, all stages
     synchronised)."""
     from cryptonets_tpu_torch.data.preprocess import synthetic_mnist_records
     from cryptonets_tpu_torch.models.lola_mnist import build_lola_bsgs
@@ -2648,7 +2930,8 @@ def pipeline_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         dt = time.perf_counter() - t0
         launched = {k: v - before[k] for k, v in kernel_counts().items()}
         check_launches(f"pipeline {S} stages", launched,
-                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS,
+                       BUTTERFLY_KERNELS + ("mod_contract",) + FUSED_KERNELS
+                       + BEHZ_KERNELS,
                        MATMUL_KERNELS)
         decoded[S] = [o.get_column(0).decrypt() for o in outs]
         for i, (enc, raw) in enumerate(zip(decoded[S], raws)):
@@ -2733,8 +3016,10 @@ def bigt62_phase(dev, shapes: LaunchShapes | None = None) -> dict:
         }
         row = op_budgets(fac)
     launched = kernel_counts()
-    check_launches("bigt62", launched, BUTTERFLY_KERNELS + FUSED_KERNELS,
-                   MATMUL_KERNELS + ("mod_contract",))
+    # the host decrypts and the digit key switch converts no base: the
+    # product's conversions are the BEHZ modes, and no plain K7 runs
+    check_launches("bigt62", launched, BUTTERFLY_KERNELS + ("mod_mac",) + BEHZ_KERNELS,
+                   MATMUL_KERNELS + ("mod_contract", "fast_bconv"))
     budgets = {}
     for name, (vec, want) in results.items():
         t0 = time.perf_counter()
@@ -3222,7 +3507,8 @@ def main() -> int:
     for phase, run in (("ntt", kernel_phase), ("lift", lift_phase),
                        ("mmntt", mmntt_phase),
                        ("contract", lambda d: [contract_phase(d)]),
-                       ("fused", fused_phase), ("slotmap", slotmap_phase)):
+                       ("fused", fused_phase), ("behz", behz_phase),
+                       ("slotmap", slotmap_phase)):
         if phase in phases:
             t0 = time.perf_counter()
             kernels += run(dev)

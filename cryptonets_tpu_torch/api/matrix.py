@@ -316,17 +316,22 @@ class HEMatrix:
             ], self.fmt)
         # batched ct x ct multiply + relinearisation over pieces of
         # MULT_CHUNK columns, the pieces joined by one concatenation (no
-        # write into a fresh tensor: the record batch runs this under vmap)
+        # write into a fresh tensor: the record batch runs this under vmap);
+        # a square lifts and transforms each piece once (`BFV.square`)
         f = self.factory
+        square = other is self
         OPS.count("multiplication", V)
         OPS.count("relinearization", V)
+        if square:
+            OPS.count("square", V)
         pieces = []
         for v0 in range(0, V, MULT_CHUNK):
             A = torch.stack([v.data for v in self.vectors[v0 : v0 + MULT_CHUNK]], dim=1)
-            B = A if other is self else torch.stack(
+            B = None if square else torch.stack(
                 [v.data for v in other.vectors[v0 : v0 + MULT_CHUNK]], dim=1)
             pieces.append(torch.stack([
-                bfv.relinearize(bfv.multiply(A[pi], B[pi]), f.keys)
+                bfv.relinearize(bfv.square(A[pi]) if square
+                                else bfv.multiply(A[pi], B[pi]), f.keys)
                 for pi, bfv in enumerate(f.bfv)]))
         out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
         return HEMatrix(f, [

@@ -147,10 +147,14 @@ class HEVector:
             a, b = b, a
         fac = self.factory
         if a.is_encrypted and b.is_encrypted:
+            square = a is b          # one operand: lifted and transformed once
             OPS.count("multiplication", a.data.shape[1])
             OPS.count("relinearization", a.data.shape[1])
+            if square:
+                OPS.count("square", a.data.shape[1])
             out = torch.stack([
-                bfv.relinearize(bfv.multiply(a.data[pi], b.data[pi]), fac.keys)
+                bfv.relinearize(bfv.square(a.data[pi]) if square
+                                else bfv.multiply(a.data[pi], b.data[pi]), fac.keys)
                 for pi, bfv in enumerate(fac.bfv)
             ])
         elif a.is_encrypted:

@@ -24,15 +24,20 @@ a key set belongs to the ordering it was made under.  The key switches'
 inner products run through K6 (`kernels/modmac.py` `key_inner_product`)
 and every fast base conversion, the group extension included, through K7
 (`kernels/bconv.py` `fast_bconv`) on the tables `BFVParams.bconv`
-prepares once.
+prepares once.  The BEHZ square is six launches: K7's lift mode, K1
+over the combined chain q + Bsk, the tensor kernel (`kernels/modmac.py`
+`ct_tensor`), K2, then K7's floor and Shenoy-Kumaresan modes; a product
+of two operands lifts and transforms each, eight launches.
 
 The data limbs may be sharded over the ranks of a mesh's `limb` axis
 (`BFVParams.narrow` with a `parallel/limbs.LimbShard`, `KeySet.narrow`):
 each rank then holds limbs [lo, hi) of every ciphertext and key.  Per-limb
-operations stay local; a fast base conversion out of base q sums each
-rank's partial sums over the ranks (`_limb_sum`); a key switch gathers
-its polynomial once (`gather_limbs`) and computes the rank's own output
-limbs; conversions out of a replicated base (Bsk -> q, P -> q) need no
+operations stay local; a decrypt's fast base conversion out of base q
+sums each rank's partial sums over the ranks (`_limb_sum`); a key switch
+gathers its polynomial once (`gather_limbs`) and computes the rank's own
+output limbs; the multiply's lift and fast floor gather the q limbs they
+read, once each, and run the same modes on the rank's tables;
+conversions out of a replicated base (Bsk -> q, P -> q) need no
 collective.  This module never imports `torch.distributed`: without a
 shard the code paths are the one-process ones, with no extra copy.
 """
@@ -47,8 +52,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.bconv import BconvTable, fast_bconv
-from ..kernels.modmac import key_inner_product
+from ..kernels.bconv import BconvTable, BehzMode, behz, fast_bconv
+from ..kernels.modmac import ct_tensor, key_inner_product
 from . import sampling
 from .hostmath import CRT, modinv
 from .modular import (
@@ -200,7 +205,10 @@ class BFVParams:
         bsk = self.B_list + (self.msk,)
         self.bsk_list = bsk
         self.chain_bsk = get_mod_chain(bsk, device)
-        self.ntt_bsk = ntt_context_for(ntt_impl, n, bsk)
+        # the multiply's chain: the q limbs, then Bsk (one NTT, one tensor
+        # product over both)
+        self.chain_qbsk = get_mod_chain(qs + bsk, device)
+        self.ntt_qbsk = ntt_context_for(ntt_impl, n, qs + bsk)
         self.crt_B = CRT(list(self.B_list))
         self.m_tilde = 1 << 16
 
@@ -268,7 +276,8 @@ class BFVParams:
         Bsk; Shenoy-Kumaresan's B -> q and B -> m_sk as one table into
         `chain_q_msk` (the q limbs, then m_sk: one launch); the decrypts'
         q -> (t, gamma), q -> (m2, gamma) and q -> m2; each group's
-        extension q -> Q*P (`groups`, by group); the mod-down sp -> q."""
+        extension q -> Q*P (`groups`, by group); the mod-down sp -> q; and
+        the BEHZ modes `lift`, `floor` and `sk` (`_behz_tables`)."""
         prep = BconvTable.prepare
         self.chain_q_msk = get_mod_chain(tuple(self.limb_moduli) + (self.msk,),
                                          self.device)
@@ -286,7 +295,44 @@ class BFVParams:
             tables["groups"] = [grp[i0:i1] for i0, i1 in self.ks_groups]
         if self.n_special:
             tables["sp_to_q"] = prep(self.ks_punct_sp_to_q, self.chain_q.moduli)
+        tables.update(self._behz_tables())
         return tables
+
+    def _behz_tables(self) -> dict:
+        """The multiply's three modes of K7 (`BehzMode`), from the host
+        integers.  The lift reads every q limb (gathered on a limb-sharded
+        rank) and writes this rank's own through, ahead of Bsk; the floor
+        reads every q limb of the product, then its Bsk limbs; Shenoy-
+        Kumaresan converts the replicated Bsk into this rank's q limbs."""
+        qs, bsk, Bs = list(self.q_list), list(self.bsk_list), list(self.B_list)
+        own = qs[self.lo:self.hi]
+        Q, B, mt, msk, t = self.q_big, self.crt_B.product, self.m_tilde, self.msk, self.t
+        pq, ipq = self.crt_q.punctured, self.crt_q.inv_punctured
+        pB, ipB = self.crt_B.punctured, self.crt_B.inv_punctured
+        mt_inv = [modinv(mt, m) for m in bsk]
+        q_inv = [modinv(Q % m, m) for m in bsk]
+        b_inv = modinv(B % msk, msk)
+        dev = self.device
+        return {
+            # y_i = x_i m~ (q/q_i)^-1; r = -(sum y_i q/q_i) q^-1 mod m~,
+            # centred; out_l = (sum y_i q/q_i + r q) m~^-1 mod m_l
+            "lift": BehzMode(
+                "lift", qs, [mt * i % q for i, q in zip(ipq, qs)], bsk,
+                [[pi * u % m for m, u in zip(bsk, mt_inv)] for pi in pq],
+                [Q * u % m for m, u in zip(bsk, mt_inv)], a=[pi % mt for pi in pq],
+                M=mt, d=-modinv(Q % mt, mt) % mt, through=(self.lo, self.hi),
+                device=dev),
+            # y_i = c_i t (q/q_i)^-1; fl_l = (t c_l - sum y_i q/q_i) q^-1 mod m_l
+            "floor": BehzMode(
+                "floor", qs, [t * i % q for i, q in zip(ipq, qs)], bsk,
+                [[-pi * u % m for m, u in zip(bsk, q_inv)] for pi in pq],
+                [t * u % m for m, u in zip(bsk, q_inv)], device=dev),
+            # z_i = fl_i (B/b_i)^-1; alpha = (sum z_i B/b_i - fl_msk) B^-1
+            # mod m_sk, centred; out_l = sum z_i B/b_i - alpha B mod q_l
+            "sk": BehzMode(
+                "sk", Bs, list(ipB), own, [[pi % q for q in own] for pi in pB],
+                [-B % q for q in own], a=[pi * b_inv % msk for pi in pB], M=msk,
+                d=b_inv, device=dev)}
 
     def _init_gamma_decrypt(self, qs, aux):
         """Tables of the BEHZ gamma-correction decrypt (t < 2**31)."""
@@ -411,6 +457,8 @@ class BFVParams:
         p.limb_moduli = local = self.q_list[lo:hi]
         p.chain_q = get_mod_chain(local, self.device)
         p.ntt_q = ntt_context_for(self.ntt_impl, self.n, local)
+        p.chain_qbsk = get_mod_chain(local + self.bsk_list, self.device)
+        p.ntt_qbsk = ntt_context_for(self.ntt_impl, self.n, local + self.bsk_list)
         for name in self._LIMB_COLUMNS:
             if getattr(self, name, None) is not None:
                 setattr(p, name, getattr(self, name)[lo:hi])
@@ -917,72 +965,34 @@ class BFV:
             p.chain_q.mont_mul(p.ntt_q.forward(a), pt_hat_mont))
 
     # ------------------------------------------------------------- multiply
-    def _lift_to_bsk(self, x_q):
-        """BEHZ input lift with m_tilde correction: x (base q, [..., k, N])
-        -> |x|_q (+ small q-multiple) in base Bsk [..., k+1, N]."""
+    def _behz(self, a, b):
+        """BEHZ full-RNS product of a and b (b None: a's square), size-2
+        ciphertexts [..., 2, k, N] -> size 3: each operand lifted to Bsk
+        beside its q limbs, one NTT over the chain q + Bsk, the tensor
+        product, the inverse NTT, the fast floor of t c / q into Bsk and
+        Shenoy-Kumaresan's conversion back to q, in the modes of K7 (their
+        twin on the CPU).  A limb-sharded rank gathers the q limbs that the
+        lift and the floor read, once each."""
         p = self.p
-        cq, cb = p.chain_q, p.chain_bsk
-        mt = p.m_tilde
-        xt = mul_const_mod(x_q, p.mtilde_mod_q, cq.q)      # |m_tilde x|_q
-        y = mul_const_mod(xt, p.inv_punct_q, cq.q)
-        conv = as_res(self._limb_sum(fast_bconv(y, p.bconv["q_to_bsk"], cb), cb.q))
-        # residue mod m_tilde: the low 16 bits of the wrap-around sum
-        conv_mt = self._limb_sum(
-            ((wide(y)[..., :, None, :] * p.punct_q_to_mtilde) % mt).sum(dim=-3) % mt, mt)
-        r = conv_mt.squeeze(-2) * p.neg_qinv_mtilde % mt
-        r_c = torch.where(r >= mt >> 1, r - mt, r)         # centered, small
-        corr = mul_const_mod(r_c[..., None, :] % cb.q, p.q_mod_bsk, cb.q)
-        return mul_const_mod(add_mod(conv, corr, cb.q), p.mtilde_inv_bsk, cb.q)
+        if a.shape[-3] != 2 or (b is not None and b.shape[-3] != 2):
+            raise ValueError("multiply takes size-2 ciphertexts")
+        tabs, ntt = p.bconv, p.ntt_qbsk
+        xh = ntt.forward(behz(self.gather_limbs(a), tabs["lift"]))
+        yh = None if b is None else ntt.forward(behz(self.gather_limbs(b), tabs["lift"]))
+        c = ntt.inverse(ct_tensor(xh, yh, p.chain_qbsk))
+        if p.shard is not None:
+            kl = p.k_local
+            c = torch.cat([self.gather_limbs(c[..., :kl, :]), c[..., kl:, :]], dim=-2)
+        return behz(behz(c, tabs["floor"]), tabs["sk"])
 
     def multiply(self, a, b):
         """BFV ciphertext multiply (BEHZ full-RNS) of two size-2
         ciphertexts -> size-3 ciphertext; relinearize() reduces it."""
-        p = self.p
-        cq, cb = p.chain_q, p.chain_bsk
-        if a.shape[-3] != 2 or b.shape[-3] != 2:
-            raise ValueError("multiply takes size-2 ciphertexts")
-
-        def tensor(x, y, ntt, chain):
-            xh = ntt.forward(x)
-            yh = chain.to_mont(ntt.forward(y))
-            x0, x1 = xh[..., 0, :, :], xh[..., 1, :, :]
-            y0, y1 = yh[..., 0, :, :], yh[..., 1, :, :]
-            c0 = chain.mont_mul(x0, y0)
-            c1 = add_mod(chain.mont_mul(x0, y1), chain.mont_mul(x1, y0), chain.q)
-            c2 = chain.mont_mul(x1, y1)
-            return ntt.inverse(torch.stack([c0, c1, c2], dim=-3))
-
-        c_q = tensor(a, b, p.ntt_q, cq)
-        c_bsk = tensor(self._lift_to_bsk(a), self._lift_to_bsk(b), p.ntt_bsk, cb)
-
-        # scale by t/q with the fast floor
-        tc_q = mul_const_mod(c_q, p.t_mod_q, cq.q)
-        tc_bsk = mul_const_mod(c_bsk, p.t_mod_bsk, cb.q)
-        y = mul_const_mod(tc_q, p.inv_punct_q, cq.q)
-        u = as_res(self._limb_sum(fast_bconv(y, p.bconv["q_to_bsk"], cb), cb.q))
-        fl = mul_const_mod(sub_mod(tc_bsk, u, cb.q), p.qinv_mod_bsk, cb.q)
-
-        # Shenoy-Kumaresan back-conversion Bsk -> q (each rank its own q
-        # limbs out of the replicated Bsk): B -> q and B -> m_sk in one
-        # conversion into (q, m_sk)
-        nB = len(p.B_list)
-        y_B, y_msk = fl[..., :nB, :], fl[..., nB, :]
-        z = mul_const_mod(y_B, p.inv_punct_B, p.chain_B.q)
-        conv = fast_bconv(z, p.bconv["B_to_q_msk"], p.chain_q_msk)
-        conv_q, conv_msk = conv[..., :-1, :], conv[..., -1:, :]
-        alpha = mul_const_mod(
-            sub_mod(conv_msk, y_msk[..., None, :], p.msk_chain.q),
-            p.Binv_mod_msk, p.msk_chain.q,
-        )  # [..., 1, N]: small, centered residue mod msk
-        alpha_res = torch.where(
-            alpha > (p.msk >> 1),
-            neg_mod(cq.reduce(p.msk - wide(alpha)), cq.q),
-            cq.reduce(alpha),
-        )
-        return sub_mod(conv_q, mul_const_mod(alpha_res, p.B_mod_q, cq.q), cq.q)
+        return self._behz(a, b)
 
     def square(self, a):
-        return self.multiply(a, a)
+        """`multiply(a, a)`, bit for bit, lifting and transforming a once."""
+        return self._behz(a, None)
 
     # ----------------------------------------------------------- key switch
     def _digit(self, poly, d: int):

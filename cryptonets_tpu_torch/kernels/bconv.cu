@@ -29,6 +29,28 @@
 // moduli are read per target, so one launch may carry targets of two
 // chains (Shenoy-Kumaresan's B -> q and B -> m_sk).  The launch plan (V,
 // the target chunk) is `kernels/bconv.py` `plan`.
+//
+// The BEHZ modes (`fast_bconv_kernel_behz<MODE, LF, V>`, `kernels/bconv.py`
+// `behz` on a `BehzMode`): the three conversions of the BEHZ ciphertext
+// multiply, each with the scalings and corrections around it done in
+// registers, so no int64 intermediate of the multiply reaches device
+// memory (the modes' plain twin `behz_plain` computes the same from the
+// same tables with int64 passes).  A thread loads its Lf source residues
+// once and scales each by w_i mod q_i (a Shoup product: the m~ (q/q_i)^-1,
+// t (q/q_i)^-1 or (B/b_i)^-1 of the mode); a correction e that one
+// coefficient needs for every target is formed in registers from the
+// scaled residues (the lift's centred r = -(conv mod m~) q^-1 mod m~,
+// m~ = 2**16, from the wrap-around sum of y_i (q/q_i) mod 2**16;
+// Shenoy-Kumaresan's centred alpha = (conv_msk - fl_msk) B^-1 mod m_sk,
+// one more target reduced first; the floor's t c_bsk is read per target
+// instead); each target's lazy sum then starts from e times the target's
+// constant for e's sign, so the one REDC gives the corrected residue: the
+// table is prepared with the mode's factor folded in (m~^-1, -q^-1),
+// canonical, bit-equal to the twin.  Rows are contiguous [R, Lin, N]; the
+// lift writes its source limbs [lo, lo + out0) through ahead of the Bsk
+// limbs ([R, out0 + |Bsk|, N], the NTT's combined chain: every q limb, or
+// a limb-sharded rank's own from the gathered ones), the floor reads c_q
+// and c_bsk out of one such row.
 
 #include <cuda_runtime.h>
 
@@ -59,6 +81,16 @@ template <>
 struct Vec<1> {
   __device__ static void load(const int32_t* p, uint32_t* x) { x[0] = uint32_t(__ldg(p)); }
   __device__ static void store(int32_t* p, const uint32_t* x) { p[0] = int32_t(x[0]); }
+};
+template <>
+struct Vec<2> {
+  __device__ static void load(const int32_t* p, uint32_t* x) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+    x[0] = uint32_t(v.x), x[1] = uint32_t(v.y);
+  }
+  __device__ static void store(int32_t* p, const uint32_t* x) {
+    *reinterpret_cast<int2*>(p) = make_int2(int32_t(x[0]), int32_t(x[1]));
+  }
 };
 template <>
 struct Vec<4> {
@@ -178,6 +210,225 @@ int describe_lf(uint32_t Lf, int V, int* out, std::integer_sequence<int, LFs...>
   return held ? err : (V == 4 ? describe<0, 4>(out) : describe<0, 1>(out));
 }
 
+// ------------------------------------------------------------ BEHZ modes
+enum : int { kLift = 1, kFloor = 2, kSk = 3 };
+constexpr int kMaxModeLf = 64;   // source limbs of a mode launch
+
+struct ModeParams {
+  const int32_t* x;      // rows [R, Lin, N], contiguous
+  int32_t* out;          // rows [R, Lout, N], contiguous
+  const uint4* src;      // [Lf]: q_i, w_i, Shoup companion of w_i, aux_i
+  const uint32_t* tab;   // [Lf, Lt] contiguous, the mode's factor folded in
+  const uint4* tgt;      // [Lt]: m_l, -m_l^-1 mod 2**32, k_pos_l, k_neg_l
+  uint32_t Lf, Lt, Lin, Lout, out0, lo, logn, log_tiles, chunk, log_chunk_p2;
+  uint32_t c0, c1, c2;   // lift: -q^-1 mod m~; SK: m_sk, -m_sk^-1, B^-1 R mod m_sk
+};
+
+// x w mod q for x < 2**32, w < q < 2**31, ws = floor(w 2**32 / q)
+__device__ __forceinline__ uint32_t shoup(uint32_t x, uint32_t w, uint32_t ws, uint32_t q) {
+  const uint32_t r = x * w - __umulhi(x, ws) * q;
+  return r >= q ? r - q : r;
+}
+
+// MODE kLift, kFloor or kSk; LF source limbs in registers (0: any Lf,
+// loaded and scaled again per target); V coefficients a thread
+template <int MODE, int LF, int V>
+__global__ void __launch_bounds__(kThreads) fast_bconv_kernel_behz(const ModeParams p) {
+  __shared__ uint32_t tab[kMaxTable];   // [Lf, nt] of this block's targets
+  __shared__ uint4 tgt[kMaxChunk];
+  __shared__ uint4 src[kMaxModeLf];
+  const uint32_t Lf = LF ? uint32_t(LF) : p.Lf;
+  const uint32_t t0 = blockIdx.z * p.chunk;
+  const uint32_t nt = min(p.chunk, p.Lt - t0);
+  const uint32_t tmask = (1u << p.log_chunk_p2) - 1;
+  for (uint32_t e = threadIdx.x; e < (Lf << p.log_chunk_p2); e += kThreads) {
+    const uint32_t i = e >> p.log_chunk_p2, t = e & tmask;
+    if (t < nt) tab[i * nt + t] = __ldg(p.tab + i * p.Lt + t0 + t);
+  }
+  for (uint32_t t = threadIdx.x; t < nt; t += kThreads) tgt[t] = __ldg(p.tgt + t0 + t);
+  for (uint32_t i = threadIdx.x; i < Lf; i += kThreads) src[i] = __ldg(p.src + i);
+  __syncthreads();
+
+  const uint32_t tile = blockIdx.x & ((1u << p.log_tiles) - 1);
+  const uint32_t r = blockIdx.x >> p.log_tiles;
+  const uint32_t n = (tile * kThreads + threadIdx.x) * V;
+  if (n >= (1u << p.logn)) return;
+  const int32_t* x = p.x + ((uint64_t(r) * p.Lin) << p.logn) + n;
+  int32_t* out = p.out + ((uint64_t(r) * p.Lout) << p.logn) + n;
+  // the lift writes its source limbs [lo, lo + out0) through, ahead of the targets
+  const bool through = MODE == kLift && blockIdx.z == 0;
+
+  // y_i = x_i w_i mod q_i, held in registers for LF > 0
+  uint32_t y[LF ? LF : 1][V];
+  auto scale = [&](uint32_t i, uint32_t* v) {
+    const uint4 s = src[i];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = shoup(v[j], s.y, s.z, s.x);
+  };
+  if constexpr (LF > 0) {
+#pragma unroll
+    for (int i = 0; i < LF; ++i) {
+      Vec<V>::load(x + (uint64_t(i) << p.logn), y[i]);
+      if (through && uint32_t(i) - p.lo < p.out0)
+        Vec<V>::store(out + (uint64_t(i - p.lo) << p.logn), y[i]);
+      scale(i, y[i]);
+    }
+  } else if (through) {
+    for (uint32_t i = 0; i < p.out0; ++i) {
+      uint32_t v[V];
+      Vec<V>::load(x + (uint64_t(p.lo + i) << p.logn), v);
+      Vec<V>::store(out + (uint64_t(i) << p.logn), v);
+    }
+  }
+  // f(i, y_i) for every source limb, from registers or loaded again
+  auto for_sources = [&](auto&& f) {
+    if constexpr (LF > 0) {
+#pragma unroll
+      for (int i = 0; i < LF; ++i) f(uint32_t(i), y[i]);
+    } else {
+      for (uint32_t i = 0; i < Lf; ++i) {
+        uint32_t v[V];
+        Vec<V>::load(x + (uint64_t(i) << p.logn), v);
+        scale(i, v);
+        f(i, v);
+      }
+    }
+  };
+
+  // the correction e of each coefficient and its sign (the lift's r, SK's alpha)
+  uint32_t e[V];
+  bool neg[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) e[j] = 0, neg[j] = false;
+  if constexpr (MODE == kLift) {
+    uint32_t s[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = 0;
+    for_sources([&](uint32_t i, const uint32_t* v) {
+      const uint32_t pm = src[i].w;      // q / q_i mod 2**16
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] += v[j] * pm;   // wraps: mod 2**32
+    });
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const uint32_t rr = (s[j] * p.c0) & 0xFFFFu;
+      neg[j] = rr >= 0x8000u;
+      e[j] = neg[j] ? 0x10000u - rr : rr;
+    }
+  } else if constexpr (MODE == kSk) {
+    const uint64_t mR = uint64_t(p.c0) << 32;
+    uint32_t fm[V];
+    Vec<V>::load(x + (uint64_t(Lf) << p.logn), fm);   // fl's m_sk residue
+    uint64_t s[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = uint64_t(p.c0 - fm[j]) * p.c2;
+    for_sources([&](uint32_t i, const uint32_t* v) {
+      const uint32_t w = src[i].w;       // (B / b_i) B^-1 R mod m_sk
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] = mont::lazy_add(s[j], uint64_t(v[j]) * w, mR);
+    });
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const uint32_t a = mont::redc(s[j], p.c0, p.c1);
+      neg[j] = a > (p.c0 >> 1);
+      e[j] = neg[j] ? p.c0 - a : a;
+    }
+  }
+
+  for (uint32_t t = 0; t < nt; ++t) {
+    const uint4 m = tgt[t];
+    const uint64_t mR = uint64_t(m.x) << 32;
+    uint64_t s[V];
+    if constexpr (MODE == kFloor) {       // c_bsk t q^-1 R (k_pos)
+      uint32_t cb[V];
+      Vec<V>::load(x + (uint64_t(Lf + t0 + t) << p.logn), cb);
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] = uint64_t(cb[j]) * m.z;
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] = uint64_t(e[j]) * (neg[j] ? m.w : m.z);
+    }
+    for_sources([&](uint32_t i, const uint32_t* v) {
+      const uint32_t w = tab[i * nt + t];
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[j] = mont::lazy_add(s[j], uint64_t(v[j]) * w, mR);
+    });
+    uint32_t o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = mont::redc(s[j], m.x, m.y);
+    Vec<V>::store(out + (uint64_t(p.out0 + t0 + t) << p.logn), o);
+  }
+}
+
+// the most coefficients a thread for LF source limbs: 4 up to 8 limbs, 2
+// above (and for any Lf), so the held residues stay within the registers
+template <int LF>
+constexpr int kModeV = LF >= 1 && LF <= 8 ? 4 : 2;
+
+template <int MODE, int LF>
+cudaError_t mode_launch_v(int V, dim3 grid, const ModeParams& p, cudaStream_t s) {
+  if (V == kModeV<LF>)
+    fast_bconv_kernel_behz<MODE, LF, kModeV<LF>><<<grid, kThreads, 0, s>>>(p);
+  else if (V == 1)
+    fast_bconv_kernel_behz<MODE, LF, 1><<<grid, kThreads, 0, s>>>(p);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+template <int MODE, int... LFs>
+cudaError_t mode_launch_lf(uint32_t Lf, int V, dim3 grid, const ModeParams& p, cudaStream_t s,
+                           std::integer_sequence<int, LFs...>) {
+  cudaError_t err = cudaErrorInvalidValue;
+  const bool held = ((Lf == uint32_t(LFs + 1)
+                          ? (err = mode_launch_v<MODE, LFs + 1>(V, grid, p, s), true)
+                          : false) || ...);
+  return held ? err : mode_launch_v<MODE, 0>(V, grid, p, s);
+}
+
+template <int MODE, int LF, int V>
+int mode_describe(int* out) {
+  const auto kernel = fast_bconv_kernel_behz<MODE, LF, V>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  if (err != cudaSuccess) return int(err);
+  out[0] = attr.numRegs;
+  out[1] = int(attr.localSizeBytes);
+  out[2] = kThreads;
+  out[3] = int(attr.sharedSizeBytes);
+  out[4] = blocks;
+  return 0;
+}
+
+template <int MODE, int LF>
+int mode_describe_v(int V, int* out) {
+  if (V == kModeV<LF>) return mode_describe<MODE, LF, kModeV<LF>>(out);
+  if (V == 1) return mode_describe<MODE, LF, 1>(out);
+  return int(cudaErrorInvalidValue);
+}
+
+template <int MODE, int... LFs>
+int mode_describe_lf(uint32_t Lf, int V, int* out, std::integer_sequence<int, LFs...>) {
+  int err = int(cudaErrorInvalidValue);
+  const bool held = ((Lf == uint32_t(LFs + 1)
+                          ? (err = mode_describe_v<MODE, LFs + 1>(V, out), true)
+                          : false) || ...);
+  return held ? err : mode_describe_v<MODE, 0>(V, out);
+}
+
+template <int MODE>
+cudaError_t mode_launch(uint32_t Lf, int V, dim3 grid, const ModeParams& p, cudaStream_t s) {
+  return mode_launch_lf<MODE>(Lf, V, grid, p, s, std::make_integer_sequence<int, kMaxLf>{});
+}
+
+template <int MODE>
+int mode_info(uint32_t Lf, int V, int* out) {
+  return mode_describe_lf<MODE>(Lf, V, out, std::make_integer_sequence<int, kMaxLf>{});
+}
+
 }  // namespace
 
 // Five ints into `out` for the instance that serves Lf source limbs with
@@ -242,4 +493,72 @@ extern "C" int fast_bconv(const long long* v, void* stream) {
 
 extern "C" const char* fast_bconv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The BEHZ modes' parameter block, int64 each, in this order (see
+// `kernels/bconv.py` `_launch_behz`).
+enum {
+  kMDevice, kMX, kMOut, kMSrc, kMTab, kMTgt, kMMode, kMLf, kMLt, kMLin, kMLout,
+  kMOut0, kMLo, kMLogn, kMV, kMLogTiles, kMChunk, kMLogChunkP2, kMGridX, kMGridZ,
+  kMC0, kMC1, kMC2,
+  kModeParams
+};
+
+extern "C" int fast_bconv_behz_param_count() { return kModeParams; }
+
+extern "C" int fast_bconv_behz_max_lf() { return kMaxModeLf; }
+
+// mode 1 (lift), 2 (floor) or 3 (Shenoy-Kumaresan): the instance's five
+// ints as `fast_bconv_kernel_info` gives them
+extern "C" int fast_bconv_behz_kernel_info(int mode, int Lf, int V, int* out) {
+  switch (mode) {
+    case kLift: return mode_info<kLift>(uint32_t(Lf), V, out);
+    case kFloor: return mode_info<kFloor>(uint32_t(Lf), V, out);
+    case kSk: return mode_info<kSk>(uint32_t(Lf), V, out);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" int fast_bconv_behz(const long long* v, void* stream) {
+  ModeParams p;
+  p.x = reinterpret_cast<const int32_t*>(v[kMX]);
+  p.out = reinterpret_cast<int32_t*>(v[kMOut]);
+  p.src = reinterpret_cast<const uint4*>(v[kMSrc]);
+  p.tab = reinterpret_cast<const uint32_t*>(v[kMTab]);
+  p.tgt = reinterpret_cast<const uint4*>(v[kMTgt]);
+  p.Lf = uint32_t(v[kMLf]);
+  p.Lt = uint32_t(v[kMLt]);
+  p.Lin = uint32_t(v[kMLin]);
+  p.Lout = uint32_t(v[kMLout]);
+  p.out0 = uint32_t(v[kMOut0]);
+  p.lo = uint32_t(v[kMLo]);
+  p.logn = uint32_t(v[kMLogn]);
+  p.log_tiles = uint32_t(v[kMLogTiles]);
+  p.chunk = uint32_t(v[kMChunk]);
+  p.log_chunk_p2 = uint32_t(v[kMLogChunkP2]);
+  p.c0 = uint32_t(v[kMC0]);
+  p.c1 = uint32_t(v[kMC1]);
+  p.c2 = uint32_t(v[kMC2]);
+  if (p.Lf == 0 || p.Lf > uint32_t(kMaxModeLf) || p.chunk == 0 ||
+      uint64_t(p.Lf) << p.log_chunk_p2 > uint64_t(2 * kMaxTable) ||
+      uint64_t(p.Lf) * p.chunk > uint64_t(kMaxTable) || p.chunk > uint32_t(kMaxChunk) ||
+      uint64_t(p.lo) + p.out0 > p.Lin)
+    return int(cudaErrorInvalidValue);
+  const dim3 grid{unsigned(v[kMGridX]), 1u, unsigned(v[kMGridZ])};
+  if (grid.x == 0 || grid.z == 0) return 0;
+
+  int current = 0;
+  cudaGetDevice(&current);
+  const int device = int(v[kMDevice]);
+  if (current != device) cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int V = int(v[kMV]);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (int(v[kMMode])) {
+    case kLift: err = mode_launch<kLift>(p.Lf, V, grid, p, s); break;
+    case kFloor: err = mode_launch<kFloor>(p.Lf, V, grid, p, s); break;
+    case kSk: err = mode_launch<kSk>(p.Lf, V, grid, p, s); break;
+  }
+  if (current != device) cudaSetDevice(current);
+  return int(err);
 }

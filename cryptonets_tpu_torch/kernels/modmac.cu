@@ -36,6 +36,16 @@
 // mod q, canonical: bit-equal to the plain twin's `add_mod(acc,
 // mod_sum(mont_mul(...)))`.  The launch plan (V, RT, the
 // threads of a block, the grid) is `kernels/modmac.py` `plan`.
+//
+// `ct_tensor_kernel<SQ, V>` (`kernels/modmac.py` `ct_tensor`), beside K6 and
+// not of its family: the NTT-domain tensor product of the BEHZ multiply,
+// c0 = x0 y0, c1 = x0 y1 + x1 y0, c2 = x1 y1 mod q_l, from x, y [R, 2, L,
+// N] into [R, 3, L, N] in one pass (SQ: y = x, x0^2, 2 x0 x1, x1^2 from one
+// read).  A thread owns V coefficients of one (row, limb); each product
+// (c1's two summed lazily, below 2 q**2 < q 2**32) is reduced by two REDCs,
+// the second by R**2 mod q, so the result is the canonical a b mod q of
+// the twin's `mont_mul(x, to_mont(y))`.  Bound by bytes: 4 (SQ: 2) reads
+// and 3 writes of 4 bytes an output coefficient.
 
 #include <cuda_runtime.h>
 
@@ -233,6 +243,81 @@ int describe_rt(int V, int* out) {
   return V == 4 ? describe<C, RT, 4>(out) : describe<C, RT, 1>(out);
 }
 
+// ------------------------------------------------------------ ct_tensor
+struct TensorParams {
+  const int32_t* x;
+  const int32_t* y;       // null for the square
+  int32_t* out;           // contiguous [R, 3, L, N]
+  const uint32_t* mods;   // [L, 4]: q, -q^-1 mod 2**32, R**2 mod q, 0
+  uint32_t L, logn, log_tiles;
+};
+
+// s < q 2**32 -> s mod q: s R^-1 by one REDC, then times R**2 R^-1
+__device__ __forceinline__ uint32_t reduce2(uint64_t s, uint32_t q, uint32_t qinv, uint32_t r2) {
+  return mont::redc(uint64_t(mont::redc(s, q, qinv)) * r2, q, qinv);
+}
+
+template <bool SQ, int V>
+__global__ void __launch_bounds__(kThreads) ct_tensor_kernel(const TensorParams p) {
+  const uint32_t tile = blockIdx.x & ((1u << p.log_tiles) - 1);
+  const uint32_t r = blockIdx.x >> p.log_tiles;
+  const uint32_t l = blockIdx.y;
+  const uint32_t n = (tile * kThreads + threadIdx.x) * V;
+  if (n >= (1u << p.logn)) return;
+  const uint32_t q = __ldg(p.mods + 4 * l);
+  const uint32_t qinv = __ldg(p.mods + 4 * l + 1);
+  const uint32_t r2 = __ldg(p.mods + 4 * l + 2);
+  const uint64_t poly = uint64_t(p.L) << p.logn;   // one polynomial of a row
+  const uint64_t at = (uint64_t(l) << p.logn) + n;
+  uint32_t x0[V], x1[V], y0[V], y1[V];
+  Vec<V>::load(p.x + 2 * r * poly + at, x0);
+  Vec<V>::load(p.x + (2 * r + 1) * poly + at, x1);
+  if constexpr (!SQ) {
+    Vec<V>::load(p.y + 2 * r * poly + at, y0);
+    Vec<V>::load(p.y + (2 * r + 1) * poly + at, y1);
+  }
+  uint32_t c0[V], c1[V], c2[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const uint32_t b0 = SQ ? x0[v] : y0[v], b1 = SQ ? x1[v] : y1[v];
+    const uint64_t mid = SQ ? 2 * (uint64_t(x0[v]) * x1[v])
+                            : uint64_t(x0[v]) * b1 + uint64_t(x1[v]) * b0;
+    c0[v] = reduce2(uint64_t(x0[v]) * b0, q, qinv, r2);
+    c1[v] = reduce2(mid, q, qinv, r2);
+    c2[v] = reduce2(uint64_t(x1[v]) * b1, q, qinv, r2);
+  }
+  int32_t* out = p.out + 3 * r * poly + at;
+  Vec<V>::store(out, c0);
+  Vec<V>::store(out + poly, c1);
+  Vec<V>::store(out + 2 * poly, c2);
+}
+
+template <bool SQ>
+cudaError_t tensor_launch(int V, dim3 grid, const TensorParams& p, cudaStream_t s) {
+  if (V == 4)
+    ct_tensor_kernel<SQ, 4><<<grid, kThreads, 0, s>>>(p);
+  else
+    ct_tensor_kernel<SQ, 1><<<grid, kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool SQ, int V>
+int tensor_describe(int* out) {
+  const auto kernel = ct_tensor_kernel<SQ, V>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  if (err != cudaSuccess) return int(err);
+  out[0] = attr.numRegs;
+  out[1] = int(attr.localSizeBytes);
+  out[2] = kThreads;
+  out[3] = int(attr.sharedSizeBytes);
+  out[4] = blocks;
+  return 0;
+}
+
 }  // namespace
 
 // Five ints into `out` for the instance (C outputs, RT rows, V
@@ -324,4 +409,36 @@ extern "C" int mod_mac(const long long* v, void* stream) {
 
 extern "C" const char* mod_mac_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Five ints for the tensor kernel's instance (square or not, V), as
+// `mod_mac_kernel_info` gives them.
+extern "C" int ct_tensor_kernel_info(int square, int V, int* out) {
+  if (square) return V == 4 ? tensor_describe<true, 4>(out) : tensor_describe<true, 1>(out);
+  return V == 4 ? tensor_describe<false, 4>(out) : tensor_describe<false, 1>(out);
+}
+
+// x, y (0: the square), out, mods, L, logn, V, log_tiles, grid x, grid y
+// (= L), device: int64 each (`kernels/modmac.py` `_launch_tensor`)
+extern "C" int ct_tensor(const long long* v, void* stream) {
+  TensorParams p;
+  p.x = reinterpret_cast<const int32_t*>(v[0]);
+  p.y = reinterpret_cast<const int32_t*>(v[1]);
+  p.out = reinterpret_cast<int32_t*>(v[2]);
+  p.mods = reinterpret_cast<const uint32_t*>(v[3]);
+  p.L = uint32_t(v[4]);
+  p.logn = uint32_t(v[5]);
+  const int V = int(v[6]);
+  p.log_tiles = uint32_t(v[7]);
+  const dim3 grid{unsigned(v[8]), unsigned(v[9]), 1u};
+  if (grid.x == 0 || grid.y == 0) return 0;
+  int current = 0;
+  cudaGetDevice(&current);
+  const int device = int(v[10]);
+  if (current != device) cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = p.y ? tensor_launch<false>(V, grid, p, s)
+                              : tensor_launch<true>(V, grid, p, s);
+  if (current != device) cudaSetDevice(current);
+  return int(err);
 }

@@ -19,6 +19,12 @@ stacked axis where it lies, keys broadcast by `expand`.  A tensor inside
 whose vmap rule folds the record axis of `a` and `acc` into the rows (no
 copy); batched keys or gathers are refused.
 
+`ct_tensor` is the BEHZ multiply's NTT-domain tensor product (`modmac.cu`
+`ct_tensor_kernel`, beside K6 and not of its family): c0, c1 and c2 of two
+size-2 ciphertexts, or of one's square, in one launch, counted under
+`LAUNCHES["ct_tensor"]`; its twin `ct_tensor_plain` is `to_mont`, four
+`mont_mul`, an `add_mod` and a `stack` in int64.
+
 Replaces the XLA fusions of the key-switch inner product and the BSGS
 multiply-accumulates; see `modmac.cu` for the design and `plan` for the
 launch: coefficients and rows a thread, the grid.  No PyTorch call
@@ -42,7 +48,7 @@ from .build import load_library, source
 
 _SRC = source("modmac.cu")
 
-LAUNCHES = {"mod_mac": 0}
+LAUNCHES = {"mod_mac": 0, "ct_tensor": 0}
 
 
 # ------------------------------------------------------------ plain twin
@@ -81,6 +87,10 @@ def build() -> ctypes.CDLL:
     lib.mod_mac_threads.restype = ctypes.c_int
     lib.mod_mac_kernel_info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.mod_mac_kernel_info.restype = ctypes.c_int
+    lib.ct_tensor.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    lib.ct_tensor.restype = ctypes.c_int
+    lib.ct_tensor_kernel_info.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ct_tensor_kernel_info.restype = ctypes.c_int
     lib.mod_mac_error_string.argtypes = [ctypes.c_int]
     lib.mod_mac_error_string.restype = ctypes.c_char_p
     if (lib.mod_mac_param_count(), lib.mod_mac_threads()) != (_PARAMS, THREADS):
@@ -317,3 +327,128 @@ def key_inner_product(dhat, k0, k1, chain, acc=None) -> torch.Tensor:
         acc = tuple(acc[..., c, :, :].reshape(1, 1, -1, L, N) for c in (0, 1))
     out = mod_mac(a, keys, chain, acc)                    # [1, 1, R, 2, L, N]
     return out.reshape(*lead, 2, L, N)
+
+
+# ------------------------------------------------------------- ct_tensor
+def ct_tensor_plain(x, y, chain) -> torch.Tensor:
+    """The NTT-domain tensor product in plain PyTorch: x, y [..., 2, L, N]
+    (y None: x's square) -> [..., 3, L, N] = (x0 y0, x0 y1 + x1 y0, x1 y1)
+    mod each limb of `chain`."""
+    yh = chain.to_mont(x if y is None else y)
+    x0, x1 = x[..., 0, :, :], x[..., 1, :, :]
+    y0, y1 = yh[..., 0, :, :], yh[..., 1, :, :]
+    c0 = chain.mont_mul(x0, y0)
+    c1 = add_mod(chain.mont_mul(x0, y1), chain.mont_mul(x1, y0), chain.q)
+    c2 = chain.mont_mul(x1, y1)
+    return torch.stack([c0, c1, c2], dim=-3)
+
+
+@functools.lru_cache(maxsize=None)
+def tensor_plan(R, L, N, vector: bool) -> MappingProxyType:
+    """The launch of one tensor product over R rows of L limbs: V = 4
+    coefficients a thread where the 16-byte accesses are aligned
+    (`vector`), THREADS threads a block, the grid x = (r << log_tiles) |
+    tile, y = the limb; V falls to 1 below MIN_THREADS threads."""
+    V = 4 if vector and N % 4 == 0 else 1
+    while True:
+        tiles = max(1, N // (V * THREADS))
+        if R * L * tiles * THREADS >= MIN_THREADS or V == 1:
+            break
+        V = 1
+    grid = (R * tiles, L, 1)
+    if grid[1] > GRID_YZ or grid[0] >= 1 << 31:
+        raise ValueError(f"ct_tensor: too many rows for one launch: grid {grid}")
+    return MappingProxyType(dict(V=V, log_tiles=tiles.bit_length() - 1, grid=grid))
+
+
+def tensor_kernel_info(square: bool, V: int) -> dict:
+    """`kernel_info` of the tensor kernel's instance."""
+    lib = build()
+    out = (ctypes.c_int * len(KERNEL_INFO_KEYS))()
+    err = lib.ct_tensor_kernel_info(int(square), V, out)
+    if err != 0:
+        raise RuntimeError(f"ct_tensor_kernel_info failed: "
+                           f"{lib.mod_mac_error_string(err).decode()}")
+    return dict(zip(KERNEL_INFO_KEYS, out))
+
+
+def tensor_check(x, y, chain) -> None:
+    """Raise unless x (and y) are int32 [..., 2, L, N] alike, N a power of
+    two, on the chain's device with one table row a limb."""
+    N, L = x.shape[-1], x.shape[-2]
+    if x.dim() < 3 or x.shape[-3] != 2 or N & (N - 1) or N == 0:
+        raise ValueError(f"ct_tensor takes [..., 2, L, N], N a power of two: "
+                         f"{tuple(x.shape)}")
+    for t in (x,) if y is None else (x, y):
+        if t.dtype != torch.int32 or t.device != x.device or t.shape != x.shape:
+            raise ValueError("ct_tensor takes int32 ciphertexts of one shape "
+                             "on one device")
+    if tuple(chain.mont.shape) != (L, 4) or chain.mont.device != x.device:
+        raise ValueError(f"the chain's table does not fit {L} limbs on {x.device}")
+
+
+def _launch_tensor(x, y, chain) -> torch.Tensor:
+    tensor_check(x, y, chain)
+    x = x.contiguous()
+    y = None if y is None else y.contiguous()
+    L, N = x.shape[-2:]
+    out = torch.empty((*x.shape[:-3], 3, L, N), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    R = x.numel() // (2 * L * N)
+    ptrs = [x.data_ptr(), 0 if y is None else y.data_ptr(), out.data_ptr()]
+    pl = tensor_plan(R, L, N, _aligned(ptrs, ()))
+    v = [*ptrs, chain.mont.data_ptr(), L, N.bit_length() - 1, pl["V"],
+         pl["log_tiles"], pl["grid"][0], pl["grid"][1], x.device.index]
+    lib = build()
+    err = lib.ct_tensor((ctypes.c_longlong * len(v))(*v),
+                        torch._C._cuda_getCurrentRawStream(x.device.index))
+    if err != 0:
+        raise RuntimeError(f"ct_tensor launch failed: {lib.mod_mac_error_string(err).decode()}")
+    LAUNCHES["ct_tensor"] += 1
+    return out
+
+
+def _ct_tensor3(x, y, chain) -> torch.Tensor:
+    """The tensor product of tensors that are not batched: the kernel on
+    CUDA, the twin on the CPU."""
+    if x.device.type == "cpu":
+        return ct_tensor_plain(x, y, chain)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ct_tensor for device {x.device}")
+    return _launch_tensor(x, y, chain)
+
+
+@torch.library.custom_op(f"{LIB}::ct_tensor", mutates_args=())
+def _tensor_op(x: torch.Tensor, y: Optional[torch.Tensor], chain: int) -> torch.Tensor:
+    """The tensor product of tensors that are not batched, the chain by
+    handle."""
+    return _ct_tensor3(x, y, lookup(chain))
+
+
+@torch.library.register_vmap(_tensor_op)
+def _tensor_vmap(info, in_dims, x, y, chain):
+    """The records are more rows; an operand without them is broadcast."""
+    x_dim, y_dim, _ = in_dims
+    B = info.batch_size
+
+    def rows(t, d):
+        if t is None:
+            return None
+        return t.expand(B, *t.shape) if d is None else t.movedim(d, 0)
+
+    return _tensor_op(rows(x, x_dim), rows(y, y_dim), chain), 0
+
+
+def ct_tensor(x, y, chain) -> torch.Tensor:
+    """The BEHZ multiply's NTT-domain tensor product: x, y int32 [..., 2,
+    L, N] (y None: x's square, from one read; leading axes broadcast, the
+    kernel reading them expanded) -> [..., 3, L, N] = (x0 y0, x0 y1 + x1
+    y0, x1 y1) mod each limb of `chain`: one launch on CUDA, the twin on
+    the CPU."""
+    if y is not None and y.shape != x.shape:
+        shape = torch.broadcast_shapes(x.shape, y.shape)
+        x, y = x.expand(shape), y.expand(shape)
+    if is_batched(x) or (y is not None and is_batched(y)):
+        return _tensor_op(x, y, handle(chain))
+    return _ct_tensor3(x, y, chain)

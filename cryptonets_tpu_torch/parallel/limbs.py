@@ -10,12 +10,13 @@ shard as an optional argument and calls two methods:
   * `all_gather(x, dim)`: the ranks' limb blocks in rank order,
     concatenated along the limb axis: key switching reads whole source
     limbs (digits, RNS groups), once per switch in the coefficient domain;
-    the exact host decrypt composes every limb;
-  * `all_reduce_sum(x)`: the int64 sum over the ranks: a fast base
-    conversion out of base q (BEHZ lift and scale, the gamma and two-plane
-    decrypts) sums its terms over every source limb, so each rank adds its
-    own limbs' terms and the partial sums, each below 2**32, are summed
-    exactly in int64.
+    the BEHZ multiply's lift and fast floor read every q limb of their
+    operand, once each; the exact host decrypt composes every limb;
+  * `all_reduce_sum(x)`: the int64 sum over the ranks: a decrypt's fast
+    base conversion out of base q (the gamma and two-plane decrypts) sums
+    its terms over every source limb, so each rank adds its own limbs'
+    terms and the partial sums, each below 2**32, are summed exactly in
+    int64.
 
 Under gloo the tensors cross through host memory (gloo collectives run on
 host tensors); under NCCL they stay on the device.  Each call counts

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (cryptonets_tpu_torch/kernels/ntt.cu with
-its lift loads, modmatmul.cu, matmul_ntt.cu, modmac.cu and bconv.cu)
-against their plain versions, on the card.
+its lift loads, modmatmul.cu, matmul_ntt.cu, modmac.cu with the BEHZ
+tensor product, and bconv.cu with its BEHZ modes) against their plain
+versions, on the card.
 Needs a CUDA device: skips without one.  On the card:
 `python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda`
 (chip_smoke.py runs the same comparison at the main path's shapes)."""
@@ -383,3 +384,122 @@ def test_cuda_fused_kernels_under_vmap():
         return K7.fast_bconv(y, p.bconv["B_to_q_msk"], p.chain_q_msk)
 
     assert torch.equal(torch.func.vmap(conv)(Y), torch.stack([conv(y) for y in Y]))
+
+
+# (data limbs, plain modulus, n): CryptoNets' and LoLa's chain, CIFAR's at
+# n = 16384, a 64-bit plain modulus whose Bsk is wider than k + 1, and a
+# chain past the 16 source limbs held in registers
+BEHZ_RINGS = [(7, "cryptonets", 8192), (13, "cifar", 16384), (7, (1 << 63) - 25, 8192),
+              (17, 65537, 1024)]
+
+
+def _behz_params(k, t, n):
+    from cryptonets_tpu_torch.crypto.bfv import BFVParams
+    from cryptonets_tpu_torch.models.presets import CONFIGS
+
+    if isinstance(t, str):
+        t = CONFIGS[t]["plain_primes"][0]
+    return BFVParams(n, t, ntt_primes(n, 31, k), device="cuda")
+
+
+class _Limbs:
+    """A limb shard's block [lo, hi) of k, for the tables only."""
+
+    def __init__(self, lo, hi, k):
+        self.lo, self.hi, self.k = lo, hi, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t,n", BEHZ_RINGS)
+@pytest.mark.parametrize("rows", [64, 1])
+def test_cuda_behz_modes_match_twins(k, t, n, rows):
+    """K7's lift, floor and Shenoy-Kumaresan modes against their twin at
+    CryptoNets' chunk of 64 ciphertexts ([64, 2, k, n] in, [64, 3, ...]
+    for the floor and SK) and LoLa's one, CIFAR at n = 16384, a wide Bsk
+    and a chain read per target (above 16 source limbs), edge residues, on
+    one device's tables and on a limb-sharded rank's (limbs [2, 5): the
+    lift writes those through, SK targets them); one launch each, counted
+    by mode."""
+    from cryptonets_tpu_torch.kernels import bconv as K7
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    if n == 16384 and rows == 64:
+        rows = 16
+    full = _behz_params(k, t, n)
+    gen = torch.Generator(device="cuda").manual_seed(k * rows)
+    nb = len(full.bsk_list)
+    cases = {"lift": _edge_residues((rows, 2, k, n), full.q_list, gen),
+             "floor": _edge_residues((rows, 3, k + nb, n), full.chain_qbsk.moduli, gen),
+             "sk": _edge_residues((rows, 3, nb, n), full.bsk_list, gen)}
+    for p in (full, full.narrow(_Limbs(2, 5, k))):
+        for mode, x in cases.items():
+            tab = p.bconv[mode]
+            name = f"fast_bconv_{mode}"
+            before = K7.LAUNCHES[name]
+            out = K7.behz(x, tab)
+            assert K7.LAUNCHES[name] == before + 1
+            assert out.shape[-2] == tab.Lout
+            assert torch.equal(out, K7.behz_plain(x, tab)), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,n", [(64, 16, 8192), (1, 16, 8192), (3, 28, 16384),
+                                   (5, 3, 64), (1, 1, 2)])
+def test_cuda_ct_tensor_matches_twin(R, L, n):
+    """The tensor kernel against its twin, two operands (one broadcast over
+    the other's rows too) and the square, at CryptoNets' chunk over q +
+    Bsk, LoLa's one ciphertext, CIFAR's 28 limbs at n = 16384 and small
+    rings; every residue q - 1 too."""
+    from cryptonets_tpu_torch.crypto.bfv import get_mod_chain
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    mods = ntt_primes(max(n, 64), 31, L)
+    chain = get_mod_chain(mods, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(R + L)
+    x = _edge_residues((R, 2, L, n), mods, gen)
+    y = _edge_residues((R, 2, L, n), mods, gen)
+    top = (chain.q - 1).to(torch.int32).expand(R, 2, L, n)
+    for a, b in ((x, y), (x, None), (top, top), (top, None), (x, y[:1])):
+        before = K6.LAUNCHES["ct_tensor"]
+        out = K6.ct_tensor(a, b, chain)
+        assert K6.LAUNCHES["ct_tensor"] == before + 1
+        assert torch.equal(out, K6.ct_tensor_plain(a, b, chain))
+
+
+@pytest.mark.cuda
+def test_cuda_behz_square_under_vmap():
+    """`square` and `multiply` on the card: the square equals the product
+    of a with a copy of itself and the CPU's twins' product, in six
+    launches (lift, K1, tensor, K2, floor, SK); under `torch.func.vmap` the
+    modes and the tensor product equal the loop over the records."""
+    from cryptonets_tpu_torch.crypto.bfv import BFV, BFVParams
+    from cryptonets_tpu_torch.kernels import bconv as K7
+    from cryptonets_tpu_torch.kernels import modmac as K6
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs this on the card)")
+    k, n, B = 7, 8192, 3
+    p = _behz_params(k, "cryptonets", n)
+    cpu = BFVParams(n, p.t, p.q_list, device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a = _edge_residues((B, 2, 2, k, n), p.q_list, gen)
+    bfv = BFV(p)
+    before = {**K7.LAUNCHES, **K6.LAUNCHES, **K.LAUNCHES}
+    sq = bfv.square(a[0])
+    after = {**K7.LAUNCHES, **K6.LAUNCHES, **K.LAUNCHES}
+    delta = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+    assert delta == {"fast_bconv_lift": 1, "ntt_forward": 1, "ct_tensor": 1,
+                     "ntt_inverse": 1, "fast_bconv_floor": 1, "fast_bconv_sk": 1}, delta
+    assert torch.equal(sq, bfv.multiply(a[0], a[0].clone()))
+    assert torch.equal(sq.cpu(), BFV(cpu).square(a[0].cpu()))
+    vm = torch.func.vmap
+    assert torch.equal(vm(bfv.square)(a), torch.stack([bfv.square(x) for x in a]))
+    lift = p.bconv["lift"]
+    lifted = vm(lambda x: K7.behz(x, lift))(a)
+    assert torch.equal(lifted, torch.stack([K7.behz(x, lift) for x in a]))
+    xh = vm(p.ntt_qbsk.forward)(lifted)
+    assert torch.equal(vm(lambda x: K6.ct_tensor(x, None, p.chain_qbsk))(xh),
+                       torch.stack([K6.ct_tensor(x, None, p.chain_qbsk) for x in xh]))

@@ -337,8 +337,8 @@ def test_vmap_equals_loop(params):
 @pytest.fixture
 def counted(monkeypatch):
     """Counts of the calls into K6's and K7's kernel form (the kernel on
-    CUDA, the twin here), by wrapper."""
-    counts = {"mod_mac": 0, "fast_bconv": 0}
+    CUDA, the twin here), by wrapper: K7's BEHZ modes apart."""
+    counts = {"mod_mac": 0, "fast_bconv": 0, "behz": 0}
 
     def wrap(name, fn):
         def counting(*args):
@@ -348,6 +348,7 @@ def counted(monkeypatch):
 
     monkeypatch.setattr(modmac, "_mod_mac6", wrap("mod_mac", modmac._mod_mac6))
     monkeypatch.setattr(bconv, "_fast_bconv4", wrap("fast_bconv", bconv._fast_bconv4))
+    monkeypatch.setattr(bconv, "_behz_rows", wrap("behz", bconv._behz_rows))
     return counts
 
 
@@ -375,18 +376,19 @@ def test_sites_dispatch_through_the_wrappers(counted):
         bfv, keys = fac.bfv[0], fac.keys
         ct = fac.get_encrypted_vector(vec).data[0]          # [C, 2, k, N]
         sq, d = _delta(counted, lambda: bfv.multiply(ct, ct))
-        assert d["fast_bconv"] == 4 and d["mod_mac"] == 0, d   # lift x2, floor, SK
+        # lift x2, floor, SK: K7's BEHZ modes
+        assert d == {"mod_mac": 0, "fast_bconv": 0, "behz": 4}, d
         _, d = _delta(counted, lambda: bfv.relinearize(sq, keys))
         k7 = 0 if not bfv.p.ks_hybrid else bfv.p.ks_omega + (bfv.p.n_special > 0)
-        assert d == {"mod_mac": 1, "fast_bconv": k7}, d
+        assert d == {"mod_mac": 1, "fast_bconv": k7, "behz": 0}, d
         for attr in ("digit_stack_bytes", "group_stack_bytes"):
             setattr(bfv, attr, 0)                           # the loops (2')
         _, d = _delta(counted, lambda: bfv.relinearize(sq, keys))
         J = bfv.p.ks_omega if bfv.p.ks_hybrid else bfv.p.k * bfv.p.digits_per_limb
-        assert d == {"mod_mac": J, "fast_bconv": k7}, d
+        assert d == {"mod_mac": J, "fast_bconv": k7, "behz": 0}, d
         del bfv.digit_stack_bytes, bfv.group_stack_bytes
         _, d = _delta(counted, lambda: bfv.decrypt_residues_mod_t(keys, ct))
-        assert d == {"mod_mac": 0, "fast_bconv": 1}, d
+        assert d == {"mod_mac": 0, "fast_bconv": 1, "behz": 0}, d
     # the hoisted babies (3) and the giant chunks (1), sparse and dense
     for fac in (digit, groups):
         g, R = 4, 6
